@@ -1,0 +1,319 @@
+"""Vectorized bulk-build engine — the fast lane of ``repro.core.bulk``.
+
+``insert_single`` runs the engine's two halves:
+
+1. **Dedup** (``_group_fast``): duplicate keys of a batch are grouped by a
+   bare key sort + ``searchsorted``, and one *representative* per distinct
+   live key survives — the group's first live occurrence, carrying the
+   group's last live value (last writer wins).
+2. **Upsert of the representatives** (``kernels.cops.ops.insert``): on a
+   CUDA table the ``cops_insert`` kernel, one warp-cooperative walk per
+   representative with an ``atomicCAS`` claim; on a CPU table its plain
+   version, ``kernels.cops.ops.insert_plain``, which is this module's
+   ``probe_matches`` -> ``place_claims`` -> ``_apply`` pipeline:
+
+   - **Probe**: one walk per representative against the pre-batch store
+     finds the keys already present (stop at a match or at a window holding
+     an EMPTY).  Representatives are distinct, so no write of the batch
+     can create or destroy a match.  An empty store skips the walk.
+   - **Arbitrate**: the virtual-fill fixpoint places the claimers.  Per
+     sweep, claimers targeting a row are ranked by batch position; rank k
+     takes the k-th lowest EMPTY / TOMBSTONE lane, and ranks past the row's
+     free-lane count bump to the next row of their own walk.  The fixpoint
+     ends where the sequential scan would have placed every claimer.
+   - **Apply**: one batched write of values (matches and claims) and keys
+     (claims).
+
+3. **Statuses** (``_finish_fast``) fan out from the representatives to
+   every element in batch order.
+
+The plain lane is bit-exact against ``repro.core.bulk.insert_single``
+(the same store planes and statuses); the kernel lane meets the four-part
+contract of ``ROADMAP.md`` (same live key->value map, same statuses when
+nothing is FULL, every key at or before the first EMPTY window of its
+walk, retrieve parity).  ``lax.cond`` / ``while_loop`` of the JAX engine
+are Python branches and loops on host-read scalars here.
+
+The JAX engine's general lane (wide keys, combiner callables), its
+telemetry and quotient stores are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import probing
+from repro_torch.core.common import (
+    EMPTY_WORD,
+    STATUS_FULL,
+    STATUS_INSERTED,
+    STATUS_MASKED,
+    STATUS_UPDATED,
+    TOMBSTONE_WORD,
+)
+
+_I64 = torch.int64
+
+
+def _tstatic(table):
+    """(store protocol, scheme, seed, max_probes) — the engines' static
+    tuple, with the coverage-clamped budget (``probing.effective_probes``)."""
+    return (table.ops, table.scheme, table.seed,
+            probing.effective_probes(table.scheme, table.max_probes,
+                                     table.num_rows))
+
+
+# ---------------------------------------------------------------------------
+# dedup — fast lane (1-word keys, original batch order)
+# ---------------------------------------------------------------------------
+
+def _group_fast(keys1: torch.Tensor, live: torch.Tensor):
+    """Group structure for 1-word keys without any payload sort.
+
+    Masked elements sort as EMPTY (no user key collides with a sentinel)
+    and so never join a live group.  Returns ``(is_rep, rep_of, lww_of,
+    has_dups)`` in batch order; ``rep_of`` / ``lww_of`` map every
+    element to its group's first / last live element (``n`` / 0 for a group
+    with no live element), itself when the batch is duplicate-free.
+    """
+    n = keys1.shape[0]
+    idx = torch.arange(n, dtype=_I64, device=keys1.device)
+    k = torch.where(live, keys1, EMPTY_WORD)
+    sk = torch.sort(k).values
+    has_dups = bool(((sk[1:] == sk[:-1]) & (sk[:-1] != EMPTY_WORD)).any())
+    if has_dups:
+        gid = torch.searchsorted(sk, k)
+        rep = torch.full((n,), n, dtype=_I64, device=keys1.device)
+        rep.scatter_reduce_(0, gid, torch.where(live, idx, n), "amin")
+        lww = torch.zeros((n,), dtype=_I64, device=keys1.device)
+        lww.scatter_reduce_(0, gid, torch.where(live, idx, 0), "amax")
+        rep_of, lww_of = rep[gid], lww[gid]
+    else:
+        rep_of = lww_of = idx
+    is_rep = live & (rep_of == idx)
+    return is_rep, rep_of, lww_of, has_dups
+
+
+# ---------------------------------------------------------------------------
+# probe — one walk per active element (batch version of the sequential walk)
+# ---------------------------------------------------------------------------
+
+def probe_matches(tstatic, store, keys, words, active, count=None):
+    """One COPS walk for every active element against the current store.
+
+    Returns ``(matched, row, lane)``, the position of each key already
+    present.  A walk stops at a match or at a window holding an EMPTY; only
+    the elements still walking are gathered each round.  When ``count`` is
+    given and zero the walk is skipped (an empty store holds no match), and
+    ``row`` is then the initial row, as in the JAX engine.
+    """
+    ops, scheme, seed, max_probes = tstatic
+    num_rows, w = ops.num_rows, ops.window
+    n = keys.shape[0]
+    dev = keys.device
+    row0 = probing.initial_row(words, num_rows, seed)
+    matched = torch.zeros((n,), dtype=torch.bool, device=dev)
+    lane = torch.zeros((n,), dtype=_I64, device=dev)
+    if count is not None and count == 0:
+        return matched, row0, lane
+    mrow = torch.zeros((n,), dtype=_I64, device=dev)
+    kp0 = ops.key_planes(store)[0]
+    act = torch.nonzero(active).squeeze(1)
+    row, key = row0[act], keys[act]
+    step = probing.row_step(scheme, words[act], num_rows, seed)
+    for _ in range(max_probes):
+        if act.numel() == 0:
+            break
+        win = kp0[row]                                        # (m, W)
+        m_lane = probing.vote_lowest(win == key[:, None])
+        hit = m_lane < w
+        has_empty = probing.vote_any(win == EMPTY_WORD)
+        hit_at = act[hit]
+        mrow[hit_at] = row[hit]
+        lane[hit_at] = m_lane[hit]
+        matched[hit_at] = True
+        go = ~(hit | has_empty)
+        act, key, step = act[go], key[go], step[go]
+        row = probing.advance_row(row[go], step, num_rows)
+    return matched, mrow, lane
+
+
+# ---------------------------------------------------------------------------
+# arbitrate — the virtual-fill fixpoint
+# ---------------------------------------------------------------------------
+
+def _rank_by_row(row, alive):
+    """Rank each alive claimer among same-row claimers by batch position.
+
+    One int64 sort of the packed ``row * n + position`` word covers both
+    forms of the JAX engine (its u32 packing and its two-key overflow
+    sort).  Dead claimers get rank 0.
+    """
+    n = row.shape[0]
+    pos = torch.arange(n, dtype=_I64, device=row.device)
+    sent = torch.iinfo(_I64).max
+    sp = torch.sort(torch.where(alive, row * n + pos, sent)).values
+    srow = sp // n
+    tgt = torch.where(sp == sent, n, sp % n)
+    newrow = torch.ones((n,), dtype=torch.bool, device=row.device)
+    newrow[1:] = srow[1:] != srow[:-1]
+    rank_sorted = pos - torch.cummax(torch.where(newrow, pos, -1), 0).values
+    by_pos = torch.zeros((n + 1,), dtype=_I64, device=row.device)
+    by_pos[tgt] = rank_sorted                   # dead claimers land in [n]
+    return by_pos[:n]
+
+
+def _popcount32(x):
+    """Set bits of each u32 value in the int64 tensor ``x`` (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _nth_set_lane(mask32, rank, window):
+    """Lane index of the ``rank``-th set bit of a per-element candidate
+    bitmask — a 5-step popcount binary search (the vector analogue of
+    ``__fns`` on a ballot mask).  Requires W <= 32."""
+    lane = torch.zeros_like(rank)
+    cur, r = mask32, rank
+    for shift in (16, 8, 4, 2, 1):
+        if shift >= window:
+            continue
+        low = cur & ((1 << shift) - 1)
+        c = _popcount32(low)
+        hi = r >= c
+        r = r - torch.where(hi, c, 0)
+        lane = lane + torch.where(hi, shift, 0)
+        cur = torch.where(hi, cur >> shift, low)
+    return lane
+
+
+def place_claims(tstatic, store, words, claim):
+    """Assign every claimer a slot — or FULL — via the virtual-fill fixpoint.
+
+    Priority is batch position (sequential insert order).  Returns
+    ``(placed, row, lane, full)``.
+    """
+    ops, scheme, seed, max_probes = tstatic
+    num_rows, w = ops.num_rows, ops.window
+    n = words.shape[0]
+    kp0 = ops.key_planes(store)[0]
+    cand = (kp0 == EMPTY_WORD) | (kp0 == TOMBSTONE_WORD)         # (p, W)
+    if w <= 32:
+        # each row's candidate lanes as one u32 ballot mask
+        bits = 1 << torch.arange(w, dtype=_I64, device=kp0.device)
+        cmask = (cand.to(_I64) * bits).sum(dim=1)
+        n_cand = _popcount32(cmask)                              # (p,)
+    else:
+        cmask = None
+        n_cand = cand.sum(dim=1)
+    row = probing.initial_row(words, num_rows, seed)
+    step = probing.row_step(scheme, words, num_rows, seed)
+
+    def advance(attempt, row, move, full):
+        """Advance bumped claimers to their next row with any free lane."""
+        pending = move & ~full
+        while bool(pending.any()):
+            row = torch.where(pending, probing.advance_row(row, step, num_rows),
+                              row)
+            attempt = attempt + pending.to(_I64)
+            pending = pending & (attempt < max_probes) & (n_cand[row] == 0)
+        # past the budget, or stranded on a candidate-free row: FULL
+        full = full | (move & ((attempt > max_probes) | (n_cand[row] == 0)))
+        return attempt, row, full
+
+    attempt = torch.ones((n,), dtype=_I64, device=words.device)
+    full = torch.zeros((n,), dtype=torch.bool, device=words.device)
+    rank = _rank_by_row(row, claim)
+    over = claim & (rank >= n_cand[row])
+    while bool(over.any()):
+        attempt, row, full = advance(attempt, row, over, full)
+        alive = claim & ~full
+        rank = _rank_by_row(row, alive)
+        over = alive & (rank >= n_cand[row])
+    placed = claim & ~full
+    # rank-th lowest free lane of the assigned row
+    if cmask is not None:
+        lane = _nth_set_lane(cmask[row], rank, w)
+    else:
+        crow = cand[row]                                          # (n, W)
+        crank = torch.cumsum(crow.to(_I64), dim=1) - 1
+        lanes = torch.arange(w, dtype=_I64, device=crow.device)
+        lane = torch.where(crow & (crank == rank[:, None]), lanes, w).amin(1)
+    return placed, row, torch.where(placed, lane, 0), full
+
+
+# ---------------------------------------------------------------------------
+# apply, statuses and the entry point
+# ---------------------------------------------------------------------------
+
+def _apply(ops, store, keys, matched, mrow, mlane, placed, crow, clane, vals):
+    """One write phase, in place: values of matches and claims, keys of
+    claims.  Returns the number of claimed slots."""
+    write = matched | placed
+    row = torch.where(matched, mrow, crow)
+    lane = torch.where(matched, mlane, clane)
+    slots = (row * ops.window + lane)[write]
+    ops.scatter_batch(store, slots, keys[write][:, None], vals[write][:, None],
+                      placed[write])
+    return int(placed.sum())
+
+
+def dedup(keys, values, mask=None):
+    """The dedup front end: ``(rep_keys, rep_values, groups)``.
+
+    One representative per distinct live key, in batch order, carrying its
+    group's last live value.  ``groups`` is what ``_finish_fast`` needs to
+    fan statuses back out, or None when every element represents itself
+    (no mask, no duplicates) and the batch passes through untouched.
+    """
+    n = keys.shape[0]
+    live = (torch.ones((n,), dtype=torch.bool, device=keys.device)
+            if mask is None else mask)
+    is_rep, rep_of, lww_of, has_dups = _group_fast(keys, live)
+    if mask is None and not has_dups:
+        return keys, values, None
+    rep_idx = torch.nonzero(is_rep).squeeze(1)
+    return (keys[rep_idx], values[lww_of[rep_idx]],
+            (live, is_rep, rep_of, rep_idx))
+
+
+def _finish_fast(groups, rep_status):
+    """Statuses in batch order from the representatives' statuses.
+
+    A representative keeps its own status; a later duplicate reports
+    UPDATED when its representative landed (INSERTED or UPDATED) and FULL
+    otherwise; masked elements report MASKED.
+    """
+    if groups is None:
+        return rep_status
+    live, is_rep, rep_of, rep_idx = groups
+    n = live.shape[0]
+    per = torch.full((n,), STATUS_FULL, dtype=torch.int32, device=live.device)
+    per[rep_idx] = rep_status
+    rep_ok = per[rep_of.clamp(max=n - 1)] != STATUS_FULL
+    dup = torch.where(rep_ok, STATUS_UPDATED, STATUS_FULL).to(torch.int32)
+    return torch.where(~live, STATUS_MASKED,
+                       torch.where(is_rep, per, dup)).to(torch.int32)
+
+
+def insert_single(table, keys, values, mask=None):
+    """Bulk path for ``single_value.insert`` (plain upsert, LWW dedup).
+
+    ``keys`` / ``values`` are int32 word tensors and ``mask`` a bool tensor
+    (or None), all on the table's device.  The store is updated in place.
+    """
+    from repro_torch.kernels.cops import ops as cops_ops
+    if keys.shape[0] == 0:
+        return table, torch.zeros((0,), dtype=torch.int32, device=keys.device)
+    rkeys, rvals, groups = dedup(keys, values, mask)
+    _, scheme, seed, max_probes = _tstatic(table)
+    rep_status = cops_ops.insert(
+        table.store["keys"][0], table.store["values"][0], rkeys, rvals,
+        seed=seed, scheme=scheme, max_probes=max_probes, count=table.count)
+    inserted = int((rep_status == STATUS_INSERTED).sum())
+    return (dataclasses.replace(table, count=table.count + inserted),
+            _finish_fast(groups, rep_status))

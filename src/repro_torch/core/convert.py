@@ -1,0 +1,51 @@
+"""State bridge between the JAX package's tables and the port's.
+
+A JAX ``SingleValueHashTable`` hands over its state as numpy arrays
+(``np.asarray(t.store["keys"])``, ``np.asarray(t.store["values"])``,
+``int(t.count)``) plus its static fields; ``table_from_numpy`` builds the
+port's table from exactly that, tombstones included, and
+``table_to_numpy`` goes back.  Neither side imports the other: the bridge
+speaks numpy only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core import single_value
+from repro_torch.core.common import to_numpy_u32, to_words
+
+
+def table_from_numpy(keys_planes: np.ndarray, value_planes: np.ndarray,
+                     count: int, *, num_rows: int, window: int, scheme: str,
+                     seed: int, max_probes: int, device=None,
+                     ) -> single_value.SingleValueHashTable:
+    """The port's table holding the given (key_words, p, W) / (value_words,
+    p, W) u32 planes and live ``count``."""
+    keys_planes = np.asarray(keys_planes)
+    value_planes = np.asarray(value_planes)
+    if keys_planes.shape[1:] != (num_rows, window):
+        raise ValueError(f"key planes {keys_planes.shape} do not match "
+                         f"({num_rows}, {window})")
+    if value_planes.shape[1:] != keys_planes.shape[1:]:
+        raise ValueError(f"value planes {value_planes.shape} do not match "
+                         f"key planes {keys_planes.shape}")
+    table = single_value.create(
+        num_rows * window, window=window, scheme=scheme, seed=seed,
+        max_probes=max_probes, device=device, key_words=keys_planes.shape[0],
+        value_words=value_planes.shape[0])
+    if table.num_rows != num_rows:
+        raise ValueError(f"{num_rows} rows is not the prime geometry of "
+                         f"capacity {num_rows * window}")
+    dev = table.device
+    table.store["keys"].copy_(to_words(keys_planes, dev))
+    table.store["values"].copy_(to_words(value_planes, dev))
+    table.count = int(count)
+    return table
+
+
+def table_to_numpy(table: single_value.SingleValueHashTable) -> dict:
+    """``{"keys", "values"}`` u32 planes and ``count`` of a port table."""
+    return {"keys": to_numpy_u32(table.store["keys"]),
+            "values": to_numpy_u32(table.store["values"]),
+            "count": int(table.count)}

@@ -15,3 +15,8 @@ def unique_keys(rng, n, lo=1, hi=0xFFFFFF00):
     ks = rng.choice(np.arange(lo, lo + 4 * n, dtype=np.uint32), size=n,
                     replace=False)
     return ks
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; the test skips without one")

@@ -1,0 +1,255 @@
+"""The COPS kernel module of the port (``repro_torch.kernels.cops``).
+
+On the CPU the wrappers run the plain versions, which are held here,
+bit-exact, against the Pallas TPU kernels they replace — ``_insert_kernel``
+and ``_lookup_kernel`` in interpret mode, reached through
+``repro.kernels.cops.ops`` — on the same seeded store and batches.  The
+rest checks the wrappers' dispatch rules, the four-part contract checker
+that holds the CUDA insert kernel on the card, and the plain engine's
+building blocks.  The CUDA kernels themselves run in
+``tests/test_torch_cuda.py`` (card only) and ``chip_smoke.py``.
+"""
+
+import dataclasses
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bulk as jbulk
+from repro.core import single_value as jsv
+from repro.kernels.cops import ops as pallas_ops
+from repro_torch.core import bulk as tbulk
+from repro_torch.core import probing
+from repro_torch.core import single_value as tsv
+from repro_torch.core.common import (
+    EMPTY_WORD,
+    SUPPORTED_WINDOWS,
+    STATUS_FULL,
+    STATUS_INSERTED,
+    TOMBSTONE_WORD,
+    to_numpy_u32,
+)
+from repro_torch.kernels import build
+from repro_torch.kernels.cops import contract, ops
+
+CASES = [(1, "cops"), (32, "cops"), (128, "cops"), (8, "linear")]
+#: XLA's backend optimisation passes off: same integer results, faster compile
+_FAST = {"xla_backend_optimization_level": 0}
+
+
+def _keys(rng, n):
+    return rng.choice(2 ** 32 - 2, size=n, replace=False).astype(np.uint32)
+
+
+def _store(window, scheme, seed=0):
+    """A port table (CPU) at rho ~0.7 holding tombstones, plus the keys it
+    holds, erased keys and never-inserted keys."""
+    rng = np.random.default_rng([seed, window])
+    t = tsv.create(1024, window=window, scheme=scheme, device="cpu")
+    n = int(0.7 * t.capacity)
+    pool = _keys(rng, 2 * n)
+    keys, other = pool[:n], pool[n:]
+    t, _ = tsv.insert(t, keys, rng.integers(0, 2 ** 32, n, dtype=np.uint32))
+    t, _ = tsv.erase(t, keys[: n // 5])
+    return t, keys, other, rng
+
+
+def _pallas_table(t):
+    """The JAX table (backend "pallas") holding the port table's state."""
+    jt = jsv.create(t.capacity, window=t.window, scheme=t.scheme,
+                    backend="pallas")
+    assert jt.num_rows == t.num_rows
+    return dataclasses.replace(
+        jt, store={"keys": jnp.asarray(to_numpy_u32(t.store["keys"])),
+                   "values": jnp.asarray(to_numpy_u32(t.store["values"]))},
+        count=jnp.int32(t.count))
+
+
+def _kw(t):
+    return dict(seed=t.seed, scheme=t.scheme,
+                max_probes=tbulk._tstatic(t)[3])
+
+
+@pytest.mark.parametrize("window, scheme", CASES)
+def test_insert_plain_matches_pallas_insert_kernel(window, scheme):
+    """Distinct keys (what the kernel gets after dedup), half present, half
+    new, onto a store with tombstones: same planes, same statuses."""
+    t, keys, other, rng = _store(window, scheme)
+    batch = np.concatenate([keys[: t.capacity // 8], other[: t.capacity // 8]])
+    rng.shuffle(batch)
+    vals = rng.integers(0, 2 ** 32, batch.shape[0], dtype=np.uint32)
+    jt, jst = jax.jit(pallas_ops.insert, compiler_options=_FAST)(
+        _pallas_table(t), batch, vals)
+    kp, vp = t.store["keys"][0], t.store["values"][0]
+    st = ops.insert(kp, vp, torch.from_numpy(batch.view(np.int32)),
+                    torch.from_numpy(vals.view(np.int32)), count=t.count,
+                    **_kw(t))
+    np.testing.assert_array_equal(np.asarray(jst), st.numpy())
+    np.testing.assert_array_equal(np.asarray(jt.store["keys"][0]),
+                                  to_numpy_u32(kp))
+    np.testing.assert_array_equal(np.asarray(jt.store["values"][0]),
+                                  to_numpy_u32(vp))
+    assert int(jt.count) == t.count + int((st == STATUS_INSERTED).sum())
+
+
+@pytest.mark.parametrize("window, scheme", CASES)
+def test_lookup_plain_matches_pallas_lookup_kernel(window, scheme):
+    t, keys, other, _ = _store(window, scheme, seed=1)
+    queries = np.concatenate([keys, other[:256]])
+    jv, jf = jax.jit(pallas_ops.retrieve, compiler_options=_FAST)(
+        _pallas_table(t), queries)
+    kp, vp = t.store["keys"][0], t.store["values"][0]
+    v, f, slot = ops.lookup(kp, vp, torch.from_numpy(queries.view(np.int32)),
+                            slots=True, **_kw(t))
+    np.testing.assert_array_equal(np.asarray(jv), to_numpy_u32(v))
+    np.testing.assert_array_equal(np.asarray(jf), f.numpy())
+    assert bool((slot[~f] == -1).all())
+    np.testing.assert_array_equal(to_numpy_u32(kp.reshape(-1)[slot[f]]),
+                                  queries[f.numpy()])
+
+
+def test_cpu_wrappers_are_the_plain_versions():
+    t, keys, other, _ = _store(16, "cops", seed=2)
+    q = torch.from_numpy(np.concatenate([keys, other]).view(np.int32))
+    kp, vp = t.store["keys"][0], t.store["values"][0]
+    ops.reset_launches()
+    got = ops.lookup(kp, vp, q, slots=True, **_kw(t))
+    want = ops.lookup_plain(kp, vp, q, slots=True, **_kw(t))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    planes = [(kp.clone(), vp.clone()) for _ in range(2)]
+    v = q ^ 0x5A5A
+    s1 = ops.insert(*planes[0], q, v, count=t.count, **_kw(t))
+    s2 = ops.insert_plain(*planes[1], q, v, count=t.count, **_kw(t))
+    assert torch.equal(s1, s2)
+    assert all(torch.equal(a, b) for a, b in zip(planes[0], planes[1]))
+    assert ops.LAUNCHES == {"cops_insert": 0, "cops_lookup": 0}
+
+
+def test_plain_chunks_replay_batch_order(monkeypatch):
+    """Walking the batch in chunks gives the planes and statuses of one
+    whole-batch walk (the engine replays sequential insert order)."""
+    t, keys, other, rng = _store(8, "cops", seed=3)
+    batch = torch.from_numpy(np.concatenate([keys, other]).view(np.int32))
+    vals = batch ^ 77
+    runs = []
+    for chunk in (ops.PLAIN_CHUNK, 97):
+        monkeypatch.setattr(ops, "PLAIN_CHUNK", chunk)
+        kp, vp = t.store["keys"][0].clone(), t.store["values"][0].clone()
+        st = ops.insert_plain(kp, vp, batch, vals, count=t.count, **_kw(t))
+        lk = ops.lookup_plain(kp, vp, batch, slots=True, **_kw(t))
+        runs.append((st, kp, vp, *lk))
+    assert (runs[0][0] == STATUS_FULL).any()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_wrappers_refuse_other_devices_and_shapes():
+    kp = torch.full((7, 4), EMPTY_WORD, dtype=torch.int32)
+    vp = torch.zeros((7, 4), dtype=torch.int32)
+    k = torch.arange(5, dtype=torch.int32)
+    kw = dict(seed=1, scheme="cops", max_probes=7)
+    meta = [x.to("meta") for x in (kp, vp, k)]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.lookup(*meta, **kw)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.insert(*meta, meta[2], count=0, **kw)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.lookup(kp, vp, k.to("meta"), **kw)
+    with pytest.raises(ValueError):
+        ops.lookup(kp, vp, k, seed=1, scheme="quadratic", max_probes=7)
+    with pytest.raises(ValueError):
+        ops.insert(kp, vp, k, k[:3], count=0, **kw)
+    with pytest.raises(ValueError):
+        ops.lookup(kp[None], vp[None], k, **kw)
+    with pytest.raises(ValueError, match="window"):
+        ops.lookup(kp[:, :3], vp[:, :3], k, **kw)
+
+
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", SUPPORTED_WINDOWS)
+def test_contract_case_runs_on_cpu(window, scheme):
+    """The kernel-vs-plain case of the card, run where both sides are the
+    plain versions: every check holds."""
+    checks = contract.run_case(600, window=window, scheme=scheme,
+                               device="cpu")
+    assert len(checks) == 8 and all(checks.values()), checks
+
+
+def test_contract_catches_broken_stores():
+    """Each part of the contract fails on the fault it is there to catch."""
+    t, _, _, _ = _store(4, "linear", seed=4)
+    kw = _kw(t)
+    good = (t.store["keys"][0].clone(), t.store["values"][0].clone())
+    st = torch.zeros(10, dtype=torch.int32)
+    assert all(contract.check_insert(good, good, st, st, **kw).values())
+
+    bad_value = tuple(x.clone() for x in good)
+    live = (bad_value[0] != EMPTY_WORD) & (bad_value[0] != TOMBSTONE_WORD)
+    bad_value[1][live.nonzero()[0, 0], live.nonzero()[0, 1]] ^= 1
+    assert not contract.check_insert(bad_value, good, st, st,
+                                     **kw)["same_map"]
+
+    assert not contract.check_insert(good, good, st, st + 1,
+                                     **kw)["same_status"]
+    full = torch.full((10,), STATUS_FULL, dtype=torch.int32)
+    assert contract.check_insert(good, good, full, st, **kw)["same_status"]
+
+    # move a key that sits in its first row, next to an EMPTY lane, into an
+    # EMPTY slot of another row: the map is unchanged, but the key now lies
+    # past the first EMPTY window of its walk
+    moved = tuple(x.clone() for x in good)
+    flat_k, flat_v = moved[0].view(-1), moved[1].view(-1)
+    lk, _, lslot = contract.live_map(*moved)
+    rows = lslot // t.window
+    has_empty = (moved[0] == EMPTY_WORD).any(1)
+    home = probing.initial_row(lk, t.num_rows, t.seed)
+    src = int(lslot[(rows == home) & has_empty[rows]][0])
+    empties = (flat_k == EMPTY_WORD).nonzero().squeeze(1)
+    dst = int(empties[empties // t.window != src // t.window][0])
+    flat_k[dst], flat_v[dst] = flat_k[src], flat_v[src]
+    flat_k[src] = TOMBSTONE_WORD
+    res = contract.check_insert(moved, good, st, st, **kw)
+    assert res["same_map"] and not res["before_first_empty"], res
+
+
+def test_rank_and_lane_blocks_match_reference():
+    """The plain placement's building blocks, bit-exact against the JAX
+    engine's: the packed rank sort, popcount and the n-th set lane."""
+    rng = np.random.default_rng(9)
+    n, p = 2000, 211
+    row = rng.integers(0, p, n).astype(np.uint32)
+    alive = rng.random(n) < 0.8
+    want = jbulk._rank_by_row(jnp.asarray(row), jnp.arange(n, dtype=jnp.uint32),
+                              jnp.asarray(alive), p, True)
+    got = tbulk._rank_by_row(torch.from_numpy(row.astype(np.int64)),
+                             torch.from_numpy(alive))
+    np.testing.assert_array_equal(np.asarray(want)[alive], got.numpy()[alive])
+    mask = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+    np.testing.assert_array_equal(
+        np.asarray(jax.lax.population_count(jnp.asarray(mask))),
+        tbulk._popcount32(torch.from_numpy(mask.astype(np.int64))).numpy())
+    for window in (4, 32):
+        m = mask & np.uint32((1 << window) - 1 if window < 32 else 0xFFFFFFFF)
+        cnt = np.asarray(jax.lax.population_count(jnp.asarray(m)))
+        rank = (rng.random(n) * np.maximum(cnt, 1)).astype(np.int32)
+        want = jbulk._nth_set_lane(jnp.asarray(m), jnp.asarray(rank), window)
+        got = tbulk._nth_set_lane(torch.from_numpy(m.astype(np.int64)),
+                                  torch.from_numpy(rank.astype(np.int64)),
+                                  window)
+        ok = cnt > 0
+        np.testing.assert_array_equal(np.asarray(want)[ok], got.numpy()[ok])
+
+
+def test_build_finds_sources_and_needs_nvcc():
+    assert "cops" in build.sources()
+    assert build.library_path("cops").parent == build.BUILD_DIR
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is present here")
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        pytest.skip("a CUDA toolkit is present here")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.nvcc()
