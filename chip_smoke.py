@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — bulk build and bulk retrieval on the
-single-value COPS table, the paper's headline (§IV-B, Fig. 5) — at the
-paper's scale, and holds every kernel of that path against its plain
-PyTorch version.  Phases, one status line each:
+Drives the port's two paths — bulk build and bulk retrieval on the
+single-value COPS table, the paper's headline (§IV-B, Fig. 5), and on the
+multi-value table (§IV-B.4, Fig. 7) — at the paper's scale, and holds
+every kernel of each path against its plain PyTorch version.  Phases, one
+status line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``src/repro_torch/kernels/*/csrc``;
@@ -23,7 +24,24 @@ PyTorch version.  Phases, one status line each:
    zeroed just before this phase and read just after it;
 4. each kernel's wrapper and its plain version on the main path's inputs
    (2^28 keys), compared and timed, with the least time the card could
-   take for the same bytes (3.35 TB/s).
+   take for the same bytes (3.35 TB/s);
+5. multi-value kernels vs plain at 2^20 pairs, for wc-oa (W = 32 cops,
+   r = 1, 8, 32) and lp-oa (W = 1 linear, max_probes 8192, r = 8)
+   (``benchmarks/fig7_multi_value.py``): a build, an erase of 1/8 of the
+   keys through ``multi_value.erase``, and a second batch onto the
+   tombstones; after each batch the append under the multi-value contract
+   and the retrieve walk bit-exact (``contract.run_multi_case``);
+6. the multi-value main path, Fig. 7's wc-oa cell at r = 8: 2^28 pairs
+   (2^25 distinct keys, 8 in a row, values 0 .. n-1) into
+   ``multi_value.create(n / 0.8)``, W = 32, cops — insert, count_values,
+   retrieve_all (present, absent and duplicate queries), erase and
+   re-insert, every result checked; insert, count and retrieve_all timed
+   (median of 5 after a warm-up), and retrieve_all split into dedup,
+   kernel and compaction.  The counters are zeroed just before it and read
+   just after it;
+7. ``cops_append`` and ``cops_retrieve`` alone and their plain versions
+   at phase 6's shapes, compared and timed, with their byte bounds; and
+   the append of 2^28 distinct keys (r = 1) at the same shape, timed.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
@@ -46,10 +64,20 @@ N_SIDE = 2 ** 24          # absent lookups, erases and re-inserts
 N_CHECK = 2 ** 20
 RHO = 0.9
 WINDOW = 32
+N_MV = 2 ** 28            # configs/warpcore.py: paper_n_pairs
+R_MV = 8                  # fig7: keys repeated r times in a row
+LOAD_MV = 0.8             # fig7: wc-oa target load
+N_MV_SIDE = 2 ** 22       # duplicate queries, erases and re-inserts
+N_MV_ABSENT = 2 ** 24
+MV_CASES = (("wc-oa", 32, "cops", 1, None), ("wc-oa", 32, "cops", 8, None),
+            ("wc-oa", 32, "cops", 32, None),
+            ("lp-oa", 1, "linear", 8, 8192))  # fig7_multi_value.py:83-85
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 SOURCE = "src/repro_torch/kernels/cops/csrc/cops.cu"
 REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
-            "cops_lookup": "src/repro/kernels/cops/kernel.py:789"}
+            "cops_lookup": "src/repro/kernels/cops/kernel.py:789",
+            "cops_append": "src/repro/kernels/cops/kernel.py:103",
+            "cops_retrieve": "src/repro/kernels/cops/kernel.py:334"}
 
 
 def card_line() -> str:
@@ -107,13 +135,39 @@ def walk_windows(torch, planes, keys, seed, scheme, budget):
     return total
 
 
+def multi_walk_windows(torch, table_keys, keys, seed, scheme, budget):
+    """For the distinct ``keys``: (windows their multi-value walks read up
+    to and including the first EMPTY window, summed; the windows each
+    stored pair's append read to reach its window, summed over pairs)."""
+    from repro_torch.core import probing
+    from repro_torch.core.common import EMPTY_WORD, as_u32
+    p = table_keys.shape[0]
+    walked = landed = 0
+    for s in range(0, keys.shape[0], 1 << 22):
+        k = keys[s:s + (1 << 22)]
+        words = as_u32(k)
+        row = probing.initial_row(words, p, seed)
+        step = probing.row_step(scheme, words, p, seed)
+        for attempt in range(budget):
+            if k.numel() == 0:
+                break
+            walked += k.numel()
+            win = table_keys[row]
+            landed += (attempt + 1) * int((win == k[:, None]).sum())
+            go = ~(win == EMPTY_WORD).any(1)
+            k, step = k[go], step[go]
+            row = probing.advance_row(row[go], step, p)
+    return walked, landed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE / "src"))
-    from repro_torch.core import bulk, single_value as sv
+    from repro_torch.core import bulk, bulk_retrieve, single_value as sv
+    from repro_torch.core import multi_value as mv
     from repro_torch.core.common import STATUS_INSERTED, STATUS_UPDATED
     from repro_torch.kernels import build
     from repro_torch.kernels.cops import contract, ops
@@ -191,8 +245,8 @@ def main() -> int:
     check("re-inserted values", bool(found.all() and torch.equal(got, vals3)))
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    for name, count in launches.items():
-        check(f"{name} launched on the main path", count > 0)
+    for name in ("cops_insert", "cops_lookup"):
+        check(f"{name} launched on the main path", launches[name] > 0)
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"phase 3 main path n={N_MAIN} rho={RHO} W={WINDOW} cops: "
           f"{'ok' if not failures else 'FAILED ' + str(failures)}; "
@@ -254,6 +308,180 @@ def main() -> int:
           f"card {card}",
           flush=True)
 
+    del built_k, kst
+
+    # -- phase 5: multi-value kernels vs plain at 2^20 pairs ----------------
+    for name, window, scheme, r, max_probes in MV_CASES:
+        t0 = time.perf_counter()
+        checks = contract.run_multi_case(N_CHECK, window=window,
+                                         scheme=scheme, device="cuda", r=r,
+                                         load=LOAD_MV, max_probes=max_probes)
+        torch.cuda.synchronize()
+        tag = f"phase5 {name} r={r}"
+        bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
+        print(f"phase 5 multi-value kernel vs plain {name} W={window} "
+              f"{scheme} r={r} n={N_CHECK} load={LOAD_MV}: "
+              f"{'ok' if not bad else 'FAILED ' + str(bad)} "
+              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+    # -- phase 6: the multi-value main path (fig7 wc-oa, r = 8) -------------
+    n_keys = N_MV // R_MV
+    pool = contract.distinct_keys(0, n_keys + N_MV_ABSENT, dev)
+    base, absent = pool[:n_keys], pool[n_keys:]
+    del pool
+    keys = base.repeat_interleave(R_MV)
+    vals = torch.arange(N_MV, dtype=torch.int32, device=dev)
+    want = vals.view(n_keys, R_MV)           # key i holds 8i .. 8i+7
+    side = N_MV_SIDE
+    failed_before = len(failures)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+
+    def fresh_mv():
+        return (mv.create(int(N_MV / LOAD_MV), window=WINDOW, device=dev),)
+
+    def sorted_segments(values, n):
+        return values[:n * R_MV].view(n, R_MV).sort(dim=1).values
+
+    mins_t, (mtab, st) = timed(torch, lambda t: mv.insert(t, keys, vals),
+                               fresh_mv)
+    print(f"phase 6 table: p={mtab.num_rows} W={WINDOW} capacity="
+          f"{mtab.capacity} ({mtab.capacity * 8 / 1e9:.2f} GB store, "
+          f"{mtab.capacity * 8 / 1e9:.2f} GB of collect arenas)", flush=True)
+    check("mv insert all INSERTED", bool((st == STATUS_INSERTED).all()))
+    check("mv insert count == n", mtab.count == N_MV)
+    del st
+    mcnt_t, cnt = timed(torch, lambda: mv.count_values(mtab, base))
+    check("mv count_values all r", bool((cnt == R_MV).all()))
+    mret_t, (got, offs, cnt) = timed(
+        torch, lambda: mv.retrieve_all(mtab, base, N_MV))
+    check("mv retrieve_all counts", bool((cnt == R_MV).all()))
+    check("mv retrieve_all offsets", torch.equal(
+        offs.long(), torch.arange(n_keys + 1, device=dev) * R_MV))
+    check("mv retrieve_all segments",
+          torch.equal(sorted_segments(got, n_keys), want))
+    del got, offs, cnt
+    got, offs, cnt = mv.retrieve_all(mtab, absent, N_MV_ABSENT)
+    check("mv absent counts 0", not bool(cnt.any()))
+    check("mv absent output zeros", not bool(got.any()) and
+          not bool(offs.any()))
+    q = base[:side]
+    got, offs, cnt = mv.retrieve_all(mtab, torch.cat([q, q]),
+                                     2 * side * R_MV)
+    check("mv duplicate queries counts", bool((cnt == R_MV).all()))
+    check("mv duplicate queries equal halves",
+          torch.equal(got[:side * R_MV], got[side * R_MV:]))
+    mtab, erased = mv.erase(mtab, q)
+    check("mv erase counts", bool((erased == R_MV).all()))
+    check("mv erase count", mtab.count == N_MV - side * R_MV)
+    check("mv erased count 0", not bool(mv.count_values(mtab, q).any()))
+    check("mv others count r", bool(
+        (mv.count_values(mtab, base[side:2 * side]) == R_MV).all()))
+    mtab, st = mv.insert(mtab, keys[:side * R_MV], vals[:side * R_MV])
+    check("mv re-insert all INSERTED", bool((st == STATUS_INSERTED).all()))
+    check("mv re-insert count", mtab.count == N_MV)
+    got, offs, cnt = mv.retrieve_all(mtab, q, side * R_MV)
+    check("mv re-inserted segments", bool((cnt == R_MV).all()) and
+          torch.equal(sorted_segments(got, side), want[:side]))
+    del got, offs, cnt, erased, st
+    torch.cuda.synchronize()
+    mv_launches = dict(ops.LAUNCHES)
+    for name in ("cops_append", "cops_retrieve"):
+        check(f"{name} launched on the multi-value path",
+              mv_launches[name] > 0)
+    mv_peak = torch.cuda.max_memory_allocated() / 1e9
+    # the split of retrieve_all, by difference (outside the counted run)
+    every = torch.ones((n_keys,), dtype=torch.bool, device=dev)
+    mkw = dict(seed=mtab.seed, scheme=mtab.scheme,
+               max_probes=bulk._tstatic(mtab)[3])
+    mkp = mtab.store["keys"][0]
+    dedup_t, _ = timed(torch, lambda: bulk_retrieve.group_queries(base,
+                                                                  every))
+    walk_t, _ = timed(torch, lambda: ops.retrieve_walk(mkp, base, every,
+                                                       collect=True, **mkw))
+    ret_ms, dedup_ms, walk_ms = (statistics.median(mret_t),
+                                 statistics.median(dedup_t),
+                                 statistics.median(walk_t))
+    ok6 = len(failures) == failed_before
+    print(f"phase 6 multi-value main path n={N_MV} r={R_MV} load={LOAD_MV} "
+          f"W={WINDOW} cops: {'ok' if ok6 else 'FAILED'}; insert "
+          f"{spread(mins_t)} = {N_MV / statistics.median(mins_t) / 1e6:.3f}"
+          f" G pairs/s, count_values {spread(mcnt_t)} = "
+          f"{N_MV / statistics.median(mcnt_t) / 1e6:.3f} G values/s, "
+          f"retrieve_all {spread(mret_t)} = {N_MV / ret_ms / 1e6:.3f} G "
+          f"values/s (5 runs each, CUDA events, through mv.insert / "
+          f"mv.count_values / mv.retrieve_all); retrieve_all split: dedup "
+          f"{dedup_ms:.3f} ms, walk kernel (arena fill included) "
+          f"{walk_ms:.3f} ms, compaction {ret_ms - dedup_ms - walk_ms:.3f} "
+          f"ms (by difference); peak {mv_peak:.1f} GB; launches "
+          f"{mv_launches}; card {card}", flush=True)
+    del mtab, mkp
+
+    # -- phase 7: cops_append and cops_retrieve alone at phase 6's shapes ---
+    def append_kernel(t):
+        return t, ops.append(*planes(t), keys, vals, **mkw)
+
+    def append_plain(t):
+        return t, ops.append_plain(*planes(t), keys, vals, **mkw)
+
+    # the same append with 2^28 distinct keys (r = 1): what the r = 8
+    # duplicates' CAS races on one row cost
+    keys_r1 = contract.distinct_keys(0, N_MV, dev)
+    app_r1_t, (_, st_r1) = timed(torch, lambda t: (t, ops.append(
+        *planes(t), keys_r1, vals, **mkw)), fresh_mv)
+    check("phase7 append r=1 all INSERTED",
+          bool((st_r1 == STATUS_INSERTED).all()))
+    del keys_r1, st_r1
+    app_t, (mk_t, kst) = timed(torch, append_kernel, fresh_mv)
+    app_plain_t, (mp_t, pst) = timed(torch, append_plain, fresh_mv, reps=1,
+                                     warmup=0)
+    for part, ok in contract.check_append(planes(mk_t), planes(mp_t), keys,
+                                          kst, pst, **mkw).items():
+        check(f"phase7 append {part}", ok)
+    kpairs = contract.live_pairs(*planes(mk_t))
+    ppairs = contract.live_pairs(*planes(mp_t))
+    app_err = (int(((kpairs & 0xFFFFFFFF) - (ppairs & 0xFFFFFFFF)).abs()
+                   .max()) if kpairs.shape == ppairs.shape else float("inf"))
+    del mp_t, pst, kpairs, ppairs
+    mkp = mk_t.store["keys"][0]
+    cnt_only_t, _ = timed(torch, lambda: ops.retrieve_walk(
+        mkp, base, every, collect=False, **mkw))
+    rw_t, kout = timed(torch, lambda: ops.retrieve_walk(
+        mkp, base, every, collect=True, **mkw))
+    rw_plain_t, pout = timed(torch, lambda: ops.retrieve_walk_plain(
+        mkp, base, every, collect=True, **mkw), reps=1, warmup=0)
+    rw_err = max(int((a.long() - b.long()).abs().max())
+                 for a, b in zip(kout, pout))
+    check("phase7 retrieve bit-exact",
+          all(torch.equal(a, b) for a, b in zip(kout, pout)))
+    del kout, pout
+    walked, landed = multi_walk_windows(torch, mkp, base, mkw["seed"],
+                                        mkw["scheme"], mkw["max_probes"])
+    cap = mkp.numel()
+    win_bytes = max(32, 4 * WINDOW)
+    # append: each pair's windows up to the one it landed in + the value's
+    # 32-byte sector + the key, value and status streams (12 B);
+    # retrieve: each query's windows up to its first EMPTY window + the key,
+    # active and count streams (9 B) + both (p * W,) int32 arenas written
+    # once in full (the wrapper's fill, the kernel's stamps)
+    app_bytes = landed * win_bytes + N_MV * (32 + 12)
+    cnt_bytes = walked * win_bytes + n_keys * 9
+    rw_bytes = cnt_bytes + cap * 8
+    print(f"phase 7 multi-value kernels at n={N_MV} pairs, {n_keys} "
+          f"queries: {'ok' if not failures else 'FAILED'}; append windows "
+          f"per pair {landed / N_MV:.4f}, walk windows per query "
+          f"{walked / n_keys:.4f}; cops_append {spread(app_t)}, plain "
+          f"{app_plain_t[0]:.3f} ms, bound "
+          f"{app_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, with r=1 (distinct "
+          f"keys) {spread(app_r1_t)}; cops_retrieve "
+          f"collect {spread(rw_t)}, plain {rw_plain_t[0]:.3f} ms, bound "
+          f"{rw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; counts only "
+          f"{spread(cnt_only_t)}, bound "
+          f"{cnt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card {card}",
+          flush=True)
+
     record = {"kernels": [
         {"name": "cops_insert", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["cops_insert"],
@@ -266,6 +494,18 @@ def main() -> int:
          "launches": launches["cops_lookup"], "max_abs_err": look_err,
          "ms": statistics.median(look_t), "plain_ms": plain_look_t[0],
          "bound_ms": look_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "cops_append", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES["cops_append"],
+         "launches": mv_launches["cops_append"], "max_abs_err": app_err,
+         "ms": statistics.median(app_t), "plain_ms": app_plain_t[0],
+         "bound_ms": app_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "cops_retrieve", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES["cops_retrieve"],
+         "launches": mv_launches["cops_retrieve"], "max_abs_err": rw_err,
+         "ms": statistics.median(rw_t), "plain_ms": rw_plain_t[0],
+         "bound_ms": rw_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None},
     ]}
     print(card, flush=True)

@@ -1,10 +1,10 @@
 """repro_torch.core — the hash-table data structures of ``repro.core``.
 
-Ported so far: the single-value table (``single_value``) on the SOA store
-with the cops and linear schemes, its bulk engines (``bulk``,
-``bulk_retrieve``) and their substrate (``common``, ``hashing``,
-``probing``, ``layouts``), plus ``convert``, a numpy bridge from and to
-the JAX package's table state.
+Ported so far, on the SOA store with the cops and linear schemes: the
+single-value table (``single_value``) and the multi-value table
+(``multi_value``), their bulk engines (``bulk``, ``bulk_retrieve``) and
+their substrate (``common``, ``hashing``, ``probing``, ``layouts``), plus
+``convert``, a numpy bridge from and to the JAX package's table state.
 """
 
 from repro_torch.core import (
@@ -14,10 +14,13 @@ from repro_torch.core import (
     convert,
     hashing,
     layouts,
+    multi_value,
     probing,
     single_value,
 )
+from repro_torch.core.multi_value import MultiValueHashTable
 from repro_torch.core.single_value import SingleValueHashTable
 
-__all__ = ["SingleValueHashTable", "bulk", "bulk_retrieve", "common",
-           "convert", "hashing", "layouts", "probing", "single_value"]
+__all__ = ["MultiValueHashTable", "SingleValueHashTable", "bulk",
+           "bulk_retrieve", "common", "convert", "hashing", "layouts",
+           "multi_value", "probing", "single_value"]

@@ -27,12 +27,19 @@
 3. **Statuses** (``_finish_fast``) fan out from the representatives to
    every element in batch order.
 
-The plain lane is bit-exact against ``repro.core.bulk.insert_single``
-(the same store planes and statuses); the kernel lane meets the four-part
-contract of ``ROADMAP.md`` (same live key->value map, same statuses when
-nothing is FULL, every key at or before the first EMPTY window of its
-walk, retrieve parity).  ``lax.cond`` / ``while_loop`` of the JAX engine
-are Python branches and loops on host-read scalars here.
+``insert_multi`` is the multi-value append: no dedup, every live element
+is a claimer and duplicates of a key take slots of their own
+(``kernels.cops.ops.append``: the ``cops_append`` kernel on a CUDA table,
+its plain version ``append_plain`` — ``place_claims`` + ``scatter_batch``
+— on a CPU table).
+
+The plain lane is bit-exact against ``repro.core.bulk.insert_single`` and
+``insert_multi`` (the same store planes and statuses); the kernel lane
+meets the four-part contract of ``ROADMAP.md`` (same live key->value map,
+or pair multiset; same statuses when nothing is FULL; every key at or
+before the first EMPTY window of its walk; retrieve parity), checked by
+``kernels/cops/contract.py``.  ``lax.cond`` / ``while_loop`` of the JAX
+engine are Python branches and loops on host-read scalars here.
 
 The JAX engine's general lane (wide keys, combiner callables), its
 telemetry and quotient stores are not ported yet.
@@ -317,3 +324,30 @@ def insert_single(table, keys, values, mask=None):
     inserted = int((rep_status == STATUS_INSERTED).sum())
     return (dataclasses.replace(table, count=table.count + inserted),
             _finish_fast(groups, rep_status))
+
+
+def insert_multi(table, keys, values, mask=None):
+    """Bulk path for ``multi_value.insert`` (append; no dedup).
+
+    Masked elements report MASKED and claim nothing: the live elements are
+    compacted, in batch order, before the append and their statuses fanned
+    back out.  The store is updated in place.
+    """
+    from repro_torch.kernels.cops import ops as cops_ops
+    n = keys.shape[0]
+    if n == 0:
+        return table, torch.zeros((0,), dtype=torch.int32, device=keys.device)
+    live = None if mask is None else torch.nonzero(mask).squeeze(1)
+    if live is not None:
+        keys, values = keys[live], values[live]
+    _, scheme, seed, max_probes = _tstatic(table)
+    status = cops_ops.append(
+        table.store["keys"][0], table.store["values"][0], keys, values,
+        seed=seed, scheme=scheme, max_probes=max_probes)
+    inserted = int((status == STATUS_INSERTED).sum())
+    if live is not None:
+        per = torch.full((n,), STATUS_MASKED, dtype=torch.int32,
+                         device=keys.device)
+        per[live] = status
+        status = per
+    return dataclasses.replace(table, count=table.count + inserted), status

@@ -1,27 +1,24 @@
 """State bridge between the JAX package's tables and the port's.
 
-A JAX ``SingleValueHashTable`` hands over its state as numpy arrays
-(``np.asarray(t.store["keys"])``, ``np.asarray(t.store["values"])``,
-``int(t.count)``) plus its static fields; ``table_from_numpy`` builds the
-port's table from exactly that, tombstones included, and
-``table_to_numpy`` goes back.  Neither side imports the other: the bridge
-speaks numpy only.
+A JAX ``SingleValueHashTable`` or ``MultiValueHashTable`` hands over its
+state as numpy arrays (``np.asarray(t.store["keys"])``,
+``np.asarray(t.store["values"])``, ``int(t.count)``) plus its static
+fields; ``table_from_numpy`` / ``multi_table_from_numpy`` build the port's
+table from exactly that, tombstones included, and ``table_to_numpy`` goes
+back from either.  Neither side imports the other: the
+bridge speaks numpy only.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core import single_value
+from repro_torch.core import multi_value, single_value
 from repro_torch.core.common import to_numpy_u32, to_words
 
 
-def table_from_numpy(keys_planes: np.ndarray, value_planes: np.ndarray,
-                     count: int, *, num_rows: int, window: int, scheme: str,
-                     seed: int, max_probes: int, device=None,
-                     ) -> single_value.SingleValueHashTable:
-    """The port's table holding the given (key_words, p, W) / (value_words,
-    p, W) u32 planes and live ``count``."""
+def _from_numpy(create, keys_planes, value_planes, count, *, num_rows,
+                window, scheme, seed, max_probes, device):
     keys_planes = np.asarray(keys_planes)
     value_planes = np.asarray(value_planes)
     if keys_planes.shape[1:] != (num_rows, window):
@@ -30,7 +27,7 @@ def table_from_numpy(keys_planes: np.ndarray, value_planes: np.ndarray,
     if value_planes.shape[1:] != keys_planes.shape[1:]:
         raise ValueError(f"value planes {value_planes.shape} do not match "
                          f"key planes {keys_planes.shape}")
-    table = single_value.create(
+    table = create(
         num_rows * window, window=window, scheme=scheme, seed=seed,
         max_probes=max_probes, device=device, key_words=keys_planes.shape[0],
         value_words=value_planes.shape[0])
@@ -44,8 +41,31 @@ def table_from_numpy(keys_planes: np.ndarray, value_planes: np.ndarray,
     return table
 
 
-def table_to_numpy(table: single_value.SingleValueHashTable) -> dict:
-    """``{"keys", "values"}`` u32 planes and ``count`` of a port table."""
+def table_from_numpy(keys_planes: np.ndarray, value_planes: np.ndarray,
+                     count: int, *, num_rows: int, window: int, scheme: str,
+                     seed: int, max_probes: int, device=None,
+                     ) -> single_value.SingleValueHashTable:
+    """The port's single-value table holding the given (key_words, p, W) /
+    (value_words, p, W) u32 planes and live ``count``."""
+    return _from_numpy(single_value.create, keys_planes, value_planes, count,
+                       num_rows=num_rows, window=window, scheme=scheme,
+                       seed=seed, max_probes=max_probes, device=device)
+
+
+def multi_table_from_numpy(keys_planes: np.ndarray, value_planes: np.ndarray,
+                           count: int, *, num_rows: int, window: int,
+                           scheme: str, seed: int, max_probes: int,
+                           device=None) -> multi_value.MultiValueHashTable:
+    """The port's multi-value table holding the given planes and live pair
+    ``count``."""
+    return _from_numpy(multi_value.create, keys_planes, value_planes, count,
+                       num_rows=num_rows, window=window, scheme=scheme,
+                       seed=seed, max_probes=max_probes, device=device)
+
+
+def table_to_numpy(table) -> dict:
+    """``{"keys", "values"}`` u32 planes and ``count`` of a port table of
+    either kind: the inverse of both bridges above."""
     return {"keys": to_numpy_u32(table.store["keys"]),
             "values": to_numpy_u32(table.store["values"]),
             "count": int(table.count)}

@@ -1,8 +1,9 @@
 """Store protocol: the SOA layout of ``repro.core.layouts``.
 
 :class:`SoaOps` binds the table geometry once and renders the access
-patterns the engines need: the key planes, and batched slot writes and
-tombstones by flat slot id (``row * window + lane``).  Stores are dicts
+patterns the engines need: the key planes, batched slot writes and
+tombstones by flat slot id (``row * window + lane``), and the gather of
+value vectors by slot id that the multi-value compaction reads through.  Stores are dicts
 of int32 tensors ``{"keys": (key_words, p, W), "values": (value_words, p,
 W)}`` holding u32 bits (see ``common``).
 
@@ -58,6 +59,11 @@ class SoaOps:
         flat_v = store["values"].view(self.value_words, self.arena_capacity)
         flat_v[:, slots] = vals.T
         flat_k[:, slots[key_mask]] = keys[key_mask].T
+
+    def arena_values(self, store: dict, slots: torch.Tensor) -> torch.Tensor:
+        """Value vectors (n, value_words) at flat slot ids (in range)."""
+        return store["values"].view(self.value_words,
+                                    self.arena_capacity)[:, slots].T
 
     def tombstone_slots(self, store: dict, slots: torch.Tensor) -> None:
         """Write TOMBSTONE into every key word of the flat ``slots``, in place."""

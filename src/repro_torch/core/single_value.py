@@ -98,12 +98,11 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def create(min_capacity: int, *, window: int = DEFAULT_WINDOW,
-           scheme: str = "cops", seed: int = DEFAULT_SEED,
-           max_probes: int | None = None, device=None, key_words: int = 1,
-           value_words: int = 1, layout: str = "soa",
-           ) -> SingleValueHashTable:
-    """Create an empty table with capacity >= min_capacity rounded to p*W, p prime."""
+def check_ported(key_words: int, value_words: int, scheme: str,
+                 layout: str) -> None:
+    """Raise for a configuration the port does not carry: ValueError if
+    the JAX package has no such option, NotImplementedError naming the
+    ROADMAP.md item that brings it otherwise."""
     if key_words != 1:
         _refuse("key_words", f"key_words={key_words}")
     if value_words != 1:
@@ -117,6 +116,15 @@ def create(min_capacity: int, *, window: int = DEFAULT_WINDOW,
             raise ValueError(f"layout {layout!r} not in {layouts.LAYOUTS}")
         _refuse("bucketed" if layout.startswith("bucketed") else "layout",
                 f"layout {layout!r}")
+
+
+def create(min_capacity: int, *, window: int = DEFAULT_WINDOW,
+           scheme: str = "cops", seed: int = DEFAULT_SEED,
+           max_probes: int | None = None, device=None, key_words: int = 1,
+           value_words: int = 1, layout: str = "soa",
+           ) -> SingleValueHashTable:
+    """Create an empty table with capacity >= min_capacity rounded to p*W, p prime."""
+    check_ported(key_words, value_words, scheme, layout)
     device = resolve_device(device)
     num_rows, _ = table_geometry(min_capacity, window)
     ops = layouts.SoaOps(num_rows, window, key_words, value_words)

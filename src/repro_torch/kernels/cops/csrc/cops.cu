@@ -1,9 +1,13 @@
-// COPS single-value insert and lookup for Hopper (sm_90a), hand-written CUDA.
+// COPS kernels of the SOA store for Hopper (sm_90a), hand-written CUDA.
 //
 // Replaces (src/repro/kernels/cops/kernel.py):
-//   cops_lookup  <- _lookup_kernel (l.789, via lookup_call l.830)
-//   cops_insert  <- _insert_kernel (l.75, via insert_call l.162), single-value
-//                   mode (claim-or-update)
+//   cops_lookup    <- _lookup_kernel (l.789, via lookup_call l.830)
+//   cops_insert    <- _insert_kernel (l.75, via insert_call l.162), single-value
+//                     mode (claim-or-update)
+//   cops_append    <- _insert_kernel, multi_value=True mode (l.103-118): claim
+//                     the lowest free lane of the first window that has one
+//   cops_retrieve  <- _retrieve_kernel (l.334, via retrieve_multi_call l.384):
+//                     the multi-value walk, counts and the slot arena
 //
 // The store is the SOA layout: a key plane and a value plane, each (p, W)
 // u32, row-major; one row is one probe window.  A walk starts at row
@@ -15,9 +19,9 @@
 // What bounds these kernels: each probe window is one random read of
 // W * 4 bytes of the key plane (at W = 32 one 128-byte line; at W = 1 one
 // 32-byte sector for 4 useful bytes), and each hit one random 32-byte
-// sector of the value plane.  A walk's windows depend on each other, so
-// the work is latency- and sector-bound, far from the card's 3.35 TB/s
-// on sequential streams.  The design:
+// sector of the value plane (or of the two arena planes).  A walk's
+// windows depend on each other, so the work is latency- and sector-bound,
+// far from the card's 3.35 TB/s on sequential streams.  The design:
 //   - one group of G = min(W, 32) lanes walks one key: at W = 32 a warp
 //     reads a whole window in one coalesced 128-byte load, and votes on it
 //     with __ballot_sync + __ffs (the paper's cooperative-group probe,
@@ -42,6 +46,22 @@
 // of its walk (EMPTY is never re-created).  Slot placement may differ from
 // the single-writer reference; the live key->value map does not.  Key
 // reads in the insert are volatile so a re-read sees other groups' claims.
+//
+// The append has no dedup front end: every pair is its own claimer, and
+// the consecutive duplicates of a multi-value batch start on the same row
+// and race for its lanes.  It walks to the first window that holds an
+// EMPTY or TOMBSTONE lane and claims through the same CAS loop.  A window
+// seen full stays full (claims never free a slot), so a pair never lands
+// past the first EMPTY window of its walk, and a FULL pair's whole walk
+// was full.
+//
+// The retrieve walk is read-only on the store and takes distinct
+// representatives (the torch dedup front end), so its arena stamps never
+// collide and its output is bit-exact against the sequential reference.
+// Each window's match ballot gives the count (__popc) and each matching
+// lane's rank in walk order (__popc of the ballot's lower lanes); the walk
+// stops after the first window holding an EMPTY (tombstones do not stop
+// it) or at the budget.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,6 +159,43 @@ __device__ int free_lane(const uint32_t* tk, const Walk& w, uint32_t row,
   return -1;
 }
 
+// From `row` (walk attempt `attempt`) on, the first window of the walk that
+// holds an EMPTY / TOMBSTONE lane: returns that lane and leaves `row` and
+// `attempt` there; -1 when the budget runs out first.
+__device__ int next_free(const uint32_t* tk, const Walk& w, const Group& g,
+                         uint32_t& row, long long& attempt, uint32_t step) {
+  int lane = free_lane(tk, w, row, g);
+  while (lane < 0 && ++attempt < w.max_probes) {
+    row = next_row(w, row, step);
+    lane = free_lane(tk, w, row, g);
+  }
+  return lane;
+}
+
+// Claim `lane` of `row` for k with atomicCAS(slot, observed sentinel, k) and
+// write v beside it.  A lost CAS re-reads the same window first, then the
+// following rows of the walk.  False when the budget runs out.
+__device__ bool claim(uint32_t* tk, uint32_t* tv, const Walk& w,
+                      const Group& g, uint32_t row, int lane,
+                      long long attempt, uint32_t step, uint32_t k,
+                      uint32_t v) {
+  while (lane >= 0) {
+    int won = 0;
+    if (g.lane == 0) {
+      uint32_t* slot = tk + (size_t)row * w.window + lane;
+      const uint32_t seen = load_volatile(slot);
+      if (seen == kEmpty || seen == kTombstone)
+        won = atomicCAS(slot, seen, k) == seen;
+    }
+    if (g.broadcast(won)) {
+      if (g.lane == 0) tv[(size_t)row * w.window + lane] = v;
+      return true;
+    }
+    lane = next_free(tk, w, g, row, attempt, step);
+  }
+  return false;
+}
+
 __global__ void __launch_bounds__(kThreads)
 insert_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
               const uint32_t* __restrict__ keys,
@@ -183,32 +240,29 @@ insert_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
     row = next_row(w, row, step);
   }
 
-  if (st != kUpdated && cand_lane >= 0) {
-    row = cand_row;
-    int lane = cand_lane;
-    long long attempt = cand_attempt;
-    while (lane >= 0) {
-      int won = 0;
-      if (g.lane == 0) {
-        uint32_t* slot = tk + (size_t)row * w.window + lane;
-        const uint32_t seen = load_volatile(slot);
-        if (seen == kEmpty || seen == kTombstone)
-          won = atomicCAS(slot, seen, k) == seen;
-      }
-      if (g.broadcast(won)) {
-        if (g.lane == 0) tv[(size_t)row * w.window + lane] = vals[q];
-        st = kInserted;
-        break;
-      }
-      // lost the slot: the same window first, then the rest of the walk
-      lane = free_lane(tk, w, row, g);
-      while (lane < 0 && ++attempt < w.max_probes) {
-        row = next_row(w, row, step);
-        lane = free_lane(tk, w, row, g);
-      }
-    }
-  }
+  if (st != kUpdated && cand_lane >= 0 &&
+      claim(tk, tv, w, g, cand_row, cand_lane, cand_attempt, step, k,
+            vals[q]))
+    st = kInserted;
   if (g.lane == 0) status[q] = st;
+}
+
+__global__ void __launch_bounds__(kThreads)
+append_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
+              const uint32_t* __restrict__ keys,
+              const uint32_t* __restrict__ vals, int* __restrict__ status,
+              long long n, Walk w) {
+  const int G = w.window < 32 ? (int)w.window : 32;
+  const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (q >= n) return;
+  const Group g = make_group(G);
+  const uint32_t k = keys[q];
+  const uint32_t step = row_step(w, k);
+  uint32_t row = first_row(w, k);
+  long long attempt = 0;
+  const int lane = next_free(tk, w, g, row, attempt, step);
+  const bool ok = claim(tk, tv, w, g, row, lane, attempt, step, k, vals[q]);
+  if (g.lane == 0) status[q] = ok ? kInserted : kFull;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -249,6 +303,45 @@ lookup_kernel(const uint32_t* __restrict__ tk, const uint32_t* __restrict__ tv,
   }
 }
 
+// counts[q]: the matches of key q's walk (0 where !active[q]); with
+// `qa` / `ra` (both or neither), each matching slot gets qa = q and ra = the
+// match's rank in walk order.
+__global__ void __launch_bounds__(kThreads)
+retrieve_kernel(const uint32_t* __restrict__ tk,
+                const uint32_t* __restrict__ keys,
+                const bool* __restrict__ active, int* __restrict__ counts,
+                int* __restrict__ qa, int* __restrict__ ra, long long n,
+                Walk w) {
+  const int G = w.window < 32 ? (int)w.window : 32;
+  const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (q >= n) return;
+  const Group g = make_group(G);
+  int seen = 0;
+  if (active[q]) {
+    const uint32_t k = keys[q];
+    const uint32_t step = row_step(w, k);
+    const unsigned below = (1u << g.lane) - 1u;  // lanes before this one
+    uint32_t row = first_row(w, k);
+    for (long long attempt = 0; attempt < w.max_probes; ++attempt) {
+      const size_t base = (size_t)row * w.window;
+      bool any_empty = false;
+      for (uint32_t c = 0; c < w.window; c += G) {
+        const uint32_t x = __ldg(tk + base + c + g.lane);
+        const unsigned mb = g.ballot(x == k);
+        if (qa && x == k) {
+          qa[base + c + g.lane] = (int)q;
+          ra[base + c + g.lane] = seen + __popc(mb & below);
+        }
+        seen += __popc(mb);
+        any_empty |= g.ballot(x == kEmpty) != 0;
+      }
+      if (any_empty) break;
+      row = next_row(w, row, step);
+    }
+  }
+  if (g.lane == 0) counts[q] = seen;
+}
+
 Walk make_walk(unsigned num_rows, int window, unsigned seed, int linear,
                long long max_probes) {
   Walk w;
@@ -268,7 +361,7 @@ unsigned blocks_for(long long n, int window) {
 
 }  // namespace
 
-// Both entry points launch on `stream`, allocate nothing, do not
+// Every entry point launches on `stream`, allocate nothing, do not
 // synchronise, and return cudaGetLastError() of the launch (0 = success).
 extern "C" int cops_insert(void* table_keys, void* table_values,
                            const void* keys, const void* values, void* status,
@@ -293,6 +386,35 @@ extern "C" int cops_lookup(const void* table_keys, const void* table_values,
       (const uint32_t*)table_keys, (const uint32_t*)table_values,
       (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
       (long long*)slots, n,
+      make_walk(num_rows, window, seed, linear, max_probes));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cops_append(void* table_keys, void* table_values,
+                           const void* keys, const void* values, void* status,
+                           long long n, unsigned num_rows, int window,
+                           unsigned seed, int linear, long long max_probes,
+                           void* stream) {
+  if (n <= 0) return 0;
+  append_kernel<<<blocks_for(n, window), kThreads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)table_keys, (uint32_t*)table_values, (const uint32_t*)keys,
+      (const uint32_t*)values, (int*)status, n,
+      make_walk(num_rows, window, seed, linear, max_probes));
+  return (int)cudaGetLastError();
+}
+
+// `qarena` / `rank_arena` are both null (counts only) or both (p * W,)
+// planes that the caller filled with n and 0.
+extern "C" int cops_retrieve(const void* table_keys, const void* keys,
+                             const void* active, void* counts, void* qarena,
+                             void* rank_arena, long long n, unsigned num_rows,
+                             int window, unsigned seed, int linear,
+                             long long max_probes, void* stream) {
+  if (n <= 0) return 0;
+  retrieve_kernel<<<blocks_for(n, window), kThreads, 0,
+                    (cudaStream_t)stream>>>(
+      (const uint32_t*)table_keys, (const uint32_t*)keys,
+      (const bool*)active, (int*)counts, (int*)qarena, (int*)rank_arena, n,
       make_walk(num_rows, window, seed, linear, max_probes));
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,11 @@
 
 On the CPU the wrappers run the plain versions, which are held here,
 bit-exact, against the Pallas TPU kernels they replace — ``_insert_kernel``
-and ``_lookup_kernel`` in interpret mode, reached through
-``repro.kernels.cops.ops`` — on the same seeded store and batches.  The
-rest checks the wrappers' dispatch rules, the four-part contract checker
-that holds the CUDA insert kernel on the card, and the plain engine's
-building blocks.  The CUDA kernels themselves run in
+(both modes), ``_lookup_kernel`` and ``_retrieve_kernel`` in interpret
+mode, reached through ``repro.kernels.cops.ops`` — on the same seeded
+store and batches.  The rest checks the wrappers' dispatch rules, the
+contract checkers that hold the CUDA insert and append kernels on the
+card, and the plain engine's building blocks.  The CUDA kernels themselves run in
 ``tests/test_torch_cuda.py`` (card only) and ``chip_smoke.py``.
 """
 
@@ -20,9 +20,13 @@ import pytest
 import torch
 
 from repro.core import bulk as jbulk
+from repro.core import bulk_retrieve as jbr
+from repro.core import multi_value as jmv
 from repro.core import single_value as jsv
 from repro.kernels.cops import ops as pallas_ops
 from repro_torch.core import bulk as tbulk
+from repro_torch.core import bulk_retrieve as tbr
+from repro_torch.core import multi_value as tmv
 from repro_torch.core import probing
 from repro_torch.core import single_value as tsv
 from repro_torch.core.common import (
@@ -31,14 +35,17 @@ from repro_torch.core.common import (
     STATUS_FULL,
     STATUS_INSERTED,
     TOMBSTONE_WORD,
+    as_word,
     to_numpy_u32,
 )
 from repro_torch.kernels import build
 from repro_torch.kernels.cops import contract, ops
 
 CASES = [(1, "cops"), (32, "cops"), (128, "cops"), (8, "linear")]
-#: XLA's backend optimisation passes off: same integer results, faster compile
-_FAST = {"xla_backend_optimization_level": 0}
+#: XLA's backend optimisation passes and CPU fusion emitters off: same
+#: integer results, faster compile
+_FAST = {"xla_backend_optimization_level": 0,
+         "xla_cpu_use_fusion_emitters": False}
 
 
 def _keys(rng, n):
@@ -58,10 +65,10 @@ def _store(window, scheme, seed=0):
     return t, keys, other, rng
 
 
-def _pallas_table(t):
+def _pallas_table(t, module=jsv):
     """The JAX table (backend "pallas") holding the port table's state."""
-    jt = jsv.create(t.capacity, window=t.window, scheme=t.scheme,
-                    backend="pallas")
+    jt = module.create(t.capacity, window=t.window, scheme=t.scheme,
+                       backend="pallas")
     assert jt.num_rows == t.num_rows
     return dataclasses.replace(
         jt, store={"keys": jnp.asarray(to_numpy_u32(t.store["keys"])),
@@ -112,6 +119,63 @@ def test_lookup_plain_matches_pallas_lookup_kernel(window, scheme):
                                   queries[f.numpy()])
 
 
+def _words(x):
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+
+@pytest.mark.parametrize("window, scheme", CASES)
+def test_append_plain_matches_pallas_append_kernel(window, scheme):
+    """Pairs of present, erased and new keys, each 3 times in a row, onto a
+    store with tombstones, filling it: same planes, same statuses (FULL
+    included)."""
+    t, keys, other, rng = _store(window, scheme, seed=5)
+    distinct = np.concatenate([keys[: t.capacity // 16],
+                               other[: t.capacity // 8]])
+    batch = np.repeat(distinct, 3)
+    vals = rng.integers(0, 2 ** 32, batch.shape[0], dtype=np.uint32)
+    jt, jst = jax.jit(pallas_ops.insert_multi, compiler_options=_FAST)(
+        _pallas_table(t, jmv), batch, vals)
+    kp, vp = t.store["keys"][0], t.store["values"][0]
+    st = ops.append(kp, vp, _words(batch), _words(vals), **_kw(t))
+    np.testing.assert_array_equal(np.asarray(jst), st.numpy())
+    assert (st == STATUS_FULL).any() and (st == STATUS_INSERTED).any()
+    np.testing.assert_array_equal(np.asarray(jt.store["keys"][0]),
+                                  to_numpy_u32(kp))
+    np.testing.assert_array_equal(np.asarray(jt.store["values"][0]),
+                                  to_numpy_u32(vp))
+
+
+@pytest.mark.parametrize("window, scheme", CASES)
+def test_retrieve_walk_plain_matches_pallas_retrieve_kernel(window, scheme):
+    """Counts and both slot arenas, bit for bit, against the Pallas walk
+    and the JAX engine's ``fused_walk``: a multi-value store with
+    tombstones, duplicate and absent queries, a mask."""
+    rng = np.random.default_rng([6, window])
+    t = tmv.create(1024, window=window, scheme=scheme, device="cpu")
+    base = _keys(rng, t.capacity // 4)
+    t, _ = tmv.insert(t, np.repeat(base, 3), _keys(rng, 3 * base.shape[0]))
+    t, _ = tmv.erase(t, base[::5])
+    q = np.concatenate([base[:100], base[:30], _keys(rng, 20)])
+    live = rng.random(q.shape[0]) < 0.9
+    qt = _words(q)
+    is_rep, _ = tbr.group_queries(qt, torch.from_numpy(live))
+    got = ops.retrieve_walk(t.store["keys"][0], qt, is_rep, collect=True,
+                            **_kw(t))
+    jt = _pallas_table(t, jmv)
+    keys_n = jnp.asarray(q)[:, None]
+    _, _, *pallas = pallas_ops._fused_walk_pallas(jt, keys_n,
+                                                  jnp.asarray(live))
+    engine = jbr.fused_walk(jbr._tstatic(jt), jt.store, keys_n,
+                            jnp.asarray(q), jnp.asarray(is_rep.numpy()),
+                            collect=True)
+    for want in (pallas, engine):
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    counts, qa, ra = ops.retrieve_walk(t.store["keys"][0], qt, is_rep,
+                                       collect=False, **_kw(t))
+    assert torch.equal(counts, got[0]) and qa is None and ra is None
+
+
 def test_cpu_wrappers_are_the_plain_versions():
     t, keys, other, _ = _store(16, "cops", seed=2)
     q = torch.from_numpy(np.concatenate([keys, other]).view(np.int32))
@@ -126,7 +190,7 @@ def test_cpu_wrappers_are_the_plain_versions():
     s2 = ops.insert_plain(*planes[1], q, v, count=t.count, **_kw(t))
     assert torch.equal(s1, s2)
     assert all(torch.equal(a, b) for a, b in zip(planes[0], planes[1]))
-    assert ops.LAUNCHES == {"cops_insert": 0, "cops_lookup": 0}
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 def test_plain_chunks_replay_batch_order(monkeypatch):
@@ -142,6 +206,25 @@ def test_plain_chunks_replay_batch_order(monkeypatch):
         st = ops.insert_plain(kp, vp, batch, vals, count=t.count, **_kw(t))
         lk = ops.lookup_plain(kp, vp, batch, slots=True, **_kw(t))
         runs.append((st, kp, vp, *lk))
+    assert (runs[0][0] == STATUS_FULL).any()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_multi_plain_chunks_replay_batch_order(monkeypatch):
+    """The plain append and walk give the same planes, statuses, counts
+    and arenas in chunks as in one whole batch."""
+    t, keys, other, _ = _store(8, "linear", seed=7)
+    batch = _words(np.repeat(np.concatenate([keys[:60], other[:200]]), 3))
+    vals = batch ^ 91
+    runs = []
+    for chunk in (ops.PLAIN_CHUNK, 97):
+        monkeypatch.setattr(ops, "PLAIN_CHUNK", chunk)
+        kp, vp = t.store["keys"][0].clone(), t.store["values"][0].clone()
+        st = ops.append_plain(kp, vp, batch, vals, **_kw(t))
+        q = batch[::3]
+        walk = ops.retrieve_walk_plain(kp, q, torch.ones(q.shape, dtype=bool),
+                                       collect=True, **_kw(t))
+        runs.append((st, kp, vp, *walk))
     assert (runs[0][0] == STATUS_FULL).any()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
@@ -166,6 +249,18 @@ def test_wrappers_refuse_other_devices_and_shapes():
         ops.lookup(kp[None], vp[None], k, **kw)
     with pytest.raises(ValueError, match="window"):
         ops.lookup(kp[:, :3], vp[:, :3], k, **kw)
+    every = torch.ones(5, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.append(*meta, meta[2], **kw)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.retrieve_walk(meta[0], meta[2], every.to("meta"), collect=True,
+                          **kw)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.retrieve_walk(kp, k, every.to("meta"), collect=True, **kw)
+    with pytest.raises(ValueError):
+        ops.retrieve_walk(kp, k, every[:3], collect=False, **kw)
+    with pytest.raises(ValueError):
+        ops.append(kp, vp[:3], k, k, **kw)
 
 
 @pytest.mark.parametrize("scheme", ["cops", "linear"])
@@ -213,6 +308,61 @@ def test_contract_catches_broken_stores():
     flat_k[src] = TOMBSTONE_WORD
     res = contract.check_insert(moved, good, st, st, **kw)
     assert res["same_map"] and not res["before_first_empty"], res
+
+
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", SUPPORTED_WINDOWS)
+def test_multi_contract_case_runs_on_cpu(window, scheme):
+    """The multi-value kernel-vs-plain case of the card, run where both
+    sides are the plain versions: every check holds."""
+    checks = contract.run_multi_case(600, window=window, scheme=scheme,
+                                     device="cpu")
+    assert len(checks) == 24 and all(checks.values()), checks
+
+
+def test_multi_contract_catches_broken_stores():
+    """Each part of the append contract fails on the fault it is there to
+    catch."""
+    t = tmv.create(512, window=8, scheme="linear", device="cpu")
+    rng = np.random.default_rng(8)
+    base = _keys(rng, 100)
+    keys = _words(np.repeat(base, 2))
+    t, st = tmv.insert(t, keys, keys ^ 5)
+    kw = _kw(t)
+    good = (t.store["keys"][0].clone(), t.store["values"][0].clone())
+    assert all(contract.check_append(good, good, keys, st, st, **kw).values())
+
+    bad_value = tuple(x.clone() for x in good)
+    live = (bad_value[0] != EMPTY_WORD) & (bad_value[0] != TOMBSTONE_WORD)
+    bad_value[1][live.nonzero()[0, 0], live.nonzero()[0, 1]] ^= 1
+    res = contract.check_append(bad_value, good, keys, st, st, **kw)
+    assert not res["same_pairs"] and not res["same_retrieve"], res
+
+    assert not contract.check_append(good, good, keys, st, st + 1,
+                                     **kw)["same_status"]
+    # a FULL report where the walk still has a free lane
+    full = st.clone()
+    full[0] = STATUS_FULL
+    assert not contract.check_append(good, good, keys, full, st,
+                                     **kw)["same_status"]
+
+    # move a pair that sits in its first row, next to an EMPTY lane, into
+    # an EMPTY slot of another row: the multiset is unchanged, but the pair
+    # now lies past the first EMPTY window of its key's walk
+    moved = tuple(x.clone() for x in good)
+    flat_k, flat_v = moved[0].view(-1), moved[1].view(-1)
+    lk, _, lslot = contract.live_map(*moved)
+    rows = lslot // t.window
+    has_empty = (moved[0] == EMPTY_WORD).any(1)
+    home = probing.initial_row(lk, t.num_rows, t.seed)
+    src = int(lslot[(rows == home) & has_empty[rows]][0])
+    empties = (flat_k == EMPTY_WORD).nonzero().squeeze(1)
+    dst = int(empties[empties // t.window != src // t.window][-1])
+    flat_k[dst], flat_v[dst] = flat_k[src], flat_v[src]
+    flat_k[src] = TOMBSTONE_WORD
+    res = contract.check_append(moved, good, keys, st, st, **kw)
+    assert res["same_pairs"] and not res["before_first_empty"], res
+    assert not res["same_retrieve"], res
 
 
 def test_rank_and_lane_blocks_match_reference():

@@ -36,10 +36,12 @@ from repro_torch.kernels.cops import ops
 
 MIN_CAPACITY = 512          # W=1: 521 slots ... W=128: 640 slots (<= 2^12)
 
-#: the reference ops, jitted without XLA's backend optimisation passes:
-#: integer results are the same, and each compiles in about half the time
+#: the reference ops, jitted without XLA's backend optimisation passes and
+#: its CPU fusion emitters: integer results are the same, and each
+#: compiles several times faster
 _jit = {name: jax.jit(getattr(jsv, name),
-                      compiler_options={"xla_backend_optimization_level": 0})
+                      compiler_options={"xla_backend_optimization_level": 0,
+                                        "xla_cpu_use_fusion_emitters": False})
         for name in ("insert", "retrieve", "contains", "erase")}
 
 
@@ -253,7 +255,8 @@ def test_cpu_table_launches_no_kernel():
     tt, _ = tsv.insert(tt, keys, keys)
     tsv.retrieve(tt, keys)
     tsv.erase(tt, keys[:10])
-    assert ops.LAUNCHES == {"cops_insert": 0, "cops_lookup": 0}
+    assert set(ops.LAUNCHES) >= {"cops_insert", "cops_lookup"}
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 def test_package_imports_neither_jax_nor_repro():
