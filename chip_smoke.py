@@ -66,7 +66,6 @@ RHO = 0.9
 WINDOW = 32
 N_MV = 2 ** 28            # configs/warpcore.py: paper_n_pairs
 R_MV = 8                  # fig7: keys repeated r times in a row
-LOAD_MV = 0.8             # fig7: wc-oa target load
 N_MV_SIDE = 2 ** 22       # duplicate queries, erases and re-inserts
 N_MV_ABSENT = 2 ** 24
 MV_CASES = (("wc-oa", 32, "cops", 1, None), ("wc-oa", 32, "cops", 8, None),
@@ -111,53 +110,45 @@ def spread(times) -> str:
             f", max {max(times):.3f})")
 
 
-def walk_windows(torch, planes, keys, seed, scheme, budget):
-    """Windows each walk reads up to its match or first EMPTY window, summed
-    over ``keys`` (the data-dependent part of the kernels' bytes)."""
+def probe_walks(torch, table_keys, keys, seed, scheme, budget, stop):
+    """Yield ``(attempt, index, keys, windows)`` for every step of the probe
+    walks of ``keys`` over the (p, W) key plane, 2^22 keys at a time:
+    ``index`` is each walking key's position in ``keys``, ``windows`` its
+    (W,) row.  A walk ends after the window where ``stop(windows, keys)``
+    holds, or at ``budget``."""
     from repro_torch.core import probing
-    from repro_torch.core.common import EMPTY_WORD, as_u32
-    kp = planes[0]
-    p = kp.shape[0]
-    total = 0
-    for s in range(0, keys.shape[0], 1 << 22):
-        k = keys[s:s + (1 << 22)]
-        words = as_u32(k)
-        row = probing.initial_row(words, p, seed)
-        step = probing.row_step(scheme, words, p, seed)
-        for _ in range(budget):
-            if k.numel() == 0:
-                break
-            total += k.numel()
-            win = kp[row]
-            go = ~((win == k[:, None]).any(1) | (win == EMPTY_WORD).any(1))
-            k, step = k[go], step[go]
-            row = probing.advance_row(row[go], step, p)
-    return total
-
-
-def multi_walk_windows(torch, table_keys, keys, seed, scheme, budget):
-    """For the distinct ``keys``: (windows their multi-value walks read up
-    to and including the first EMPTY window, summed; the windows each
-    stored pair's append read to reach its window, summed over pairs)."""
-    from repro_torch.core import probing
-    from repro_torch.core.common import EMPTY_WORD, as_u32
+    from repro_torch.core.common import as_u32
     p = table_keys.shape[0]
-    walked = landed = 0
     for s in range(0, keys.shape[0], 1 << 22):
         k = keys[s:s + (1 << 22)]
+        idx = torch.arange(s, s + k.numel(), device=keys.device)
         words = as_u32(k)
         row = probing.initial_row(words, p, seed)
         step = probing.row_step(scheme, words, p, seed)
         for attempt in range(budget):
             if k.numel() == 0:
                 break
-            walked += k.numel()
             win = table_keys[row]
-            landed += (attempt + 1) * int((win == k[:, None]).sum())
-            go = ~(win == EMPTY_WORD).any(1)
-            k, step = k[go], step[go]
+            yield attempt, idx, k, win
+            go = ~stop(win, k)
+            k, idx, step = k[go], idx[go], step[go]
             row = probing.advance_row(row[go], step, p)
-    return walked, landed
+
+
+def multi_walk_windows(torch, table_keys, keys, seed, scheme, budget):
+    """For the distinct ``keys`` of a multi-value store: (the windows their
+    walks read up to and including the first EMPTY window; the windows up to
+    the last one holding a pair of the key — what an append of the key's
+    pairs into an empty store must read), each summed over the keys."""
+    from repro_torch.core.common import EMPTY_WORD
+    walked = 0
+    last = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
+    for attempt, idx, k, win in probe_walks(
+            torch, table_keys, keys, seed, scheme, budget,
+            lambda w, k: (w == EMPTY_WORD).any(1)):
+        walked += k.numel()
+        last[idx[(win == k[:, None]).any(1)]] = attempt + 1
+    return walked, int(last.sum())
 
 
 def main() -> int:
@@ -168,7 +159,8 @@ def main() -> int:
     sys.path.insert(0, str(HERE / "src"))
     from repro_torch.core import bulk, bulk_retrieve, single_value as sv
     from repro_torch.core import multi_value as mv
-    from repro_torch.core.common import STATUS_INSERTED, STATUS_UPDATED
+    from repro_torch.core.common import (EMPTY_WORD, STATUS_INSERTED,
+                                         STATUS_UPDATED)
     from repro_torch.kernels import build
     from repro_torch.kernels.cops import contract, ops
 
@@ -291,8 +283,10 @@ def main() -> int:
     check("phase4 lookup bit-exact",
           torch.equal(kout[0], pout[0]) and torch.equal(kout[1], pout[1]))
     del kout, pout
-    windows = walk_windows(torch, planes(built_k), keys, kw["seed"],
-                           kw["scheme"], kw["max_probes"])
+    windows = sum(k.numel() for _, _, k, _ in probe_walks(
+        torch, planes(built_k)[0], keys, kw["seed"], kw["scheme"],
+        kw["max_probes"],
+        lambda w, k: ((w == k[:, None]) | (w == EMPTY_WORD)).any(1)))
     mean_windows = windows / N_MAIN
     win_bytes = max(32, 4 * WINDOW)
     # each walk's windows + the value's 32-byte sector + the streams:
@@ -315,12 +309,12 @@ def main() -> int:
         t0 = time.perf_counter()
         checks = contract.run_multi_case(N_CHECK, window=window,
                                          scheme=scheme, device="cuda", r=r,
-                                         load=LOAD_MV, max_probes=max_probes)
+                                         max_probes=max_probes)
         torch.cuda.synchronize()
         tag = f"phase5 {name} r={r}"
         bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
         print(f"phase 5 multi-value kernel vs plain {name} W={window} "
-              f"{scheme} r={r} n={N_CHECK} load={LOAD_MV}: "
+              f"{scheme} r={r} n={N_CHECK} load={contract.LOAD}: "
               f"{'ok' if not bad else 'FAILED ' + str(bad)} "
               f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
               flush=True)
@@ -340,7 +334,8 @@ def main() -> int:
     ops.reset_launches()
 
     def fresh_mv():
-        return (mv.create(int(N_MV / LOAD_MV), window=WINDOW, device=dev),)
+        return (mv.create(int(N_MV / contract.LOAD), window=WINDOW,
+                          device=dev),)
 
     def sorted_segments(values, n):
         return values[:n * R_MV].view(n, R_MV).sort(dim=1).values
@@ -405,9 +400,9 @@ def main() -> int:
                                  statistics.median(dedup_t),
                                  statistics.median(walk_t))
     ok6 = len(failures) == failed_before
-    print(f"phase 6 multi-value main path n={N_MV} r={R_MV} load={LOAD_MV} "
-          f"W={WINDOW} cops: {'ok' if ok6 else 'FAILED'}; insert "
-          f"{spread(mins_t)} = {N_MV / statistics.median(mins_t) / 1e6:.3f}"
+    print(f"phase 6 multi-value main path n={N_MV} r={R_MV} "
+          f"load={contract.LOAD} W={WINDOW} cops: "
+          f"{'ok' if ok6 else 'FAILED'}; insert {spread(mins_t)} ={N_MV / statistics.median(mins_t) / 1e6:.3f}"
           f" G pairs/s, count_values {spread(mcnt_t)} = "
           f"{N_MV / statistics.median(mcnt_t) / 1e6:.3f} G values/s, "
           f"retrieve_all {spread(mret_t)} = {N_MV / ret_ms / 1e6:.3f} G "
@@ -426,14 +421,28 @@ def main() -> int:
     def append_plain(t):
         return t, ops.append_plain(*planes(t), keys, vals, **mkw)
 
+    def append_bytes(table_keys, landed):
+        """What an append into an empty store, now ``table_keys``, must
+        move: per distinct key the windows up to the last one its pairs
+        landed in (``landed``, summed), each 128-byte line read once however
+        many of the key's pairs walk it; each 32-byte key and value sector
+        that holds a pair written once; the key, value and status streams,
+        12 B per pair."""
+        sectors = int((table_keys.reshape(-1, 8) != EMPTY_WORD).any(1).sum())
+        return landed * win_bytes + 2 * 32 * sectors + N_MV * 12
+
     # the same append with 2^28 distinct keys (r = 1): what the r = 8
     # duplicates' CAS races on one row cost
     keys_r1 = contract.distinct_keys(0, N_MV, dev)
-    app_r1_t, (_, st_r1) = timed(torch, lambda t: (t, ops.append(
+    app_r1_t, (r1_t, st_r1) = timed(torch, lambda t: (t, ops.append(
         *planes(t), keys_r1, vals, **mkw)), fresh_mv)
     check("phase7 append r=1 all INSERTED",
           bool((st_r1 == STATUS_INSERTED).all()))
-    del keys_r1, st_r1
+    r1_kp = r1_t.store["keys"][0]
+    _, landed_r1 = multi_walk_windows(torch, r1_kp, keys_r1, mkw["seed"],
+                                      mkw["scheme"], mkw["max_probes"])
+    app_r1_bytes = append_bytes(r1_kp, landed_r1)
+    del keys_r1, st_r1, r1_t, r1_kp
     app_t, (mk_t, kst) = timed(torch, append_kernel, fresh_mv)
     app_plain_t, (mp_t, pst) = timed(torch, append_plain, fresh_mv, reps=1,
                                      warmup=0)
@@ -460,22 +469,21 @@ def main() -> int:
     walked, landed = multi_walk_windows(torch, mkp, base, mkw["seed"],
                                         mkw["scheme"], mkw["max_probes"])
     cap = mkp.numel()
-    win_bytes = max(32, 4 * WINDOW)
-    # append: each pair's windows up to the one it landed in + the value's
-    # 32-byte sector + the key, value and status streams (12 B);
+    app_bytes = append_bytes(mkp, landed)
     # retrieve: each query's windows up to its first EMPTY window + the key,
     # active and count streams (9 B) + both (p * W,) int32 arenas written
     # once in full (the wrapper's fill, the kernel's stamps)
-    app_bytes = landed * win_bytes + N_MV * (32 + 12)
     cnt_bytes = walked * win_bytes + n_keys * 9
     rw_bytes = cnt_bytes + cap * 8
     print(f"phase 7 multi-value kernels at n={N_MV} pairs, {n_keys} "
           f"queries: {'ok' if not failures else 'FAILED'}; append windows "
-          f"per pair {landed / N_MV:.4f}, walk windows per query "
+          f"per key {landed / n_keys:.4f} (r=1: {landed_r1 / N_MV:.4f}), "
+          f"walk windows per query "
           f"{walked / n_keys:.4f}; cops_append {spread(app_t)}, plain "
           f"{app_plain_t[0]:.3f} ms, bound "
           f"{app_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, with r=1 (distinct "
-          f"keys) {spread(app_r1_t)}; cops_retrieve "
+          f"keys) {spread(app_r1_t)}, bound "
+          f"{app_r1_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; cops_retrieve "
           f"collect {spread(rw_t)}, plain {rw_plain_t[0]:.3f} ms, bound "
           f"{rw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; counts only "
           f"{spread(cnt_only_t)}, bound "

@@ -41,7 +41,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import bulk, probing
+from repro_torch.core import bulk
 
 
 def _lookup(table, keys, slots=False):
@@ -105,23 +105,13 @@ def erase_single(table, keys, mask=None):
 # multi-value: fused walk, compaction and entry points
 # ---------------------------------------------------------------------------
 
-def fused_ok(table) -> bool:
-    """Can the slot arena represent this table's walks?  It holds one
-    (query, rank) pair per slot, so walks must never revisit a row: true
-    for every cops / linear walk, whose budget is clamped to the rows the
-    scheme reaches (``probing.effective_probes``)."""
-    return (probing.effective_probes(table.scheme, table.max_probes,
-                                     table.num_rows)
-            <= probing.scheme_coverage(table.scheme, table.num_rows))
-
-
 def fused_walk(table, keys, active, *, collect):
     """``(counts, qarena, rank_arena)`` of the walk of the ``active``
-    (distinct) keys; the arenas are None unless ``collect``."""
+    (distinct) keys; the arenas are None unless ``collect``.  The arena
+    holds one (query, rank) pair per slot, so a walk must never revisit a
+    row: every cops / linear walk is clamped to the rows its scheme reaches
+    (``probing.effective_probes``)."""
     from repro_torch.kernels.cops import ops as cops_ops
-    if not fused_ok(table):
-        raise NotImplementedError("walks that revisit rows need the two-walk "
-                                  "reference, which is not ported")
     _, scheme, seed, max_probes = bulk._tstatic(table)
     return cops_ops.retrieve_walk(table.store["keys"][0], keys, active,
                                   seed=seed, scheme=scheme,

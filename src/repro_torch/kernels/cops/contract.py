@@ -49,6 +49,8 @@ from repro_torch.core.common import (
 )
 from repro_torch.kernels.cops import ops
 
+LOAD = 0.8      # the multi-value case's target load: Fig. 7's wc-oa
+
 
 def live_map(table_keys, table_values):
     """(keys, values, slots) of the live slots, sorted by key (int64 u32)."""
@@ -234,12 +236,11 @@ def run_case(n: int, *, window: int, scheme: str, device, rho: float = 0.9,
 
 
 def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
-                   load: float = 0.8, max_probes: int | None = None,
-                   seed: int = DEFAULT_SEED) -> dict[str, bool]:
+                   max_probes: int | None = None) -> dict[str, bool]:
     """Hold ``cops_append`` / ``cops_retrieve`` (or, on the CPU, whatever
     ``ops.append`` / ``ops.retrieve_walk`` run) against the plain versions.
 
-    Batch 1 appends ``n`` pairs at load ``load``: ``n / r`` distinct keys,
+    Batch 1 appends ``n`` pairs at load ``LOAD``: ``n / r`` distinct keys,
     each repeated ``r`` times in a row (Fig. 7's layout), values
     ``0 .. n-1``.  Then 1/8 of the keys are erased through
     ``multi_value.erase`` (tombstones), and batch 2 — n/8 pairs, half new
@@ -250,11 +251,12 @@ def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
     holding duplicates and a masked batch.
     """
     from repro_torch.core import bulk, bulk_retrieve, multi_value
-    ktab = multi_value.create(int(n / load), window=window, scheme=scheme,
-                              seed=seed, max_probes=max_probes, device=device)
+    ktab = multi_value.create(int(n / LOAD), window=window, scheme=scheme,
+                              max_probes=max_probes, device=device)
     ptab = dataclasses.replace(
         ktab, store={k: v.clone() for k, v in ktab.store.items()})
-    kw = dict(seed=seed, scheme=scheme, max_probes=bulk._tstatic(ktab)[3])
+    kw = dict(seed=DEFAULT_SEED, scheme=scheme,
+              max_probes=bulk._tstatic(ktab)[3])
     nk = max(16, n // r)
     pool = distinct_keys(0, nk + nk // 8 + nk // 16, device)
     base, absent, new = pool[:nk], pool[nk:nk + nk // 8], pool[nk + nk // 8:]

@@ -38,15 +38,12 @@ MIN_CAPACITY = 512          # W=1: 521 slots ... W=128: 640 slots (<= 2^12)
 def _ref_round(table, keys, values, mask, queries, qmask, gone,
                out_capacity):
     """The reference's append of one batch, its reads of the store that
-    leaves, then an erase.  One jitted function per table geometry
-    compiles faster than its operations apart.  On the ``"jax"`` backend
-    the counts of ``count_values`` are those ``retrieve_all`` returns (one
-    fused walk and fan-out serve both), so only the Pallas backend, where
-    the counting pass has a kernel of its own, runs it apart."""
+    leaves (the counts-only walk and the collecting one), then an erase.
+    One jitted function per table geometry compiles faster than its
+    operations apart."""
     table, status = jmv.insert(table, keys, values, mask)
     found = jmv.retrieve_all(table, queries, out_capacity, qmask)
-    counts = (jmv.count_values(table, queries, qmask)
-              if table.backend == "pallas" else found[2])
+    counts = jmv.count_values(table, queries, qmask)
     erased_table, erased = jmv.erase(table, gone)
     return table, status, counts, found, erased_table, erased
 
