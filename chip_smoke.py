@@ -41,7 +41,26 @@ status line each:
    just after it;
 7. ``cops_append`` and ``cops_retrieve`` alone and their plain versions
    at phase 6's shapes, compared and timed, with their byte bounds; and
-   the append of 2^28 distinct keys (r = 1) at the same shape, timed.
+   the append of 2^28 distinct keys (r = 1) at the same shape, timed;
+8. the two-plane kernels vs plain at 2^20 two-word keys, a quarter of
+   them sharing 2^10 plane-0 words, some with plane 1 at 0xFFFFFFFF /
+   0xFFFFFFFE: phase 2's single-value cases with ``cops_insert64`` /
+   ``cops_lookup64``, and phase 5's wc-oa r = 8 case with
+   ``cops_append64`` / ``cops_retrieve64``;
+9. the u64 single-value main path: 2^28 distinct u64 keys (a bijective
+   64-bit mix of ``arange``, ``contract.distinct_keys64``) into
+   ``create(n / 0.9, key_words=2)``, W = 32, cops — insert, upsert,
+   retrieve, absent retrieve, erase and re-insert, every result checked;
+   insert and retrieve timed.  The counters are zeroed just before it and
+   read just after it;
+10. the u64 multi-value main path, Fig. 7's wc-oa at r = 8: 2^25 distinct
+    u64 keys, 8 in a row, into ``multi_value.create(n / 0.8,
+    key_words=2)`` — insert, count_values, retrieve_all, erase and
+    re-insert, every result checked; insert, count and retrieve_all timed.
+    The counters are zeroed just before it and read just after it;
+11. each two-plane kernel alone and its plain version at the shapes of
+    phases 9 and 10 (``cops_insert64`` both as the build and as the
+    upsert of every key), compared and timed, with their byte bounds.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
@@ -76,7 +95,11 @@ SOURCE = "src/repro_torch/kernels/cops/csrc/cops.cu"
 REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
             "cops_lookup": "src/repro/kernels/cops/kernel.py:789",
             "cops_append": "src/repro/kernels/cops/kernel.py:103",
-            "cops_retrieve": "src/repro/kernels/cops/kernel.py:334"}
+            "cops_retrieve": "src/repro/kernels/cops/kernel.py:334",
+            "cops_insert64": "src/repro/kernels/cops/kernel.py:518",
+            "cops_lookup64": "src/repro/kernels/cops/kernel.py:629",
+            "cops_append64": "src/repro/kernels/cops/kernel.py:547",
+            "cops_retrieve64": "src/repro/kernels/cops/kernel.py:694"}
 
 
 def card_line() -> str:
@@ -111,44 +134,534 @@ def spread(times) -> str:
 
 
 def probe_walks(torch, table_keys, keys, seed, scheme, budget, stop):
-    """Yield ``(attempt, index, keys, windows)`` for every step of the probe
-    walks of ``keys`` over the (p, W) key plane, 2^22 keys at a time:
-    ``index`` is each walking key's position in ``keys``, ``windows`` its
-    (W,) row.  A walk ends after the window where ``stop(windows, keys)``
-    holds, or at ``budget``."""
-    from repro_torch.core import probing
-    from repro_torch.core.common import as_u32
-    p = table_keys.shape[0]
+    """Yield ``(attempt, index, keys, windows, match)`` for every step of the
+    probe walks of ``keys`` ((n,) words or (n, kw) planes) over the key
+    planes ((p, W) or (kw, p, W)), 2^22 keys at a time: ``index`` is each
+    walking key's position in ``keys``, ``keys`` its (m, kw) planes,
+    ``windows`` its plane-0 row (m, W) and ``match`` where that row holds
+    the key on every plane.  A walk ends after the window where
+    ``stop(windows, match)`` holds, or at ``budget``."""
+    from repro_torch.core import bulk, probing
+    from repro_torch.core.single_value import key_hash_word
+    planes = table_keys if table_keys.ndim == 3 else table_keys[None]
+    p = planes.shape[1]
     for s in range(0, keys.shape[0], 1 << 22):
-        k = keys[s:s + (1 << 22)]
-        idx = torch.arange(s, s + k.numel(), device=keys.device)
-        words = as_u32(k)
+        chunk = keys[s:s + (1 << 22)]
+        k = bulk._key_cols(chunk)
+        idx = torch.arange(s, s + k.shape[0], device=keys.device)
+        words = key_hash_word(chunk)
         row = probing.initial_row(words, p, seed)
         step = probing.row_step(scheme, words, p, seed)
         for attempt in range(budget):
-            if k.numel() == 0:
+            if idx.numel() == 0:
                 break
-            win = table_keys[row]
-            yield attempt, idx, k, win
-            go = ~stop(win, k)
+            win, match = bulk.window_match(planes, row, k)
+            yield attempt, idx, k, win, match
+            go = ~stop(win, match)
             k, idx, step = k[go], idx[go], step[go]
             row = probing.advance_row(row[go], step, p)
+
+
+def plane1_sectors(win, key) -> int:
+    """The 32-byte plane-1 sectors a two-plane walk reads in these windows:
+    those holding a lane whose plane 0 is the key's low word."""
+    hit = win == key[:, :1]
+    return int(hit.view(hit.shape[0], max(1, hit.shape[1] // 8), -1)
+               .any(2).sum())
+
+
+def walk_windows(torch, table_keys, keys, seed, scheme, budget):
+    """(windows, plane-1 sectors) that the read-only walks of ``keys``, to
+    a match or an EMPTY window, read on the store ``table_keys``."""
+    from repro_torch.core.common import EMPTY_WORD
+    windows = sectors = 0
+    for _, idx, k, win, match in probe_walks(
+            torch, table_keys, keys, seed, scheme, budget,
+            lambda w, m: (m | (w == EMPTY_WORD)).any(1)):
+        windows += idx.numel()
+        if k.shape[1] == 2:
+            sectors += plane1_sectors(win, k)
+    return windows, sectors
 
 
 def multi_walk_windows(torch, table_keys, keys, seed, scheme, budget):
     """For the distinct ``keys`` of a multi-value store: (the windows their
     walks read up to and including the first EMPTY window; the windows up to
     the last one holding a pair of the key — what an append of the key's
-    pairs into an empty store must read), each summed over the keys."""
+    pairs into an empty store must read; the plane-1 sectors the first
+    walks read, for two-plane keys), each summed over the keys."""
     from repro_torch.core.common import EMPTY_WORD
-    walked = 0
-    last = torch.zeros(keys.shape, dtype=torch.int64, device=keys.device)
-    for attempt, idx, k, win in probe_walks(
+    walked = sectors = 0
+    last = torch.zeros(keys.shape[:1], dtype=torch.int64, device=keys.device)
+    for attempt, idx, k, win, match in probe_walks(
             torch, table_keys, keys, seed, scheme, budget,
-            lambda w, k: (w == EMPTY_WORD).any(1)):
-        walked += k.numel()
-        last[idx[(win == k[:, None]).any(1)]] = attempt + 1
-    return walked, int(last.sum())
+            lambda w, m: (w == EMPTY_WORD).any(1)):
+        walked += idx.numel()
+        if k.shape[1] == 2:
+            sectors += plane1_sectors(win, k)
+        last[idx[match.any(1)]] = attempt + 1
+    return walked, int(last.sum()), sectors
+
+
+def kernel_record(name, launches, err, times, plain_times, bound_bytes):
+    """One entry of the ``{"kernels": [...]}`` line: the main path's
+    ``launches`` of the kernel, its median time of ``times``, the plain
+    version's time and the byte bound at the card's peak rate."""
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": statistics.median(times),
+            "plain_ms": plain_times[0],
+            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def pair_err(a, b) -> float:
+    """Largest value difference between two sorted (key, value) lists
+    (``contract.live_pairs``), inf when their keys differ."""
+    if a[0].shape != b[0].shape or not bool((a[0] == b[0]).all()):
+        return float("inf")
+    return int((a[1] - b[1]).abs().max()) if a[1].numel() else 0
+
+
+class Checks:
+    """The run's named checks; ``failed`` lists the ones that failed."""
+
+    def __init__(self):
+        self.failed = []
+
+    def __call__(self, name, ok):
+        if not ok:
+            self.failed.append(name)
+        return ok
+
+    def status(self, since=0) -> str:
+        return "ok" if len(self.failed) == since else "FAILED"
+
+
+def width(keys) -> tuple[int, str]:
+    """(key words, label) of a key batch: (n,) u32 words or (n, 2) planes."""
+    return (1, "") if keys.ndim == 1 else (2, "64")
+
+
+def single_cases(torch, check, phase, key_words):
+    """Phases 2 and 8: the single-value kernels vs plain at N_CHECK keys."""
+    from repro_torch.kernels.cops import contract
+    what = "kernel" if key_words == 1 else "64-bit kernel"
+    for window, scheme in ((32, "cops"), (1, "cops"), (1, "linear")):
+        t0 = time.perf_counter()
+        checks = contract.run_case(N_CHECK, window=window, scheme=scheme,
+                                   device="cuda", rho=RHO,
+                                   key_words=key_words)
+        torch.cuda.synchronize()
+        bad = [k for k, ok in checks.items() if not check(
+            f"phase{phase} W={window} {scheme} {k}", ok)]
+        print(f"phase {phase} {what} vs plain W={window} {scheme} "
+              f"n={N_CHECK} rho={RHO}"
+              f"{' (a quarter of the keys share 2^10 plane-0 words)' if key_words == 2 else ''}"
+              f": {'ok' if not bad else 'FAILED ' + str(bad)} "
+              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+
+def multi_cases(torch, check, phase, cases, key_words):
+    """Phases 5 and 8: the multi-value kernels vs plain at N_CHECK pairs."""
+    from repro_torch.kernels.cops import contract
+    what = "kernel" if key_words == 1 else "64-bit kernel"
+    for name, window, scheme, r, max_probes in cases:
+        t0 = time.perf_counter()
+        checks = contract.run_multi_case(N_CHECK, window=window,
+                                         scheme=scheme, device="cuda", r=r,
+                                         max_probes=max_probes,
+                                         key_words=key_words)
+        torch.cuda.synchronize()
+        tag = f"phase{phase} {name} r={r}"
+        bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
+        print(f"phase {phase} multi-value {what} vs plain {name} W={window} "
+              f"{scheme} r={r} n={N_CHECK} load={contract.LOAD}: "
+              f"{'ok' if not bad else 'FAILED ' + str(bad)} "
+              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+
+def single_value_path(torch, card, check, phase, keys, vals, absent):
+    """Phases 3 and 9: the single-value main path through the public entry
+    points — insert, upsert, retrieve, absent retrieve, erase and re-insert
+    of ``keys`` into ``create(n / 0.9)``, every result checked, insert and
+    retrieve timed.  The launch counters are zeroed just before and read
+    just after.  Returns ``(launches, walk parameters, fresh)``."""
+    from repro_torch.core import bulk, single_value as sv
+    from repro_torch.core.common import STATUS_INSERTED, STATUS_UPDATED
+    from repro_torch.kernels.cops import contract, ops
+    key_words, suffix = width(keys)
+    tag = "" if key_words == 1 else "u64 "
+    since = len(check.failed)
+    note = ""
+    if key_words == 2:
+        p0 = torch.sort(keys[:, 0]).values
+        same = p0[1:] == p0[:-1]
+        dup = torch.zeros(p0.shape, dtype=torch.bool, device=keys.device)
+        dup[1:] |= same
+        dup[:-1] |= same
+        shared = int(dup.sum())
+        note = (f"; {shared} keys ({shared / N_MAIN:.2%}) share their "
+                f"plane-0 word with another key")
+        del p0, same, dup
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+
+    def fresh():
+        return (sv.create(int(N_MAIN / RHO), window=WINDOW, device="cuda",
+                          key_words=key_words),)
+
+    ins_t, (table, st) = timed(torch, lambda t: sv.insert(t, keys, vals),
+                               fresh)
+    print(f"phase {phase} table: p={table.num_rows} W={WINDOW} capacity="
+          f"{table.capacity} ({table.capacity * 4 * (key_words + 1) / 1e9:.2f}"
+          f" GB){note}", flush=True)
+    check(f"{tag}insert all INSERTED", bool((st == STATUS_INSERTED).all()))
+    check(f"{tag}insert count == n", table.count == N_MAIN)
+    vals2 = contract.values_for(keys, 2)
+    table, st = sv.insert(table, keys, vals2)
+    check(f"{tag}upsert all UPDATED", bool((st == STATUS_UPDATED).all()))
+    check(f"{tag}upsert count unchanged", table.count == N_MAIN)
+    ret_t, (got, found) = timed(torch, lambda: sv.retrieve(table, keys))
+    check(f"{tag}retrieve all found", bool(found.all()))
+    check(f"{tag}retrieve values", bool(torch.equal(got, vals2)))
+    del got, found, vals2
+    got, found = sv.retrieve(table, absent)
+    check(f"{tag}absent none found", not bool(found.any()))
+    check(f"{tag}absent values 0", not bool(got.any()))
+    if key_words == 2:
+        twins = keys[:N_SIDE] ^ torch.tensor([0, 1], dtype=torch.int32,
+                                              device=keys.device)
+        check("u64 high-word twins not contained",
+              not bool(sv.contains(table, twins).any()))
+        del twins
+    gone = keys[:N_SIDE]
+    table, erased = sv.erase(table, gone)
+    check(f"{tag}erase all erased", bool(erased.all()))
+    check(f"{tag}erase count", table.count == N_MAIN - N_SIDE)
+    check(f"{tag}erased not contained",
+          not bool(sv.contains(table, gone).any()))
+    check(f"{tag}others contained",
+          bool(sv.contains(table, keys[N_SIDE:2 * N_SIDE]).all()))
+    vals3 = contract.values_for(gone, 3)
+    table, st = sv.insert(table, gone, vals3)
+    check(f"{tag}re-insert all INSERTED", bool((st == STATUS_INSERTED).all()))
+    check(f"{tag}re-insert count", table.count == N_MAIN)
+    got, found = sv.retrieve(table, gone)
+    check(f"{tag}re-inserted values",
+          bool(found.all() and torch.equal(got, vals3)))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for name in ("cops_insert", "cops_lookup"):
+        check(f"{name}{suffix} launched on the {tag}main path",
+              launches[name + suffix] > 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase {phase} {tag}main path n={N_MAIN} rho={RHO} W={WINDOW} "
+          f"cops: {check.status(since)}; "
+          f"insert {spread(ins_t)} = "
+          f"{N_MAIN / statistics.median(ins_t) / 1e6:.3f} G ops/s, "
+          f"retrieve {spread(ret_t)} = "
+          f"{N_MAIN / statistics.median(ret_t) / 1e6:.3f} G ops/s "
+          f"(5 runs each, CUDA events, end to end through sv.insert / "
+          f"sv.retrieve); peak {peak:.1f} GB; launches {launches}; "
+          f"card {card}", flush=True)
+    kw = dict(seed=table.seed, scheme=table.scheme,
+              max_probes=bulk._tstatic(table)[3])
+    return launches, kw, fresh
+
+
+def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
+                         launches):
+    """Phases 4 and 11: the insert and lookup kernels (u32 or two-plane)
+    and their plain versions on the main path's inputs, compared and
+    timed, with their byte bounds; for two-plane keys also the upsert of
+    every key.  Returns their two kernel records."""
+    from repro_torch.core.common import STATUS_UPDATED
+    from repro_torch.kernels.cops import contract, ops
+    key_words, suffix = width(keys)
+    insert = getattr(ops, "insert" + suffix)
+    lookup = getattr(ops, "lookup" + suffix)
+    since = len(check.failed)
+
+    def planes(t):
+        return contract.table_planes(t)
+
+    ins_t, (built_k, kst) = timed(torch, lambda t: (t, insert(
+        *planes(t), keys, vals, count=0, **kw)), fresh)
+    ins_p_t, (built_p, pst) = timed(torch, lambda t: (t, ops.insert_plain(
+        *planes(t), keys, vals, count=0, **kw)), fresh, reps=1, warmup=0)
+    for part, ok in contract.check_insert(planes(built_k), planes(built_p),
+                                          kst, pst, **kw).items():
+        check(f"phase{phase} insert{suffix} {part}", ok)
+    upsert = ""
+    if key_words == 2:
+        # the upsert of every key: pass 1 finds them all, pass 2 claims
+        # nothing
+        vals2 = contract.values_for(keys, 2)
+        ups_t, ust = timed(torch, lambda: insert(
+            *planes(built_k), keys, vals2, count=N_MAIN, **kw))
+        ups_p_t, upst = timed(torch, lambda: ops.insert_plain(
+            *planes(built_p), keys, vals2, count=N_MAIN, **kw), reps=1,
+            warmup=0)
+        check(f"phase{phase} insert64 upsert all UPDATED",
+              bool((ust == STATUS_UPDATED).all()))
+        for part, ok in contract.check_insert(
+                planes(built_k), planes(built_p), ust, upst, **kw).items():
+            check(f"phase{phase} insert64 upsert {part}", ok)
+        del vals2, ust, upst
+    _, pv, _ = contract.live_map(*planes(built_p))
+    _, kv, _ = contract.live_map(*planes(built_k))
+    ins_err = (int((kv - pv).abs().max()) if kv.shape == pv.shape
+               else float("inf"))
+    del built_p, pst, pv, kv, kst
+    look_t, kout = timed(torch, lambda: lookup(*planes(built_k), keys, **kw))
+    look_p_t, pout = timed(torch, lambda: ops.lookup_plain(
+        *planes(built_k), keys, **kw), reps=1, warmup=0)
+    look_err = int((kout[0].long() - pout[0].long()).abs().max())
+    check(f"phase{phase} lookup{suffix} bit-exact",
+          torch.equal(kout[0], pout[0]) and torch.equal(kout[1], pout[1]))
+    del kout, pout
+    windows, p1 = walk_windows(torch, planes(built_k)[0], keys, kw["seed"],
+                               kw["scheme"], kw["max_probes"])
+    del built_k
+    # each walk's windows (128-byte lines of plane 0) + the plane-1 sectors
+    # it reads + the value's 32-byte sector; a claim also writes its slot's
+    # plane-1 sector (two-plane build); + the streams: insert reads the key
+    # (4 B per word) and value and writes the status, lookup reads the key
+    # and writes the value and found
+    win_bytes = 4 * WINDOW
+    ins_bytes = (windows * win_bytes
+                 + N_MAIN * (32 * key_words + 4 * key_words + 8))
+    look_bytes = (windows * win_bytes + p1 * 32
+                  + N_MAIN * (32 + 4 * key_words + 5))
+    if key_words == 2:
+        ups_bytes = windows * win_bytes + p1 * 32 + N_MAIN * (32 + 16)
+        upsert = (f"; upsert {spread(ups_t)}, plain {ups_p_t[0]:.3f} ms, "
+                  f"bound {ups_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    print(f"phase {phase} {'64-bit single-value ' if key_words == 2 else ''}"
+          f"kernels at n={N_MAIN}: {check.status(since)}; mean windows per "
+          f"walk {windows / N_MAIN:.4f}"
+          f"{f', plane-1 sectors per walk {p1 / N_MAIN:.4f}' if key_words == 2 else ''}"
+          f"; cops_insert{suffix} {spread(ins_t)}, plain {ins_p_t[0]:.3f} ms,"
+          f" bound {ins_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms{upsert}; "
+          f"cops_lookup{suffix} {spread(look_t)}, plain {look_p_t[0]:.3f} "
+          f"ms, bound {look_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card "
+          f"{card}", flush=True)
+    return [kernel_record("cops_insert" + suffix, launches, ins_err, ins_t,
+                          ins_p_t, ins_bytes),
+            kernel_record("cops_lookup" + suffix, launches, look_err, look_t,
+                          look_p_t, look_bytes)]
+
+
+def multi_value_path(torch, card, check, phase, base, absent):
+    """Phases 6 and 10: Fig. 7's wc-oa cell at r = 8 through the public
+    entry points — the distinct ``base`` keys, R_MV in a row, values
+    0 .. n-1, into ``multi_value.create(n / 0.8)``: insert, count_values,
+    retrieve_all (present, absent and duplicate queries), erase and
+    re-insert, every result checked; insert, count and retrieve_all timed,
+    retrieve_all split into dedup, walk kernel and compaction.  The launch
+    counters are zeroed just before and read just after.  Returns
+    ``(launches, walk parameters, fresh, keys, values)``."""
+    from repro_torch.core import bulk, bulk_retrieve, multi_value as mv
+    from repro_torch.core.common import STATUS_INSERTED
+    from repro_torch.kernels.cops import contract, ops
+    key_words, suffix = width(base)
+    tag = "mv " if key_words == 1 else "u64 mv "
+    n_keys = base.shape[0]
+    keys = base.repeat_interleave(R_MV, dim=0)
+    vals = torch.arange(N_MV, dtype=torch.int32, device="cuda")
+    want = vals.view(n_keys, R_MV)           # key i holds 8i .. 8i+7
+    side = N_MV_SIDE
+    since = len(check.failed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+
+    def fresh():
+        return (mv.create(int(N_MV / contract.LOAD), window=WINDOW,
+                          device="cuda", key_words=key_words),)
+
+    def sorted_segments(values, n):
+        return values[:n * R_MV].view(n, R_MV).sort(dim=1).values
+
+    ins_t, (mtab, st) = timed(torch, lambda t: mv.insert(t, keys, vals),
+                              fresh)
+    print(f"phase {phase} table: p={mtab.num_rows} W={WINDOW} capacity="
+          f"{mtab.capacity} ({mtab.capacity * 4 * (key_words + 1) / 1e9:.2f}"
+          f" GB store, {mtab.capacity * 8 / 1e9:.2f} GB of collect arenas)",
+          flush=True)
+    check(f"{tag}insert all INSERTED", bool((st == STATUS_INSERTED).all()))
+    check(f"{tag}insert count == n", mtab.count == N_MV)
+    del st
+    cnt_t, cnt = timed(torch, lambda: mv.count_values(mtab, base))
+    check(f"{tag}count_values all r", bool((cnt == R_MV).all()))
+    ret_t, (got, offs, cnt) = timed(
+        torch, lambda: mv.retrieve_all(mtab, base, N_MV))
+    check(f"{tag}retrieve_all counts", bool((cnt == R_MV).all()))
+    check(f"{tag}retrieve_all offsets", torch.equal(
+        offs.long(), torch.arange(n_keys + 1, device="cuda") * R_MV))
+    check(f"{tag}retrieve_all segments",
+          torch.equal(sorted_segments(got, n_keys), want))
+    del got, offs, cnt
+    got, offs, cnt = mv.retrieve_all(mtab, absent, absent.shape[0])
+    check(f"{tag}absent counts 0", not bool(cnt.any()))
+    check(f"{tag}absent output zeros",
+          not bool(got.any()) and not bool(offs.any()))
+    q = base[:side]
+    got, offs, cnt = mv.retrieve_all(mtab, torch.cat([q, q]),
+                                     2 * side * R_MV)
+    check(f"{tag}duplicate queries counts", bool((cnt == R_MV).all()))
+    check(f"{tag}duplicate queries equal halves",
+          torch.equal(got[:side * R_MV], got[side * R_MV:]))
+    mtab, erased = mv.erase(mtab, q)
+    check(f"{tag}erase counts", bool((erased == R_MV).all()))
+    check(f"{tag}erase count", mtab.count == N_MV - side * R_MV)
+    check(f"{tag}erased count 0", not bool(mv.count_values(mtab, q).any()))
+    check(f"{tag}others count r", bool(
+        (mv.count_values(mtab, base[side:2 * side]) == R_MV).all()))
+    mtab, st = mv.insert(mtab, keys[:side * R_MV], vals[:side * R_MV])
+    check(f"{tag}re-insert all INSERTED", bool((st == STATUS_INSERTED).all()))
+    check(f"{tag}re-insert count", mtab.count == N_MV)
+    got, offs, cnt = mv.retrieve_all(mtab, q, side * R_MV)
+    check(f"{tag}re-inserted segments", bool((cnt == R_MV).all()) and
+          torch.equal(sorted_segments(got, side), want[:side]))
+    del got, offs, cnt, erased, st
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for name in ("cops_append", "cops_retrieve"):
+        check(f"{name}{suffix} launched on the {tag}path",
+              launches[name + suffix] > 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the split of retrieve_all, by difference (outside the counted run)
+    every = torch.ones((n_keys,), dtype=torch.bool, device="cuda")
+    kw = dict(seed=mtab.seed, scheme=mtab.scheme,
+              max_probes=bulk._tstatic(mtab)[3])
+    walk = getattr(ops, "retrieve_walk" + suffix)
+    key_planes = contract.table_planes(mtab)[0]
+    dedup_t, _ = timed(torch, lambda: bulk_retrieve.group_queries(base,
+                                                                  every))
+    walk_t, _ = timed(torch, lambda: walk(key_planes, base, every,
+                                          collect=True, **kw))
+    ret_ms, dedup_ms, walk_ms = (statistics.median(ret_t),
+                                 statistics.median(dedup_t),
+                                 statistics.median(walk_t))
+    print(f"phase {phase} {'u64 ' if key_words == 2 else ''}multi-value main "
+          f"path n={N_MV} r={R_MV} load={contract.LOAD} W={WINDOW} cops: "
+          f"{check.status(since)}; insert {spread(ins_t)} = "
+          f"{N_MV / statistics.median(ins_t) / 1e6:.3f} G pairs/s, "
+          f"count_values {spread(cnt_t)} = "
+          f"{N_MV / statistics.median(cnt_t) / 1e6:.3f} G values/s, "
+          f"retrieve_all {spread(ret_t)} = {N_MV / ret_ms / 1e6:.3f} G "
+          f"values/s (5 runs each, CUDA events, through mv.insert / "
+          f"mv.count_values / mv.retrieve_all); retrieve_all split: dedup "
+          f"{dedup_ms:.3f} ms, walk kernel (arena fill included) "
+          f"{walk_ms:.3f} ms, compaction {ret_ms - dedup_ms - walk_ms:.3f} "
+          f"ms (by difference); peak {peak:.1f} GB; launches {launches}; "
+          f"card {card}", flush=True)
+    return launches, kw, fresh, keys, vals
+
+
+def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
+                        fresh, launches):
+    """Phases 7 and 11: the append and retrieve-walk kernels (u32 or
+    two-plane) and their plain versions at the multi-value main path's
+    shapes, compared and timed, with their byte bounds; for u32 keys also
+    the append of N_MV distinct keys (r = 1).  Returns their two kernel
+    records."""
+    from repro_torch.core.common import EMPTY_WORD, STATUS_INSERTED
+    from repro_torch.kernels.cops import contract, ops
+    key_words, suffix = width(base)
+    append = getattr(ops, "append" + suffix)
+    walk = getattr(ops, "retrieve_walk" + suffix)
+    n_keys = base.shape[0]
+    since = len(check.failed)
+    win_bytes = 4 * WINDOW
+
+    def planes(t):
+        return contract.table_planes(t)
+
+    def append_bytes(table_keys, landed, pairs):
+        """What an append into an empty store, now ``table_keys``, must
+        move: per distinct key the windows up to the last one its pairs
+        landed in (``landed``, summed), each 128-byte line read once however
+        many of the key's pairs walk it; each 32-byte sector of each key
+        plane and of the values that holds a pair written once; the key,
+        value and status streams."""
+        plane0 = ops._planes(table_keys)[0]
+        sectors = int((plane0.reshape(-1, 8) != EMPTY_WORD).any(1).sum())
+        return (landed * win_bytes + 32 * (key_words + 1) * sectors
+                + pairs * (4 * key_words + 8))
+
+    r1 = r1_windows = ""
+    if key_words == 1:
+        # the same append with N_MV distinct keys (r = 1): what the r = 8
+        # duplicates' CAS races on one row cost
+        keys_r1 = contract.distinct_keys(0, N_MV, "cuda")
+        r1_t, (r1_tab, st_r1) = timed(torch, lambda t: (t, append(
+            *planes(t), keys_r1, vals, **kw)), fresh)
+        check(f"phase{phase} append r=1 all INSERTED",
+              bool((st_r1 == STATUS_INSERTED).all()))
+        _, landed_r1, _ = multi_walk_windows(torch, planes(r1_tab)[0],
+                                             keys_r1, kw["seed"],
+                                             kw["scheme"], kw["max_probes"])
+        r1_bytes = append_bytes(planes(r1_tab)[0], landed_r1, N_MV)
+        r1 = (f", with r=1 (distinct keys) {spread(r1_t)}, bound "
+              f"{r1_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        r1_windows = f" (r=1: {landed_r1 / N_MV:.4f})"
+        del keys_r1, st_r1, r1_tab
+    app_t, (mk_t, kst) = timed(torch, lambda t: (t, append(
+        *planes(t), keys, vals, **kw)), fresh)
+    app_p_t, (mp_t, pst) = timed(torch, lambda t: (t, ops.append_plain(
+        *planes(t), keys, vals, **kw)), fresh, reps=1, warmup=0)
+    for part, ok in contract.check_append(planes(mk_t), planes(mp_t), keys,
+                                          kst, pst, **kw).items():
+        check(f"phase{phase} append{suffix} {part}", ok)
+    app_err = pair_err(contract.live_pairs(*planes(mk_t)),
+                       contract.live_pairs(*planes(mp_t)))
+    del mp_t, pst, kst
+    mkp = planes(mk_t)[0]
+    every = torch.ones((n_keys,), dtype=torch.bool, device="cuda")
+    cnt_t, _ = timed(torch, lambda: walk(mkp, base, every, collect=False,
+                                         **kw))
+    rw_t, kout = timed(torch, lambda: walk(mkp, base, every, collect=True,
+                                           **kw))
+    rw_p_t, pout = timed(torch, lambda: ops.retrieve_walk_plain(
+        mkp, base, every, collect=True, **kw), reps=1, warmup=0)
+    rw_err = max(int((a.long() - b.long()).abs().max())
+                 for a, b in zip(kout, pout))
+    check(f"phase{phase} retrieve{suffix} bit-exact",
+          all(torch.equal(a, b) for a, b in zip(kout, pout)))
+    del kout, pout
+    walked, landed, p1 = multi_walk_windows(torch, mkp, base, kw["seed"],
+                                            kw["scheme"], kw["max_probes"])
+    app_bytes = append_bytes(mkp, landed, N_MV)
+    # retrieve: each query's windows up to its first EMPTY one + its plane-1
+    # sectors + the key, active and count streams, + with collect both
+    # (p * W,) int32 arenas written once in full (the wrapper's fill, the
+    # kernel's stamps)
+    cnt_bytes = walked * win_bytes + p1 * 32 + n_keys * (4 * key_words + 5)
+    rw_bytes = cnt_bytes + ops._planes(mkp)[0].numel() * 8
+    del mk_t, mkp
+    print(f"phase {phase} {'64-bit ' if key_words == 2 else ''}multi-value "
+          f"kernels at n={N_MV} pairs, {n_keys} queries: "
+          f"{check.status(since)}; append windows per key "
+          f"{landed / n_keys:.4f}{r1_windows}, "
+          f"walk windows per query {walked / n_keys:.4f}"
+          f"{f', plane-1 sectors per query {p1 / n_keys:.4f}' if key_words == 2 else ''}"
+          f"; cops_append{suffix} {spread(app_t)}, plain {app_p_t[0]:.3f} "
+          f"ms, bound {app_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms{r1}; "
+          f"cops_retrieve{suffix} collect {spread(rw_t)}, plain "
+          f"{rw_p_t[0]:.3f} ms, bound {rw_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+          f" ms; counts only {spread(cnt_t)}, bound "
+          f"{cnt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card {card}",
+          flush=True)
+    return [kernel_record("cops_append" + suffix, launches, app_err, app_t,
+                          app_p_t, app_bytes),
+            kernel_record("cops_retrieve" + suffix, launches, rw_err, rw_t,
+                          rw_p_t, rw_bytes)]
 
 
 def main() -> int:
@@ -157,19 +670,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE / "src"))
-    from repro_torch.core import bulk, bulk_retrieve, single_value as sv
-    from repro_torch.core import multi_value as mv
-    from repro_torch.core.common import (EMPTY_WORD, STATUS_INSERTED,
-                                         STATUS_UPDATED)
     from repro_torch.kernels import build
-    from repro_torch.kernels.cops import contract, ops
+    from repro_torch.kernels.cops import contract
 
-    failures = []
-
-    def check(name, ok):
-        if not ok:
-            failures.append(name)
-        return ok
+    check = Checks()
+    dev = "cuda"
+    n_keys = N_MV // R_MV
 
     # -- phase 1: the card and the build ------------------------------------
     card = card_line()
@@ -180,346 +686,49 @@ def main() -> int:
     print(f"phase 1 build: {sorted(built)} in "
           f"{time.perf_counter() - t0:.2f} s (concurrent nvcc)", flush=True)
 
-    # -- phase 2: kernel vs plain at 2^20 keys ------------------------------
-    for window, scheme in ((32, "cops"), (1, "cops"), (1, "linear")):
-        t0 = time.perf_counter()
-        checks = contract.run_case(N_CHECK, window=window, scheme=scheme,
-                                   device="cuda", rho=RHO)
-        torch.cuda.synchronize()
-        bad = [k for k, ok in checks.items() if not check(
-            f"phase2 W={window} {scheme} {k}", ok)]
-        print(f"phase 2 kernel vs plain W={window} {scheme} n={N_CHECK} "
-              f"rho={RHO}: {'ok' if not bad else 'FAILED ' + str(bad)} "
-              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
-              flush=True)
-
-    # -- phase 3: the main path at the paper's scale ------------------------
-    dev = "cuda"
+    # -- phases 2-4: the u32 single-value path ------------------------------
+    single_cases(torch, check, 2, key_words=1)
     keys = contract.distinct_keys(0, N_MAIN, dev)
     vals = contract.values_for(keys, 1)
     absent = contract.distinct_keys(N_MAIN + 2, N_SIDE, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
+    launches, kw, fresh = single_value_path(torch, card, check, 3, keys, vals,
+                                            absent)
+    records = single_value_kernels(torch, card, check, 4, keys, vals, kw,
+                                   fresh, launches)
+    del keys, vals, absent
 
-    def fresh():
-        return (sv.create(int(N_MAIN / RHO), window=WINDOW, device=dev),)
-
-    ins_t, (table, st) = timed(torch, lambda t: sv.insert(t, keys, vals),
-                               fresh)
-    print(f"phase 3 table: p={table.num_rows} W={WINDOW} capacity="
-          f"{table.capacity} ({table.capacity * 8 / 1e9:.2f} GB)", flush=True)
-    check("insert all INSERTED", bool((st == STATUS_INSERTED).all()))
-    check("insert count == n", table.count == N_MAIN)
-    vals2 = contract.values_for(keys, 2)
-    table, st = sv.insert(table, keys, vals2)
-    check("upsert all UPDATED", bool((st == STATUS_UPDATED).all()))
-    check("upsert count unchanged", table.count == N_MAIN)
-    ret_t, (got, found) = timed(torch, lambda: sv.retrieve(table, keys))
-    check("retrieve all found", bool(found.all()))
-    check("retrieve values", bool(torch.equal(got, vals2)))
-    del got, found
-    got, found = sv.retrieve(table, absent)
-    check("absent none found", not bool(found.any()))
-    check("absent values 0", not bool(got.any()))
-    gone = keys[:N_SIDE]
-    table, erased = sv.erase(table, gone)
-    check("erase all erased", bool(erased.all()))
-    check("erase count", table.count == N_MAIN - N_SIDE)
-    check("erased not contained", not bool(sv.contains(table, gone).any()))
-    check("others contained",
-          bool(sv.contains(table, keys[N_SIDE:2 * N_SIDE]).all()))
-    vals3 = contract.values_for(gone, 3)
-    table, st = sv.insert(table, gone, vals3)
-    check("re-insert all INSERTED", bool((st == STATUS_INSERTED).all()))
-    check("re-insert count", table.count == N_MAIN)
-    got, found = sv.retrieve(table, gone)
-    check("re-inserted values", bool(found.all() and torch.equal(got, vals3)))
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    for name in ("cops_insert", "cops_lookup"):
-        check(f"{name} launched on the main path", launches[name] > 0)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"phase 3 main path n={N_MAIN} rho={RHO} W={WINDOW} cops: "
-          f"{'ok' if not failures else 'FAILED ' + str(failures)}; "
-          f"insert {spread(ins_t)} = "
-          f"{N_MAIN / statistics.median(ins_t) / 1e6:.3f} G ops/s, "
-          f"retrieve {spread(ret_t)} = "
-          f"{N_MAIN / statistics.median(ret_t) / 1e6:.3f} G ops/s "
-          f"(5 runs each, CUDA events, end to end through sv.insert / "
-          f"sv.retrieve); peak {peak:.1f} GB; launches {launches}; "
-          f"card {card}", flush=True)
-    kw = dict(seed=table.seed, scheme=table.scheme,
-              max_probes=bulk._tstatic(table)[3])
-    del table, st, got, found, erased, vals2, vals3, absent
-
-    # -- phase 4: each kernel vs its plain version at the main path's shapes
-    def planes(t):
-        return t.store["keys"][0], t.store["values"][0]
-
-    def kernel_build(t):
-        return t, ops.insert(*planes(t), keys, vals, count=0, **kw)
-
-    def plain_build(t):
-        return t, ops.insert_plain(*planes(t), keys, vals, count=0, **kw)
-
-    kernel_ins_t, (built_k, kst) = timed(torch, kernel_build, fresh)
-    plain_ins_t, (built_p, pst) = timed(torch, plain_build, fresh, reps=1,
-                                         warmup=0)
-    parts = contract.check_insert(planes(built_k), planes(built_p), kst, pst,
-                                  **kw)
-    for part, ok in parts.items():
-        check(f"phase4 insert {part}", ok)
-    _, pv, _ = contract.live_map(*planes(built_p))
-    _, kv, _ = contract.live_map(*planes(built_k))
-    ins_err = (int((kv - pv).abs().max()) if kv.shape == pv.shape
-               else float("inf"))
-    del built_p, pst, pv, kv
-    look_t, kout = timed(torch, lambda: ops.lookup(*planes(built_k), keys,
-                                                    **kw))
-    plain_look_t, pout = timed(torch, lambda: ops.lookup_plain(
-        *planes(built_k), keys, **kw), reps=1, warmup=0)
-    look_err = int((kout[0].long() - pout[0].long()).abs().max())
-    check("phase4 lookup bit-exact",
-          torch.equal(kout[0], pout[0]) and torch.equal(kout[1], pout[1]))
-    del kout, pout
-    windows = sum(k.numel() for _, _, k, _ in probe_walks(
-        torch, planes(built_k)[0], keys, kw["seed"], kw["scheme"],
-        kw["max_probes"],
-        lambda w, k: ((w == k[:, None]) | (w == EMPTY_WORD)).any(1)))
-    mean_windows = windows / N_MAIN
-    win_bytes = max(32, 4 * WINDOW)
-    # each walk's windows + the value's 32-byte sector + the streams:
-    # insert reads key, value and writes status; lookup reads key, writes
-    # value and found
-    ins_bytes = N_MAIN * (mean_windows * win_bytes + 32 + 12)
-    look_bytes = N_MAIN * (mean_windows * win_bytes + 32 + 9)
-    print(f"phase 4 kernels at n={N_MAIN}: "
-          f"{'ok' if not failures else 'FAILED'}; "
-          f"mean windows per walk {mean_windows:.4f}; cops_insert "
-          f"{spread(kernel_ins_t)}, plain {plain_ins_t[0]:.3f} ms; "
-          f"cops_lookup {spread(look_t)}, plain {plain_look_t[0]:.3f} ms; "
-          f"card {card}",
-          flush=True)
-
-    del built_k, kst
-
-    # -- phase 5: multi-value kernels vs plain at 2^20 pairs ----------------
-    for name, window, scheme, r, max_probes in MV_CASES:
-        t0 = time.perf_counter()
-        checks = contract.run_multi_case(N_CHECK, window=window,
-                                         scheme=scheme, device="cuda", r=r,
-                                         max_probes=max_probes)
-        torch.cuda.synchronize()
-        tag = f"phase5 {name} r={r}"
-        bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
-        print(f"phase 5 multi-value kernel vs plain {name} W={window} "
-              f"{scheme} r={r} n={N_CHECK} load={contract.LOAD}: "
-              f"{'ok' if not bad else 'FAILED ' + str(bad)} "
-              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
-              flush=True)
-
-    # -- phase 6: the multi-value main path (fig7 wc-oa, r = 8) -------------
-    n_keys = N_MV // R_MV
+    # -- phases 5-7: the u32 multi-value path (fig7 wc-oa, r = 8) ----------
+    multi_cases(torch, check, 5, MV_CASES, key_words=1)
     pool = contract.distinct_keys(0, n_keys + N_MV_ABSENT, dev)
-    base, absent = pool[:n_keys], pool[n_keys:]
-    del pool
-    keys = base.repeat_interleave(R_MV)
-    vals = torch.arange(N_MV, dtype=torch.int32, device=dev)
-    want = vals.view(n_keys, R_MV)           # key i holds 8i .. 8i+7
-    side = N_MV_SIDE
-    failed_before = len(failures)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
+    launches, kw, fresh, keys, vals = multi_value_path(
+        torch, card, check, 6, pool[:n_keys], pool[n_keys:])
+    records += multi_value_kernels(torch, card, check, 7, pool[:n_keys],
+                                   keys, vals, kw, fresh, launches)
+    del pool, keys, vals
+    torch.cuda.empty_cache()
 
-    def fresh_mv():
-        return (mv.create(int(N_MV / contract.LOAD), window=WINDOW,
-                          device=dev),)
+    # -- phases 8-11: the u64 paths -----------------------------------------
+    single_cases(torch, check, 8, key_words=2)
+    multi_cases(torch, check, 8, MV_CASES[1:2], key_words=2)
+    keys = contract.distinct_keys64(0, N_MAIN, dev)
+    vals = contract.values_for(keys, 1)
+    absent = contract.distinct_keys64(2 * N_MAIN, N_SIDE, dev)
+    sv_launches, sv_kw, sv_fresh = single_value_path(
+        torch, card, check, 9, keys, vals, absent)
+    del absent
+    pool = contract.distinct_keys64(0, n_keys + N_MV_ABSENT, dev)
+    mv_launches, mv_kw, mv_fresh, mkeys, mvals = multi_value_path(
+        torch, card, check, 10, pool[:n_keys], pool[n_keys:])
+    records += single_value_kernels(torch, card, check, 11, keys, vals,
+                                    sv_kw, sv_fresh, sv_launches)
+    del keys, vals
+    records += multi_value_kernels(torch, card, check, 11, pool[:n_keys],
+                                   mkeys, mvals, mv_kw, mv_fresh, mv_launches)
 
-    def sorted_segments(values, n):
-        return values[:n * R_MV].view(n, R_MV).sort(dim=1).values
-
-    mins_t, (mtab, st) = timed(torch, lambda t: mv.insert(t, keys, vals),
-                               fresh_mv)
-    print(f"phase 6 table: p={mtab.num_rows} W={WINDOW} capacity="
-          f"{mtab.capacity} ({mtab.capacity * 8 / 1e9:.2f} GB store, "
-          f"{mtab.capacity * 8 / 1e9:.2f} GB of collect arenas)", flush=True)
-    check("mv insert all INSERTED", bool((st == STATUS_INSERTED).all()))
-    check("mv insert count == n", mtab.count == N_MV)
-    del st
-    mcnt_t, cnt = timed(torch, lambda: mv.count_values(mtab, base))
-    check("mv count_values all r", bool((cnt == R_MV).all()))
-    mret_t, (got, offs, cnt) = timed(
-        torch, lambda: mv.retrieve_all(mtab, base, N_MV))
-    check("mv retrieve_all counts", bool((cnt == R_MV).all()))
-    check("mv retrieve_all offsets", torch.equal(
-        offs.long(), torch.arange(n_keys + 1, device=dev) * R_MV))
-    check("mv retrieve_all segments",
-          torch.equal(sorted_segments(got, n_keys), want))
-    del got, offs, cnt
-    got, offs, cnt = mv.retrieve_all(mtab, absent, N_MV_ABSENT)
-    check("mv absent counts 0", not bool(cnt.any()))
-    check("mv absent output zeros", not bool(got.any()) and
-          not bool(offs.any()))
-    q = base[:side]
-    got, offs, cnt = mv.retrieve_all(mtab, torch.cat([q, q]),
-                                     2 * side * R_MV)
-    check("mv duplicate queries counts", bool((cnt == R_MV).all()))
-    check("mv duplicate queries equal halves",
-          torch.equal(got[:side * R_MV], got[side * R_MV:]))
-    mtab, erased = mv.erase(mtab, q)
-    check("mv erase counts", bool((erased == R_MV).all()))
-    check("mv erase count", mtab.count == N_MV - side * R_MV)
-    check("mv erased count 0", not bool(mv.count_values(mtab, q).any()))
-    check("mv others count r", bool(
-        (mv.count_values(mtab, base[side:2 * side]) == R_MV).all()))
-    mtab, st = mv.insert(mtab, keys[:side * R_MV], vals[:side * R_MV])
-    check("mv re-insert all INSERTED", bool((st == STATUS_INSERTED).all()))
-    check("mv re-insert count", mtab.count == N_MV)
-    got, offs, cnt = mv.retrieve_all(mtab, q, side * R_MV)
-    check("mv re-inserted segments", bool((cnt == R_MV).all()) and
-          torch.equal(sorted_segments(got, side), want[:side]))
-    del got, offs, cnt, erased, st
-    torch.cuda.synchronize()
-    mv_launches = dict(ops.LAUNCHES)
-    for name in ("cops_append", "cops_retrieve"):
-        check(f"{name} launched on the multi-value path",
-              mv_launches[name] > 0)
-    mv_peak = torch.cuda.max_memory_allocated() / 1e9
-    # the split of retrieve_all, by difference (outside the counted run)
-    every = torch.ones((n_keys,), dtype=torch.bool, device=dev)
-    mkw = dict(seed=mtab.seed, scheme=mtab.scheme,
-               max_probes=bulk._tstatic(mtab)[3])
-    mkp = mtab.store["keys"][0]
-    dedup_t, _ = timed(torch, lambda: bulk_retrieve.group_queries(base,
-                                                                  every))
-    walk_t, _ = timed(torch, lambda: ops.retrieve_walk(mkp, base, every,
-                                                       collect=True, **mkw))
-    ret_ms, dedup_ms, walk_ms = (statistics.median(mret_t),
-                                 statistics.median(dedup_t),
-                                 statistics.median(walk_t))
-    ok6 = len(failures) == failed_before
-    print(f"phase 6 multi-value main path n={N_MV} r={R_MV} "
-          f"load={contract.LOAD} W={WINDOW} cops: "
-          f"{'ok' if ok6 else 'FAILED'}; insert {spread(mins_t)} ={N_MV / statistics.median(mins_t) / 1e6:.3f}"
-          f" G pairs/s, count_values {spread(mcnt_t)} = "
-          f"{N_MV / statistics.median(mcnt_t) / 1e6:.3f} G values/s, "
-          f"retrieve_all {spread(mret_t)} = {N_MV / ret_ms / 1e6:.3f} G "
-          f"values/s (5 runs each, CUDA events, through mv.insert / "
-          f"mv.count_values / mv.retrieve_all); retrieve_all split: dedup "
-          f"{dedup_ms:.3f} ms, walk kernel (arena fill included) "
-          f"{walk_ms:.3f} ms, compaction {ret_ms - dedup_ms - walk_ms:.3f} "
-          f"ms (by difference); peak {mv_peak:.1f} GB; launches "
-          f"{mv_launches}; card {card}", flush=True)
-    del mtab, mkp
-
-    # -- phase 7: cops_append and cops_retrieve alone at phase 6's shapes ---
-    def append_kernel(t):
-        return t, ops.append(*planes(t), keys, vals, **mkw)
-
-    def append_plain(t):
-        return t, ops.append_plain(*planes(t), keys, vals, **mkw)
-
-    def append_bytes(table_keys, landed):
-        """What an append into an empty store, now ``table_keys``, must
-        move: per distinct key the windows up to the last one its pairs
-        landed in (``landed``, summed), each 128-byte line read once however
-        many of the key's pairs walk it; each 32-byte key and value sector
-        that holds a pair written once; the key, value and status streams,
-        12 B per pair."""
-        sectors = int((table_keys.reshape(-1, 8) != EMPTY_WORD).any(1).sum())
-        return landed * win_bytes + 2 * 32 * sectors + N_MV * 12
-
-    # the same append with 2^28 distinct keys (r = 1): what the r = 8
-    # duplicates' CAS races on one row cost
-    keys_r1 = contract.distinct_keys(0, N_MV, dev)
-    app_r1_t, (r1_t, st_r1) = timed(torch, lambda t: (t, ops.append(
-        *planes(t), keys_r1, vals, **mkw)), fresh_mv)
-    check("phase7 append r=1 all INSERTED",
-          bool((st_r1 == STATUS_INSERTED).all()))
-    r1_kp = r1_t.store["keys"][0]
-    _, landed_r1 = multi_walk_windows(torch, r1_kp, keys_r1, mkw["seed"],
-                                      mkw["scheme"], mkw["max_probes"])
-    app_r1_bytes = append_bytes(r1_kp, landed_r1)
-    del keys_r1, st_r1, r1_t, r1_kp
-    app_t, (mk_t, kst) = timed(torch, append_kernel, fresh_mv)
-    app_plain_t, (mp_t, pst) = timed(torch, append_plain, fresh_mv, reps=1,
-                                     warmup=0)
-    for part, ok in contract.check_append(planes(mk_t), planes(mp_t), keys,
-                                          kst, pst, **mkw).items():
-        check(f"phase7 append {part}", ok)
-    kpairs = contract.live_pairs(*planes(mk_t))
-    ppairs = contract.live_pairs(*planes(mp_t))
-    app_err = (int(((kpairs & 0xFFFFFFFF) - (ppairs & 0xFFFFFFFF)).abs()
-                   .max()) if kpairs.shape == ppairs.shape else float("inf"))
-    del mp_t, pst, kpairs, ppairs
-    mkp = mk_t.store["keys"][0]
-    cnt_only_t, _ = timed(torch, lambda: ops.retrieve_walk(
-        mkp, base, every, collect=False, **mkw))
-    rw_t, kout = timed(torch, lambda: ops.retrieve_walk(
-        mkp, base, every, collect=True, **mkw))
-    rw_plain_t, pout = timed(torch, lambda: ops.retrieve_walk_plain(
-        mkp, base, every, collect=True, **mkw), reps=1, warmup=0)
-    rw_err = max(int((a.long() - b.long()).abs().max())
-                 for a, b in zip(kout, pout))
-    check("phase7 retrieve bit-exact",
-          all(torch.equal(a, b) for a, b in zip(kout, pout)))
-    del kout, pout
-    walked, landed = multi_walk_windows(torch, mkp, base, mkw["seed"],
-                                        mkw["scheme"], mkw["max_probes"])
-    cap = mkp.numel()
-    app_bytes = append_bytes(mkp, landed)
-    # retrieve: each query's windows up to its first EMPTY window + the key,
-    # active and count streams (9 B) + both (p * W,) int32 arenas written
-    # once in full (the wrapper's fill, the kernel's stamps)
-    cnt_bytes = walked * win_bytes + n_keys * 9
-    rw_bytes = cnt_bytes + cap * 8
-    print(f"phase 7 multi-value kernels at n={N_MV} pairs, {n_keys} "
-          f"queries: {'ok' if not failures else 'FAILED'}; append windows "
-          f"per key {landed / n_keys:.4f} (r=1: {landed_r1 / N_MV:.4f}), "
-          f"walk windows per query "
-          f"{walked / n_keys:.4f}; cops_append {spread(app_t)}, plain "
-          f"{app_plain_t[0]:.3f} ms, bound "
-          f"{app_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, with r=1 (distinct "
-          f"keys) {spread(app_r1_t)}, bound "
-          f"{app_r1_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; cops_retrieve "
-          f"collect {spread(rw_t)}, plain {rw_plain_t[0]:.3f} ms, bound "
-          f"{rw_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; counts only "
-          f"{spread(cnt_only_t)}, bound "
-          f"{cnt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card {card}",
-          flush=True)
-
-    record = {"kernels": [
-        {"name": "cops_insert", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["cops_insert"],
-         "launches": launches["cops_insert"], "max_abs_err": ins_err,
-         "ms": statistics.median(kernel_ins_t), "plain_ms": plain_ins_t[0],
-         "bound_ms": ins_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "cops_lookup", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["cops_lookup"],
-         "launches": launches["cops_lookup"], "max_abs_err": look_err,
-         "ms": statistics.median(look_t), "plain_ms": plain_look_t[0],
-         "bound_ms": look_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "cops_append", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["cops_append"],
-         "launches": mv_launches["cops_append"], "max_abs_err": app_err,
-         "ms": statistics.median(app_t), "plain_ms": app_plain_t[0],
-         "bound_ms": app_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "cops_retrieve", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["cops_retrieve"],
-         "launches": mv_launches["cops_retrieve"], "max_abs_err": rw_err,
-         "ms": statistics.median(rw_t), "plain_ms": rw_plain_t[0],
-         "bound_ms": rw_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": None},
-    ]}
     print(card, flush=True)
-    print(json.dumps(record), flush=True)
-    if failures:
-        print(f"chip_smoke: FAILED {failures}", file=sys.stderr)
+    print(json.dumps({"kernels": records}), flush=True)
+    if check.failed:
+        print(f"chip_smoke: FAILED {check.failed}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

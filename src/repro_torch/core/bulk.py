@@ -1,37 +1,46 @@
-"""Vectorized bulk-build engine — the fast lane of ``repro.core.bulk``.
+"""Vectorized bulk-build engine — ``repro.core.bulk`` for 1- and 2-word keys.
 
 ``insert_single`` runs the engine's two halves:
 
 1. **Dedup** (``_group_fast``): duplicate keys of a batch are grouped by a
-   bare key sort + ``searchsorted``, and one *representative* per distinct
-   live key survives — the group's first live occurrence, carrying the
-   group's last live value (last writer wins).
-2. **Upsert of the representatives** (``kernels.cops.ops.insert``): on a
-   CUDA table the ``cops_insert`` kernel, one warp-cooperative walk per
-   representative with an ``atomicCAS`` claim; on a CPU table its plain
-   version, ``kernels.cops.ops.insert_plain``, which is this module's
+   bare sort of one word per key + ``searchsorted``, and one
+   *representative* per distinct live key survives — the group's first
+   live occurrence, carrying the group's last live value (last writer
+   wins).  A 1-word key is its own sort word; a two-word key sorts as one
+   int64 word holding both planes, which renders the JAX engine's general
+   lane (``_sort_batch`` + ``_group_structure``): the same groups and the
+   same claim priority, the batch position of each group's first live
+   element.
+2. **Upsert of the representatives** (``kernels.cops.ops.insert``, or
+   ``insert64`` for two-word keys): on a CUDA table the ``cops_insert`` /
+   ``cops_insert64`` kernel, one warp-cooperative walk per representative
+   with an ``atomicCAS`` claim; on a CPU table their plain version,
+   ``kernels.cops.ops.insert_plain``, which is this module's
    ``probe_matches`` -> ``place_claims`` -> ``_apply`` pipeline:
 
    - **Probe**: one walk per representative against the pre-batch store
-     finds the keys already present (stop at a match or at a window holding
-     an EMPTY).  Representatives are distinct, so no write of the batch
-     can create or destroy a match.  An empty store skips the walk.
+     finds the keys already present (a match holds on every key plane;
+     stop at a match or at a window holding an EMPTY).  Representatives
+     are distinct, so no write of the batch can create or destroy a
+     match.  An empty store skips the walk.
    - **Arbitrate**: the virtual-fill fixpoint places the claimers.  Per
      sweep, claimers targeting a row are ranked by batch position; rank k
-     takes the k-th lowest EMPTY / TOMBSTONE lane, and ranks past the row's
-     free-lane count bump to the next row of their own walk.  The fixpoint
-     ends where the sequential scan would have placed every claimer.
-   - **Apply**: one batched write of values (matches and claims) and keys
-     (claims).
+     takes the k-th lowest EMPTY / TOMBSTONE lane of plane 0, and ranks
+     past the row's free-lane count bump to the next row of their own
+     walk.  The fixpoint ends where the sequential scan would have placed
+     every claimer.
+   - **Apply**: one batched write of values (matches and claims) and of
+     every key plane (claims).
 
 3. **Statuses** (``_finish_fast``) fan out from the representatives to
    every element in batch order.
 
 ``insert_multi`` is the multi-value append: no dedup, every live element
 is a claimer and duplicates of a key take slots of their own
-(``kernels.cops.ops.append``: the ``cops_append`` kernel on a CUDA table,
-its plain version ``append_plain`` — ``place_claims`` + ``scatter_batch``
-— on a CPU table).
+(``kernels.cops.ops.append`` / ``append64``: the ``cops_append`` /
+``cops_append64`` kernel on a CUDA table, their plain version
+``append_plain`` — ``place_claims`` + ``scatter_batch`` — on a CPU
+table).
 
 The plain lane is bit-exact against ``repro.core.bulk.insert_single`` and
 ``insert_multi`` (the same store planes and statuses); the kernel lane
@@ -41,8 +50,9 @@ before the first EMPTY window of its walk; retrieve parity), checked by
 ``kernels/cops/contract.py``.  ``lax.cond`` / ``while_loop`` of the JAX
 engine are Python branches and loops on host-read scalars here.
 
-The JAX engine's general lane (wide keys, combiner callables), its
-telemetry and quotient stores are not ported yet.
+Not ported yet: keys wider than two words and multi-word values,
+combiner callables (``_update_general``, with ``update_values``), the
+telemetry and quotient stores.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from repro_torch.core.common import (
     STATUS_MASKED,
     STATUS_UPDATED,
     TOMBSTONE_WORD,
+    as_u32,
 )
 
 _I64 = torch.int64
@@ -72,29 +83,70 @@ def _tstatic(table):
                                      table.num_rows))
 
 
+def _cops(table, name):
+    """``(wrapper, key planes)`` of the COPS kernel ``name`` for the
+    table's key width: the u32 wrapper over key plane 0, or its two-plane
+    twin (``name + "64"``) over the (2, p, W) key planes."""
+    from repro_torch.kernels.cops import ops as cops_ops
+    if table.key_words == 1:
+        return getattr(cops_ops, name), table.store["keys"][0]
+    return getattr(cops_ops, name + "64"), table.store["keys"]
+
+
+def _key_cols(keys):
+    """(n, kw) view of a key batch: (n,) 1-word keys or (n, kw) planes."""
+    return keys[:, None] if keys.ndim == 1 else keys
+
+
+def window_match(key_planes, row, key):
+    """``(plane-0 windows (m, W), match (m, W))`` of the rows ``row`` of
+    the (kw, p, W) key planes: a lane matches where it holds ``key``
+    ((m, kw) planes) on every plane."""
+    win = key_planes[0][row]
+    match = win == key[:, :1]
+    for plane in range(1, key.shape[1]):
+        match &= key_planes[plane][row] == key[:, plane:plane + 1]
+    return win, match
+
+
 # ---------------------------------------------------------------------------
-# dedup — fast lane (1-word keys, original batch order)
+# dedup (original batch order)
 # ---------------------------------------------------------------------------
 
-def _group_fast(keys1: torch.Tensor, live: torch.Tensor):
-    """Group structure for 1-word keys without any payload sort.
+def pack_keys(keys):
+    """One int64 word per key, equal exactly where the keys are: the u32
+    value of a 1-word key, ``plane0 << 32 | plane1`` (plane 0 signed) of
+    a two-word key."""
+    if keys.ndim == 1:
+        return as_u32(keys)
+    return (keys[:, 0].to(_I64) << 32) | as_u32(keys[:, 1])
 
-    Masked elements sort as EMPTY (no user key collides with a sentinel)
-    and so never join a live group.  Returns ``(is_rep, rep_of, lww_of,
-    has_dups)`` in batch order; ``rep_of`` / ``lww_of`` map every
-    element to its group's first / last live element (``n`` / 0 for a group
-    with no live element), itself when the batch is duplicate-free.
+
+def _group_fast(keys, live):
+    """Group structure for 1- or 2-word keys without any payload sort.
+
+    Each element sorts as one word: a 1-word key as itself (the cheaper
+    int32 sort), a two-word key as its ``pack_keys`` word.  Masked elements
+    sort as a word whose plane 0 is EMPTY, which no user key holds, so they
+    never join a live group.  Returns ``(is_rep, rep_of, lww_of,
+    has_dups)`` in batch order; ``rep_of`` / ``lww_of`` map every element
+    to its group's first / last live element (``n`` / 0 for a group with
+    no live element), itself when the batch is duplicate-free.
     """
-    n = keys1.shape[0]
-    idx = torch.arange(n, dtype=_I64, device=keys1.device)
-    k = torch.where(live, keys1, EMPTY_WORD)
+    n = keys.shape[0]
+    idx = torch.arange(n, dtype=_I64, device=keys.device)
+    if keys.ndim == 1:
+        sentinel, k = EMPTY_WORD, keys
+    else:
+        sentinel, k = EMPTY_WORD << 32, pack_keys(keys)
+    k = torch.where(live, k, sentinel)
     sk = torch.sort(k).values
-    has_dups = bool(((sk[1:] == sk[:-1]) & (sk[:-1] != EMPTY_WORD)).any())
+    has_dups = bool(((sk[1:] == sk[:-1]) & (sk[:-1] != sentinel)).any())
     if has_dups:
         gid = torch.searchsorted(sk, k)
-        rep = torch.full((n,), n, dtype=_I64, device=keys1.device)
+        rep = torch.full((n,), n, dtype=_I64, device=keys.device)
         rep.scatter_reduce_(0, gid, torch.where(live, idx, n), "amin")
-        lww = torch.zeros((n,), dtype=_I64, device=keys1.device)
+        lww = torch.zeros((n,), dtype=_I64, device=keys.device)
         lww.scatter_reduce_(0, gid, torch.where(live, idx, 0), "amax")
         rep_of, lww_of = rep[gid], lww[gid]
     else:
@@ -110,8 +162,10 @@ def _group_fast(keys1: torch.Tensor, live: torch.Tensor):
 def probe_matches(tstatic, store, keys, words, active, count=None):
     """One COPS walk for every active element against the current store.
 
-    Returns ``(matched, row, lane)``, the position of each key already
-    present.  A walk stops at a match or at a window holding an EMPTY; only
+    ``keys`` are (n,) 1-word keys or (n, kw) planes, ``words`` their probe
+    words.  Returns ``(matched, row, lane)``, the position of each key
+    already present: a match holds on every key plane.  A walk stops at a
+    match or at a window holding an EMPTY (on plane 0); only
     the elements still walking are gathered each round.  When ``count`` is
     given and zero the walk is skipped (an empty store holds no match), and
     ``row`` is then the initial row, as in the JAX engine.
@@ -126,15 +180,15 @@ def probe_matches(tstatic, store, keys, words, active, count=None):
     if count is not None and count == 0:
         return matched, row0, lane
     mrow = torch.zeros((n,), dtype=_I64, device=dev)
-    kp0 = ops.key_planes(store)[0]
+    kps = ops.key_planes(store)
     act = torch.nonzero(active).squeeze(1)
-    row, key = row0[act], keys[act]
+    row, key = row0[act], _key_cols(keys)[act]
     step = probing.row_step(scheme, words[act], num_rows, seed)
     for _ in range(max_probes):
         if act.numel() == 0:
             break
-        win = kp0[row]                                        # (m, W)
-        m_lane = probing.vote_lowest(win == key[:, None])
+        win, match = window_match(kps, row, key)              # (m, W)
+        m_lane = probing.vote_lowest(match)
         hit = m_lane < w
         has_empty = probing.vote_any(win == EMPTY_WORD)
         hit_at = act[hit]
@@ -258,14 +312,14 @@ def place_claims(tstatic, store, words, claim):
 # ---------------------------------------------------------------------------
 
 def _apply(ops, store, keys, matched, mrow, mlane, placed, crow, clane, vals):
-    """One write phase, in place: values of matches and claims, keys of
-    claims.  Returns the number of claimed slots."""
+    """One write phase, in place: values of matches and claims, every key
+    plane of claims.  Returns the number of claimed slots."""
     write = matched | placed
     row = torch.where(matched, mrow, crow)
     lane = torch.where(matched, mlane, clane)
     slots = (row * ops.window + lane)[write]
-    ops.scatter_batch(store, slots, keys[write][:, None], vals[write][:, None],
-                      placed[write])
+    ops.scatter_batch(store, slots, _key_cols(keys)[write],
+                      vals[write][:, None], placed[write])
     return int(placed.sum())
 
 
@@ -310,16 +364,17 @@ def _finish_fast(groups, rep_status):
 def insert_single(table, keys, values, mask=None):
     """Bulk path for ``single_value.insert`` (plain upsert, LWW dedup).
 
-    ``keys`` / ``values`` are int32 word tensors and ``mask`` a bool tensor
-    (or None), all on the table's device.  The store is updated in place.
+    ``keys`` ((n,) or (n, 2) planes) / ``values`` are int32 word tensors
+    and ``mask`` a bool tensor (or None), all on the table's device.  The
+    store is updated in place.
     """
-    from repro_torch.kernels.cops import ops as cops_ops
     if keys.shape[0] == 0:
         return table, torch.zeros((0,), dtype=torch.int32, device=keys.device)
     rkeys, rvals, groups = dedup(keys, values, mask)
     _, scheme, seed, max_probes = _tstatic(table)
-    rep_status = cops_ops.insert(
-        table.store["keys"][0], table.store["values"][0], rkeys, rvals,
+    insert, table_keys = _cops(table, "insert")
+    rep_status = insert(
+        table_keys, table.store["values"][0], rkeys, rvals,
         seed=seed, scheme=scheme, max_probes=max_probes, count=table.count)
     inserted = int((rep_status == STATUS_INSERTED).sum())
     return (dataclasses.replace(table, count=table.count + inserted),
@@ -333,7 +388,6 @@ def insert_multi(table, keys, values, mask=None):
     compacted, in batch order, before the append and their statuses fanned
     back out.  The store is updated in place.
     """
-    from repro_torch.kernels.cops import ops as cops_ops
     n = keys.shape[0]
     if n == 0:
         return table, torch.zeros((0,), dtype=torch.int32, device=keys.device)
@@ -341,9 +395,9 @@ def insert_multi(table, keys, values, mask=None):
     if live is not None:
         keys, values = keys[live], values[live]
     _, scheme, seed, max_probes = _tstatic(table)
-    status = cops_ops.append(
-        table.store["keys"][0], table.store["values"][0], keys, values,
-        seed=seed, scheme=scheme, max_probes=max_probes)
+    append, table_keys = _cops(table, "append")
+    status = append(table_keys, table.store["values"][0], keys, values,
+                    seed=seed, scheme=scheme, max_probes=max_probes)
     inserted = int((status == STATUS_INSERTED).sum())
     if live is not None:
         per = torch.full((n,), STATUS_MASKED, dtype=torch.int32,

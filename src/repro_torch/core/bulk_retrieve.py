@@ -1,5 +1,10 @@
 """Bulk retrieval, membership and erase — ``repro.core.bulk_retrieve``.
 
+Every walk matches on every key plane: a table of two-word keys (u64 or
+two-column composite keys) walks through the two-plane twin of each
+kernel wrapper (``lookup64``, ``retrieve_walk64``), and its dedup front
+end sorts one int64 word per key (``bulk._group_fast``).
+
 **Single-value.**  Every entry point is one walk per query through
 ``kernels.cops.ops.lookup``: the ``cops_lookup`` kernel on a CUDA table,
 its plain version (``bulk.probe_matches`` + a gather) on a CPU table.
@@ -45,17 +50,17 @@ from repro_torch.core import bulk
 
 
 def _lookup(table, keys, slots=False):
-    from repro_torch.kernels.cops import ops as cops_ops
     _, scheme, seed, max_probes = bulk._tstatic(table)
-    return cops_ops.lookup(table.store["keys"][0], table.store["values"][0],
-                           keys, seed=seed, scheme=scheme,
-                           max_probes=max_probes, slots=slots)
+    lookup, table_keys = bulk._cops(table, "lookup")
+    return lookup(table_keys, table.store["values"][0], keys, seed=seed,
+                  scheme=scheme, max_probes=max_probes, slots=slots)
 
 
 def group_queries(keys, live):
-    """Group duplicate query keys; returns ``(is_rep, rep_of)`` in batch
-    order (``rep_of`` is ``n`` for elements whose key has no live
-    occurrence)."""
+    """Group duplicate query keys ((n,) or (n, 2) planes); returns
+    ``(is_rep, rep_of)`` in batch order (``rep_of`` is ``n`` for elements
+    whose key has no live occurrence).  Keys that differ in any plane,
+    the high one included, never share a group."""
     is_rep, rep_of, _, _ = bulk._group_fast(keys, live)
     return is_rep, rep_of
 
@@ -111,11 +116,10 @@ def fused_walk(table, keys, active, *, collect):
     holds one (query, rank) pair per slot, so a walk must never revisit a
     row: every cops / linear walk is clamped to the rows its scheme reaches
     (``probing.effective_probes``)."""
-    from repro_torch.kernels.cops import ops as cops_ops
     _, scheme, seed, max_probes = bulk._tstatic(table)
-    return cops_ops.retrieve_walk(table.store["keys"][0], keys, active,
-                                  seed=seed, scheme=scheme,
-                                  max_probes=max_probes, collect=collect)
+    walk, table_keys = bulk._cops(table, "retrieve_walk")
+    return walk(table_keys, keys, active, seed=seed, scheme=scheme,
+                max_probes=max_probes, collect=collect)
 
 
 def _fan_out(rcnt, rep_of, live, n):

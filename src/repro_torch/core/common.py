@@ -113,6 +113,30 @@ def to_words(x, device=None) -> torch.Tensor:
     return x.to(device) if device is not None else x
 
 
+def split_u64(x) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split 64-bit integers (numpy ``uint64`` arrays or torch ``uint64``
+    tensors) into their (hi, lo) u32 planes, as int32 word tensors.  The
+    tables store lo as plane 0, the plane that holds the sentinels, and hi
+    as plane 1."""
+    if isinstance(x, np.ndarray):
+        if x.dtype != np.uint64:
+            raise TypeError(f"expected uint64, got numpy {x.dtype}")
+        x = torch.from_numpy(np.ascontiguousarray(x).view(np.int64))
+    elif isinstance(x, torch.Tensor) and x.dtype == torch.uint64:
+        x = x.view(torch.int64)       # the same bits; shifts work on int64
+    else:
+        raise TypeError(f"expected uint64, got {getattr(x, 'dtype', type(x))}")
+    return as_word(x >> 32), as_word(x)
+
+
+def join_u64(hi, lo) -> np.ndarray:
+    """Join (hi, lo) u32 planes (int32 word tensors or numpy u32 arrays)
+    into numpy ``uint64``."""
+    hi, lo = (np.asarray(to_numpy_u32(p) if isinstance(p, torch.Tensor)
+                         else p).astype(np.uint64) for p in (hi, lo))
+    return (hi << np.uint64(32)) | lo
+
+
 def to_numpy_u32(x: torch.Tensor) -> np.ndarray:
     """numpy uint32 copy of an int32 word tensor (any device).  A copy, not
     a view: the tables update their tensors in place."""

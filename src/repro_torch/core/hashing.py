@@ -1,4 +1,4 @@
-"""Hash mixers, bit-identical to ``repro.core.hashing``.
+"""Hash mixers and key-plane packing, bit-identical to ``repro.core.hashing``.
 
 The paper uses two independent hash functions: ``h`` for the initial probe
 row and ``g`` for the double-hashing step (§II, §IV-B.2).  These are the
@@ -7,15 +7,17 @@ murmur3 / xxhash32 avalanche mixers over u32 words.
 Every function takes an integer tensor of u32 words (int32 bit patterns or
 int64 values) and returns int64 values in [0, 2^32) (see ``common``).
 Multiplication modulo 2^32 is split into 16-bit halves so that no int64
-product overflows.  The CUDA kernels compute the same mixers in
-``uint32_t`` arithmetic (``kernels/cops/csrc/cops.cu``).
+product overflows.  ``combine_planes`` folds a two-word key into the one
+word its walk hashes; ``pack_columns`` / ``unpack_columns`` map composite
+column keys to key planes and back.  The CUDA kernels compute the same
+mixers and fold in ``uint32_t`` arithmetic (``kernels/cops/csrc/cops.cu``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.common import MASK32, as_u32
+from repro_torch.core.common import MASK32, as_u32, to_words
 
 # murmur3 fmix32 constants
 _M1 = 0x85EBCA6B
@@ -29,6 +31,8 @@ _M1_INV = pow(_M1, -1, 1 << 32)
 _M2_INV = pow(_M2, -1, 1 << 32)
 # golden-ratio multiplier that derives the step mixer's seed
 _STEP_SEED = 0x9E3779B1
+# the additive constant of the plane fold (boost::hash_combine)
+_COMBINE = 0x9E3779B9
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -67,6 +71,45 @@ def mix_xxhash(x: torch.Tensor) -> torch.Tensor:
     x = _mul32(x, _X3)
     x = x ^ (x >> 16)
     return _mul32(x, _X4)
+
+
+def combine_planes(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Fold a 64-bit key's (hi, lo) planes into one well-mixed u32 word:
+    the probe word of every two-plane walk.  boost::hash_combine-style,
+    asymmetric so (a, b) and (b, a) fold apart."""
+    h = mix_murmur3(lo)
+    return h ^ ((mix_murmur3(hi) + _COMBINE + (h << 6) + (h >> 2)) & MASK32)
+
+
+# Composite multi-column keys: N u32 columns are stored as N key planes.
+# Plane 0 (the one that holds the sentinels) is the LAST column, so for two
+# columns the planes are bit for bit the (lo, hi) planes of the u64 key
+# ``(col0 << 32) | col1``.
+
+def pack_columns(columns) -> torch.Tensor:
+    """Pack N (n,) u32 columns (numpy ``uint32`` / ``int32`` arrays or torch
+    ``int32`` / ``uint32`` tensors) into an (n, N) int32 plane batch.
+    Column 0 is the most significant and becomes plane N - 1."""
+    if len(columns) == 0:
+        raise ValueError("pack_columns needs at least one column")
+    cols = [to_words(c) for c in columns]
+    for i, c in enumerate(cols):
+        if c.ndim != 1:
+            raise ValueError(f"column {i} must be 1-D, got shape "
+                             f"{tuple(c.shape)}")
+    if any(c.shape != cols[0].shape for c in cols):
+        raise ValueError("key columns must share one length")
+    if len({c.device for c in cols}) != 1:
+        raise ValueError("key columns must share one device")
+    return torch.stack(cols[::-1], dim=1)
+
+
+def unpack_columns(keys: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Inverse of :func:`pack_columns`: (n, N) planes -> N (n,) columns."""
+    if keys.ndim == 1:
+        keys = keys[:, None]
+    kw = keys.shape[-1]
+    return tuple(keys[..., kw - 1 - i] for i in range(kw))
 
 
 def full_hash(key_word: torch.Tensor, seed: int) -> torch.Tensor:

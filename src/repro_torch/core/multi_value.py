@@ -1,7 +1,9 @@
 """MultiValueHashTable — the same key may occur many times (paper §IV-B, V-B).
 
-The port of ``repro.core.multi_value`` for 1-word u32 keys and values on
-the SOA store, schemes cops and linear.  Every (key, value) pair takes a
+The port of ``repro.core.multi_value`` on the SOA store, schemes cops and
+linear, for 1-word u32 keys and two-word keys (u64 or two-column composite
+keys, in every spelling of ``single_value.normalize_key_batch``), with
+1-word values.  Every (key, value) pair takes a
 slot of its own: ``insert`` appends each pair into the lowest EMPTY or
 TOMBSTONE slot of the first window of its walk that has one, without
 looking for the key.  ``retrieve_all`` walks to the first window holding
@@ -39,7 +41,7 @@ from repro_torch.core.single_value import (
 
 @dataclasses.dataclass
 class MultiValueHashTable:
-    store: dict                 # {"keys": (1, p, W), "values": (1, p, W)} int32
+    store: dict                 # {"keys": (kw, p, W), "values": (1, p, W)} int32
     count: int                  # live (key, value) pairs
     num_rows: int
     window: int
@@ -96,7 +98,7 @@ def insert(table: MultiValueHashTable, keys, values, mask=None):
     Returns (table, status (n,) int32: INSERTED / FULL / MASKED)."""
     keys = normalize_key_batch(keys, table.key_words, table.device)
     values = normalize_words(values, table.value_words, "values", table.device)
-    if values.shape != keys.shape:
+    if values.shape[0] != keys.shape[0]:
         raise ValueError(f"{values.shape[0]} values for {keys.shape[0]} keys")
     mask = normalize_mask(mask, keys.shape[0], table.device)
     return bulk.insert_multi(table, keys, values, mask)

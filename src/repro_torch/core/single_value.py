@@ -1,7 +1,8 @@
 """SingleValueHashTable — open addressing with COPS probing, in PyTorch.
 
-The port of ``repro.core.single_value`` for 1-word u32 keys and values on
-the SOA store.  A table lives on one device, chosen at ``create``:
+The port of ``repro.core.single_value`` on the SOA store, for 1-word u32
+keys and for two-word keys (u64 keys and two-column composite keys), with
+1-word values.  A table lives on one device, chosen at ``create``:
 ``device=None`` means the CUDA card, and there is no fallback to the CPU
 (pass ``device="cpu"`` to run the plain tensor versions of the kernels, as
 the tests do).  Every operation runs on the device of the table's tensors.
@@ -14,17 +15,20 @@ Semantics are the JAX package's (paper §IV-B.3-5):
   first, so every live key stays at or before the first EMPTY window of
   its walk.  Duplicates within a batch behave as consecutive upserts.
 - ``retrieve`` / ``contains`` stop a walk at a match or an EMPTY window.
-- ``erase`` writes TOMBSTONEs (§IV-B.5).
+- ``erase`` writes TOMBSTONEs into every key plane (§IV-B.5).
 
 Unlike the JAX package, ``insert`` and ``erase`` update the store tensors
 **in place** (no table-sized copy per batch) and return a table object
 that shares them with the argument, carrying the new ``count``.
 
-Key and value batches are u32 words: numpy ``uint32`` arrays or torch
-``int32`` / ``uint32`` tensors (see ``common.to_words``).  With 1-word
-keys the probe word a walk hashes is the key itself (``common.as_u32``).
-Values come back as int32 tensors holding the u32 bits
-(``common.to_numpy_u32`` reads them as numpy u32).
+Key batches (``normalize_key_batch``) are u32 words — numpy ``uint32``
+arrays or torch ``int32`` / ``uint32`` tensors, (n,) or (n, key_words) —
+and, for ``key_words == 2``, also numpy / torch ``uint64`` keys and tuples
+of two (n,) u32 columns (``hashing.pack_columns``).  Key plane 0 holds the
+low word and the sentinels.  The probe word a walk hashes is the key
+itself for 1-word keys and ``hashing.combine_planes(hi, lo)`` for two
+(``key_hash_word``).  Values come back as int32 tensors holding the u32
+bits (``common.to_numpy_u32`` reads them as numpy u32).
 """
 
 from __future__ import annotations
@@ -34,18 +38,22 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import bulk, bulk_retrieve, layouts, probing
+from repro_torch.core import bulk, bulk_retrieve, hashing, layouts, probing
 from repro_torch.core.common import (
     DEFAULT_SEED,
     DEFAULT_WINDOW,
+    as_u32,
+    split_u64,
     table_geometry,
     to_words,
 )
 
 #: what the port does not carry yet -> the ROADMAP.md item that brings it
 _NOT_PORTED = {
-    "key_words": "queue 1 item 2 (wide keys and multi-word values)",
-    "value_words": "queue 1 item 2 (wide keys and multi-word values)",
+    "key_words": "queue 1 item 2b (keys wider than two words, "
+                 "multi-word values)",
+    "value_words": "queue 1 item 2b (keys wider than two words, "
+                   "multi-word values)",
     "quadratic": "queue 1 item 1b (the rest of the single-value table)",
     "layout": "queue 1 item 1b (the rest of the single-value table)",
     "bucketed": "queue 1 item 4 (high-load lane: bucketed, quotient)",
@@ -54,7 +62,7 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass
 class SingleValueHashTable:
-    store: dict                 # {"keys": (1, p, W), "values": (1, p, W)} int32
+    store: dict                 # {"keys": (kw, p, W), "values": (1, p, W)} int32
     count: int                  # live keys
     num_rows: int
     window: int
@@ -103,7 +111,9 @@ def check_ported(key_words: int, value_words: int, scheme: str,
     """Raise for a configuration the port does not carry: ValueError if
     the JAX package has no such option, NotImplementedError naming the
     ROADMAP.md item that brings it otherwise."""
-    if key_words != 1:
+    if key_words < 1:
+        raise ValueError(f"key_words={key_words} must be positive")
+    if key_words > 2:
         _refuse("key_words", f"key_words={key_words}")
     if value_words != 1:
         _refuse("value_words", f"value_words={value_words}")
@@ -139,21 +149,56 @@ def create(min_capacity: int, *, window: int = DEFAULT_WINDOW,
 # ---------------------------------------------------------------------------
 
 def normalize_words(x, words: int, name: str, device) -> torch.Tensor:
-    """Accept (n,) or (n, 1) u32 words; return (n,) int32 on ``device``."""
+    """Accept (n,) u32 words [words == 1] or (n, words); return a
+    contiguous int32 tensor on ``device``, (n,) for one word and (n, words)
+    otherwise.  Used for value batches too, so it makes no key-specific
+    coercion (``normalize_key_batch`` does)."""
     x = to_words(x, device)
-    if x.ndim == 2:
-        if x.shape[1] != 1:
-            _refuse("key_words" if name == "keys" else "value_words",
-                    f"{name} with {x.shape[1]} words")
-        x = x[:, 0]
-    if x.ndim != 1:
-        raise ValueError(f"{name} must be (n,) or (n, {words}), got {tuple(x.shape)}")
-    return x.contiguous()
+    if x.ndim == 1:
+        x = x[:, None]
+    if x.ndim != 2 or x.shape[1] != words:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, the table "
+                         f"expects (n,) or (n, {words}) words")
+    return (x[:, 0] if words == 1 else x).contiguous()
+
+
+def as_key_planes(x):
+    """Coerce the composite key spellings to a plane batch (others pass
+    through unchanged):
+
+    - a tuple of (n,) u32 columns (numpy arrays or torch tensors) packs via
+      ``hashing.pack_columns``, column 0 most significant;
+    - numpy ``uint64`` keys, or a torch ``uint64`` tensor, split into the
+      table-native (lo, hi) planes (``common.split_u64``).
+    """
+    if (isinstance(x, tuple) and len(x) > 0
+            and all(isinstance(c, (np.ndarray, torch.Tensor)) and c.ndim == 1
+                    for c in x)):
+        return hashing.pack_columns(x)
+    if ((isinstance(x, np.ndarray) and x.dtype == np.uint64)
+            or (isinstance(x, torch.Tensor) and x.dtype == torch.uint64)):
+        hi, lo = split_u64(x)
+        return torch.stack([lo, hi], dim=1)
+    return x
 
 
 def normalize_key_batch(x, words: int, device, name: str = "keys") -> torch.Tensor:
-    """``normalize_words`` for 1-word key batches."""
-    return normalize_words(x, words, name, device)
+    """``normalize_words`` for key batches, taking every key spelling
+    (``as_key_planes``): (n,) int32 for 1-word keys, (n, words) planes
+    otherwise."""
+    return normalize_words(as_key_planes(x), words, name, device)
+
+
+def key_hash_word(keys: torch.Tensor) -> torch.Tensor:
+    """The u32 probe word (int64) a walk derives its rows from: the key
+    itself for (n,) 1-word keys, the ``hashing.combine_planes`` fold of
+    the planes of (n, kw) keys."""
+    if keys.ndim == 1:
+        return as_u32(keys)
+    word = as_u32(keys[:, 0])
+    for w in range(1, keys.shape[1]):
+        word = hashing.combine_planes(keys[:, w], word)
+    return word
 
 
 def normalize_mask(mask, n: int, device):
@@ -175,7 +220,7 @@ def insert(table: SingleValueHashTable, keys, values, mask=None):
     """Batch upsert. Returns (table, status (n,) int32) — see STATUS_* codes."""
     keys = normalize_key_batch(keys, table.key_words, table.device)
     values = normalize_words(values, table.value_words, "values", table.device)
-    if values.shape != keys.shape:
+    if values.shape[0] != keys.shape[0]:
         raise ValueError(f"{values.shape[0]} values for {keys.shape[0]} keys")
     mask = normalize_mask(mask, keys.shape[0], table.device)
     return bulk.insert_single(table, keys, values, mask)

@@ -1,10 +1,14 @@
 """The contracts that hold the concurrent insert kernels to the plain engine.
 
-``cops_insert`` and ``cops_append`` claim slots with atomicCAS, so where
-two elements race for a window their slot placement may differ from the
-sequential order that ``insert_plain`` / ``append_plain`` (and the JAX
+``cops_insert`` and ``cops_append``, and their two-plane twins
+``cops_insert64`` and ``cops_append64``, claim slots with atomicCAS, so
+where two elements race for a window their slot placement may differ from
+the sequential order that ``insert_plain`` / ``append_plain`` (and the JAX
 reference) replay.  They are held to four parts instead of bit-exact
-planes (ROADMAP.md).
+planes (ROADMAP.md).  Every check takes the key planes as the wrappers
+do: a (p, W) plane for 1-word keys, (2, p, W) planes for two-word keys,
+whose key batches are (n, 2); keys are compared on every plane
+(``bulk.pack_keys``).
 
 The single-value insert (``check_insert``):
 
@@ -37,27 +41,62 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import probing
+from repro_torch.core import bulk, hashing, probing
 from repro_torch.core.common import (
     DEFAULT_SEED,
     EMPTY_WORD,
+    MASK32,
     STATUS_FULL,
     STATUS_INSERTED,
     TOMBSTONE_WORD,
     as_u32,
     as_word,
 )
+from repro_torch.core.single_value import key_hash_word
 from repro_torch.kernels.cops import ops
 
 LOAD = 0.8      # the multi-value case's target load: Fig. 7's wc-oa
+SHARED_WORDS = 1 << 10   # plane-0 words shared by a quarter of the keys
+
+
+def twin(fn, table_keys):
+    """Wrapper ``fn`` of ``ops``, or its two-plane twin (``fn`` + "64")
+    for (2, p, W) key planes."""
+    return getattr(ops, fn.__name__ + "64") if table_keys.ndim == 3 else fn
+
+
+def _slot_keys(table_keys, slots):
+    """The key batch held at flat ``slots``: (m,) words or (m, kw) planes."""
+    kps = ops._planes(table_keys)
+    flat = kps.reshape(kps.shape[0], -1)[:, slots]
+    return flat[0] if table_keys.ndim == 2 else flat.T.contiguous()
+
+
+def unpack_keys(words, key_words):
+    """Inverse of ``bulk.pack_keys``: the key batch of int64 ``words``."""
+    if key_words == 1:
+        return as_word(words)
+    return torch.stack([as_word(words >> 32), as_word(words)], dim=1)
+
+
+def _live_slots(table_keys):
+    plane0 = ops._planes(table_keys)[0].reshape(-1)
+    return torch.nonzero((plane0 != EMPTY_WORD)
+                         & (plane0 != TOMBSTONE_WORD)).squeeze(1)
+
+
+def _lexsort(keys, values):
+    """(keys, values) int64 pairs sorted by key, then by value."""
+    order = torch.argsort(values, stable=True)
+    order = order[torch.argsort(keys[order], stable=True)]
+    return keys[order], values[order]
 
 
 def live_map(table_keys, table_values):
-    """(keys, values, slots) of the live slots, sorted by key (int64 u32)."""
-    flat_k = table_keys.reshape(-1)
-    slots = torch.nonzero((flat_k != EMPTY_WORD)
-                          & (flat_k != TOMBSTONE_WORD)).squeeze(1)
-    keys = as_u32(flat_k[slots])
+    """(keys, values, slots) of the live slots, sorted by key; keys as
+    ``bulk.pack_keys`` words, values as u32 (both int64)."""
+    slots = _live_slots(table_keys)
+    keys = bulk.pack_keys(_slot_keys(table_keys, slots))
     order = torch.argsort(keys)
     return (keys[order], as_u32(table_values.reshape(-1)[slots][order]),
             slots[order])
@@ -74,34 +113,37 @@ def check_insert(kernel_planes, plain_planes, kernel_status, plain_status, *,
     full = bool((kernel_status == STATUS_FULL).any()
                 or (plain_status == STATUS_FULL).any())
     same_status = full or bool(torch.equal(kernel_status, plain_status))
-    _, found, slot = ops.lookup_plain(*kernel_planes, as_word(kk), seed=seed,
-                                      scheme=scheme, max_probes=max_probes,
-                                      slots=True)
+    _, found, slot = ops.lookup_plain(
+        *kernel_planes, _slot_keys(kernel_planes[0], kslots), seed=seed,
+        scheme=scheme, max_probes=max_probes, slots=True)
     frontier = bool(found.all() and torch.equal(slot, kslots))
     return {"same_map": same_map, "same_status": same_status,
             "before_first_empty": frontier}
 
 
 def live_pairs(table_keys, table_values):
-    """Every live slot's (key, value) as one int64 ``key << 32 | value``,
-    sorted: the store's pair multiset."""
-    flat_k = table_keys.reshape(-1)
-    live = (flat_k != EMPTY_WORD) & (flat_k != TOMBSTONE_WORD)
-    pairs = ((as_u32(flat_k[live]) << 32)
-             | as_u32(table_values.reshape(-1)[live]))
-    return torch.sort(pairs).values
+    """The store's pair multiset: every live slot's (key, value) as two
+    int64 tensors (``bulk.pack_keys`` words, u32 values), sorted by key,
+    then value."""
+    slots = _live_slots(table_keys)
+    return _lexsort(bulk.pack_keys(_slot_keys(table_keys, slots)),
+                    as_u32(table_values.reshape(-1)[slots]))
+
+
+def _same(a, b):
+    return all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
 
 
 def walk_has_free(table_keys, keys, *, seed, scheme, max_probes):
     """Per key: does a window of its walk within the budget hold an EMPTY
-    or TOMBSTONE lane?"""
-    num_rows = table_keys.shape[0]
-    free_row = ((table_keys == EMPTY_WORD)
-                | (table_keys == TOMBSTONE_WORD)).any(dim=1)
-    words = as_u32(keys)
+    or TOMBSTONE lane (on plane 0)?"""
+    plane0 = ops._planes(table_keys)[0]
+    num_rows = plane0.shape[0]
+    free_row = ((plane0 == EMPTY_WORD) | (plane0 == TOMBSTONE_WORD)).any(dim=1)
+    words = key_hash_word(keys)
     row = probing.initial_row(words, num_rows, seed)
     step = probing.row_step(scheme, words, num_rows, seed)
-    found = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    found = torch.zeros(keys.shape[:1], dtype=torch.bool, device=keys.device)
     for attempt in range(max_probes):
         found |= free_row[row]
         row = probing.advance_row(row, step, num_rows)
@@ -111,15 +153,14 @@ def walk_has_free(table_keys, keys, *, seed, scheme, max_probes):
 
 
 def _walk_pairs(planes, keys, kw):
-    """(counts, sorted key << 32 | value of every slot the plain collecting
-    walk of the distinct ``keys`` stamps)."""
-    every = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    """(counts, the (key, value) pairs, sorted, of every slot the plain
+    collecting walk of the distinct ``keys`` stamps)."""
+    every = torch.ones(keys.shape[:1], dtype=torch.bool, device=keys.device)
     counts, qa, _ = ops.retrieve_walk_plain(planes[0], keys, every,
                                             collect=True, **kw)
     slots = torch.nonzero(qa < keys.shape[0]).squeeze(1)
-    pairs = ((as_u32(keys[qa[slots].long()]) << 32)
-             | as_u32(planes[1].reshape(-1)[slots]))
-    return counts, torch.sort(pairs).values
+    return counts, _lexsort(bulk.pack_keys(keys[qa[slots].long()]),
+                            as_u32(planes[1].reshape(-1)[slots]))
 
 
 def check_append(kernel_planes, plain_planes, keys, kernel_status,
@@ -128,21 +169,20 @@ def check_append(kernel_planes, plain_planes, keys, kernel_status,
     values) pairs of (p, W) int32 tensors after it.  ``{part: holds}``."""
     kw = dict(seed=seed, scheme=scheme, max_probes=max_probes)
     kpairs = live_pairs(*kernel_planes)
-    same_pairs = torch.equal(kpairs, live_pairs(*plain_planes))
+    same_pairs = _same(kpairs, live_pairs(*plain_planes))
     full = kernel_status == STATUS_FULL
     if bool(full.any() or (plain_status == STATUS_FULL).any()):
         same_status = not bool(walk_has_free(kernel_planes[0], keys[full],
                                              **kw).any())
     else:
         same_status = torch.equal(kernel_status, plain_status)
-    distinct, mult = torch.unique_consecutive(kpairs >> 32,
-                                              return_counts=True)
-    distinct = as_word(distinct)
+    distinct, mult = torch.unique_consecutive(kpairs[0], return_counts=True)
+    distinct = unpack_keys(distinct, ops._planes(kernel_planes[0]).shape[0])
     kcounts, kwalk = _walk_pairs(kernel_planes, distinct, kw)
     _, pwalk = _walk_pairs(plain_planes, distinct, kw)
     return {"same_pairs": bool(same_pairs), "same_status": bool(same_status),
             "before_first_empty": torch.equal(kcounts.long(), mult),
-            "same_retrieve": torch.equal(kwalk, pwalk)}
+            "same_retrieve": _same(kwalk, pwalk)}
 
 
 def check_walk(table_keys, keys, active, *, seed, scheme, max_probes,
@@ -151,9 +191,9 @@ def check_walk(table_keys, keys, active, *, seed, scheme, max_probes,
     same store: counts only, and counts + both arenas."""
     out = {}
     for collect in (False, True):
-        got = ops.retrieve_walk(table_keys, keys, active, seed=seed,
-                                scheme=scheme, max_probes=max_probes,
-                                collect=collect)
+        got = twin(ops.retrieve_walk, table_keys)(
+            table_keys, keys, active, seed=seed, scheme=scheme,
+            max_probes=max_probes, collect=collect)
         want = ops.retrieve_walk_plain(table_keys, keys, active, seed=seed,
                                        scheme=scheme, max_probes=max_probes,
                                        collect=collect)
@@ -171,7 +211,6 @@ def check_walk(table_keys, keys, active, *, seed, scheme, max_probes,
 def distinct_keys(start: int, count: int, device) -> torch.Tensor:
     """``count`` distinct u32 keys (int32 words), none a sentinel: murmur3
     (a bijection on u32) over ``start, start + 1, ...``."""
-    from repro_torch.core import hashing
     i = torch.arange(start, start + count + 2, dtype=torch.int64,
                      device=device)
     k = hashing.mix_murmur3(i)
@@ -179,41 +218,100 @@ def distinct_keys(start: int, count: int, device) -> torch.Tensor:
     return as_word(k)
 
 
+def mix64(i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) u32 values (int64) of a bijective 64-bit mix of the
+    non-negative int64 ``i``: three Feistel rounds whose round function is
+    murmur3, so distinct inputs give distinct (lo, hi) pairs."""
+    left, right = i >> 32, i & MASK32
+    for c in (0x243F6A88, 0x85A308D3, 0x13198A2E):
+        left, right = right, left ^ hashing.mix_murmur3(right ^ c)
+    return right, left
+
+
+def distinct_keys64(start: int, count: int, device,
+                    shared: bool = False) -> torch.Tensor:
+    """``count`` distinct two-word keys as (count, 2) int32 planes (plane 0
+    the low word): ``mix64`` over ``start, start + 1, ...``, without the
+    keys whose plane 0 is a sentinel.
+
+    With ``shared``, every fourth index j = i / 4 instead gives the key
+    (plane 0 = 1 + j mod SHARED_WORDS, plane 1 = ~(j / SHARED_WORDS)): a
+    quarter of the keys share 2^10 plane-0 words, and the first 2^11 of
+    them hold plane-1 words 0xFFFFFFFF and 0xFFFFFFFE, the bits of EMPTY
+    and TOMBSTONE.  A kernel that compares plane 0 alone, or that matches
+    a key another group has published only on plane 0, then goes wrong.
+    The other keys avoid those plane-0 words.  Calls over disjoint index
+    ranges give disjoint keys.
+    """
+    i = torch.arange(start, start + count + 64 + (count >> 16),
+                     dtype=torch.int64, device=device)
+    lo, hi = mix64(i)
+    ok = lo < TOMBSTONE_WORD + 2 ** 32                 # no EMPTY / TOMBSTONE
+    if shared:
+        sh = i % 4 == 0
+        j = i // 4
+        ok &= sh | (lo == 0) | (lo > SHARED_WORDS)
+        lo = torch.where(sh, 1 + j % SHARED_WORDS, lo)
+        hi = torch.where(sh, MASK32 ^ (j // SHARED_WORDS), hi)
+    keys = torch.stack([as_word(lo[ok]), as_word(hi[ok])], dim=1)[:count]
+    if keys.shape[0] < count:
+        raise RuntimeError("distinct_keys64 drew too few keys")
+    return keys.contiguous()
+
+
+def case_keys(key_words: int, count: int, device) -> torch.Tensor:
+    """The kernel-vs-plain cases' key pool: ``distinct_keys`` for 1-word
+    keys, ``distinct_keys64`` with shared plane-0 words for two."""
+    if key_words == 1:
+        return distinct_keys(0, count, device)
+    return distinct_keys64(0, count, device, shared=True)
+
+
 def values_for(keys: torch.Tensor, salt: int) -> torch.Tensor:
-    from repro_torch.core import hashing
-    return as_word(hashing.mix_xxhash(as_u32(keys) ^ salt))
+    """A value word per key ((n,) words or (n, 2) planes)."""
+    return as_word(hashing.mix_xxhash(key_hash_word(keys) ^ salt))
+
+
+def table_planes(table):
+    """(key planes, value plane) of a table as the wrappers take them."""
+    keys = table.store["keys"]
+    return (keys[0] if table.key_words == 1 else keys), table.store["values"][0]
 
 
 def run_case(n: int, *, window: int, scheme: str, device, rho: float = 0.9,
-             seed: int = 0x9E3779B9) -> dict[str, bool]:
-    """Hold ``cops_insert`` / ``cops_lookup`` (or, on the CPU, whatever
-    ``ops.insert`` / ``ops.lookup`` run) against the plain versions.
+             seed: int = 0x9E3779B9, key_words: int = 1) -> dict[str, bool]:
+    """Hold ``cops_insert`` / ``cops_lookup`` (two-word keys:
+    ``cops_insert64`` / ``cops_lookup64``; on the CPU, whatever the
+    wrappers run) against the plain versions.
 
-    Batch 1 inserts ``n`` distinct keys at load ``rho``; then 1/8 of them
-    are erased (tombstones), and batch 2 — n/4 elements, half present keys
-    with new values, half new keys, 1/8 in-batch duplicates — is deduped
-    and upserted onto that store.  After each batch: contract parts 1-3,
-    and the lookup on the kernel-built store, bit-exact against
-    ``lookup_plain`` for present and absent keys.
+    Batch 1 inserts ``n`` distinct keys (``case_keys``) at load ``rho``;
+    then 1/8 of them are erased (tombstones), and batch 2 — n/4 elements,
+    half present keys with new values, half new keys, 1/8 in-batch
+    duplicates, 1/16 masked — is deduped and upserted onto that store.
+    After each batch: contract parts 1-3, and the lookup on the
+    kernel-built store, bit-exact against ``lookup_plain`` for present and
+    absent keys.
     """
-    from repro_torch.core import bulk, single_value
+    from repro_torch.core import single_value
     table = single_value.create(int(n / rho), window=window, scheme=scheme,
-                                seed=seed, device=device)
+                                seed=seed, device=device, key_words=key_words)
     budget = bulk._tstatic(table)[3]
     kw = dict(seed=seed, scheme=scheme, max_probes=budget)
-    kernel = (table.store["keys"][0], table.store["values"][0])
+    kernel = table_planes(table)
     plain = tuple(t.clone() for t in kernel)
-    keys = distinct_keys(0, n + n // 8, device)
-    keys, absent = keys[:n], keys[n:]
+    insert, lookup = twin(ops.insert, kernel[0]), twin(ops.lookup, kernel[0])
+    m = n // 8
+    pool = case_keys(key_words, n + n // 8 + m, device)
+    keys, absent, new = pool[:n], pool[n:n + n // 8], pool[n + n // 8:]
     checks = {}
 
     def upsert(rkeys, rvals, count, tag):
-        ks = ops.insert(*kernel, rkeys, rvals, count=count, **kw)
+        ks = insert(*kernel, rkeys, rvals, count=count, **kw)
         ps = ops.insert_plain(*plain, rkeys, rvals, count=count, **kw)
         for part, ok in check_insert(kernel, plain, ks, ps, **kw).items():
             checks[f"{tag}_{part}"] = ok
         queries = torch.cat([rkeys, absent])
-        got = ops.lookup(*kernel, queries, slots=True, **kw)
+        got = lookup(*kernel, queries, slots=True, **kw)
         want = ops.lookup_plain(*kernel, queries, slots=True, **kw)
         checks[f"{tag}_lookup_exact"] = all(torch.equal(a, b)
                                             for a, b in zip(got, want))
@@ -223,26 +321,28 @@ def run_case(n: int, *, window: int, scheme: str, device, rho: float = 0.9,
     gone = keys[: n // 8]
     for planes in (kernel, plain):
         _, found, slot = ops.lookup_plain(*planes, gone, slots=True, **kw)
-        planes[0].view(-1)[slot[found]] = TOMBSTONE_WORD
+        kps = ops._planes(planes[0])
+        kps.view(kps.shape[0], -1)[:, slot[found]] = TOMBSTONE_WORD
     count -= gone.shape[0]
-    m = n // 8
-    batch = torch.cat([keys[n // 8: n // 8 + m], distinct_keys(n + n // 8 + 2,
-                                                               m, device)])
+    batch = torch.cat([keys[n // 8: n // 8 + m], new])
     dups = batch.shape[0] // 8
     batch[-dups:] = batch[:dups]                     # in-batch duplicates
-    rkeys, rvals, _ = bulk.dedup(batch, values_for(batch, 2))
+    live = torch.arange(batch.shape[0], device=device) % 16 != 5
+    rkeys, rvals, _ = bulk.dedup(batch, values_for(batch, 2), live)
     upsert(rkeys, rvals, count, "batch2")
     return checks
 
 
 def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
-                   max_probes: int | None = None) -> dict[str, bool]:
-    """Hold ``cops_append`` / ``cops_retrieve`` (or, on the CPU, whatever
-    ``ops.append`` / ``ops.retrieve_walk`` run) against the plain versions.
+                   max_probes: int | None = None,
+                   key_words: int = 1) -> dict[str, bool]:
+    """Hold ``cops_append`` / ``cops_retrieve`` (two-word keys:
+    ``cops_append64`` / ``cops_retrieve64``; on the CPU, whatever the
+    wrappers run) against the plain versions.
 
-    Batch 1 appends ``n`` pairs at load ``LOAD``: ``n / r`` distinct keys,
-    each repeated ``r`` times in a row (Fig. 7's layout), values
-    ``0 .. n-1``.  Then 1/8 of the keys are erased through
+    Batch 1 appends ``n`` pairs at load ``LOAD``: ``n / r`` distinct keys
+    (``case_keys``), each repeated ``r`` times in a row (Fig. 7's layout),
+    values ``0 .. n-1``.  Then 1/8 of the keys are erased through
     ``multi_value.erase`` (tombstones), and batch 2 — n/8 pairs, half new
     pairs of present keys, half new keys — is appended onto that store.
     After each batch: contract parts 1-4, the live count, and the walk on
@@ -250,20 +350,19 @@ def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
     (counts only and collecting) for present and absent keys, a batch
     holding duplicates and a masked batch.
     """
-    from repro_torch.core import bulk, bulk_retrieve, multi_value
+    from repro_torch.core import bulk_retrieve, multi_value
     ktab = multi_value.create(int(n / LOAD), window=window, scheme=scheme,
-                              max_probes=max_probes, device=device)
+                              max_probes=max_probes, device=device,
+                              key_words=key_words)
     ptab = dataclasses.replace(
         ktab, store={k: v.clone() for k, v in ktab.store.items()})
     kw = dict(seed=DEFAULT_SEED, scheme=scheme,
               max_probes=bulk._tstatic(ktab)[3])
+    append_fn = twin(ops.append, table_planes(ktab)[0])
     nk = max(16, n // r)
-    pool = distinct_keys(0, nk + nk // 8 + nk // 16, device)
+    pool = case_keys(key_words, nk + nk // 8 + nk // 16, device)
     base, absent, new = pool[:nk], pool[nk:nk + nk // 8], pool[nk + nk // 8:]
     checks = {}
-
-    def planes(t):
-        return t.store["keys"][0], t.store["values"][0]
 
     def walks(tag, queries):
         dup = torch.cat([queries[: nk // 4], queries[: nk // 4]])
@@ -272,10 +371,10 @@ def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
                                None),
                               ("duplicates", dup, None),
                               ("masked", queries, masked)):
-            live = (torch.ones(q.shape, dtype=torch.bool, device=device)
+            live = (torch.ones(q.shape[:1], dtype=torch.bool, device=device)
                     if live is None else live)
             reps, _ = bulk_retrieve.group_queries(q, live)
-            for mode, ok in check_walk(planes(ktab)[0], q, reps,
+            for mode, ok in check_walk(table_planes(ktab)[0], q, reps,
                                        **kw).items():
                 checks[f"{tag}_walk_{name}_{mode}"] = ok
 
@@ -283,30 +382,30 @@ def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
         nonlocal ktab, ptab
         vals = torch.arange(start, start + keys.shape[0], dtype=torch.int32,
                             device=device)
-        ks = ops.append(*planes(ktab), keys, vals, **kw)
-        ps = ops.append_plain(*planes(ptab), keys, vals, **kw)
-        for part, ok in check_append(planes(ktab), planes(ptab), keys, ks, ps,
-                                     **kw).items():
+        ks = append_fn(*table_planes(ktab), keys, vals, **kw)
+        ps = ops.append_plain(*table_planes(ptab), keys, vals, **kw)
+        for part, ok in check_append(table_planes(ktab), table_planes(ptab),
+                                     keys, ks, ps, **kw).items():
             checks[f"{tag}_{part}"] = ok
         ktab = dataclasses.replace(
             ktab, count=ktab.count + int((ks == STATUS_INSERTED).sum()))
         checks[f"{tag}_count"] = (
-            ktab.count == live_pairs(*planes(ktab)).shape[0])
+            ktab.count == live_pairs(*table_planes(ktab))[0].shape[0])
 
-    append("batch1", base.repeat_interleave(r), 0)
+    append("batch1", base.repeat_interleave(r, dim=0), 0)
     walks("batch1", base)
     gone = base[: nk // 8]
     ktab, erased = multi_value.erase(ktab, gone)
-    every = torch.ones(gone.shape, dtype=torch.bool, device=device)
-    pcnt, pqa, _ = ops.retrieve_walk_plain(planes(ptab)[0], gone, every,
+    every = torch.ones(gone.shape[:1], dtype=torch.bool, device=device)
+    pcnt, pqa, _ = ops.retrieve_walk_plain(table_planes(ptab)[0], gone, every,
                                            collect=True, **kw)
     ptab.ops.tombstone_slots(ptab.store,
                              torch.nonzero(pqa < gone.shape[0]).squeeze(1))
     checks["erase_counts"] = torch.equal(erased, pcnt)
-    checks["erase_same_pairs"] = torch.equal(live_pairs(*planes(ktab)),
-                                             live_pairs(*planes(ptab)))
+    checks["erase_same_pairs"] = _same(live_pairs(*table_planes(ktab)),
+                                       live_pairs(*table_planes(ptab)))
     half = nk // 16
     batch2 = torch.cat([base[nk // 8: nk // 8 + half], new[:half]])
-    append("batch2", batch2.repeat_interleave(r), n)
+    append("batch2", batch2.repeat_interleave(r, dim=0), n)
     walks("batch2", torch.cat([base, new[:half]]))
     return checks

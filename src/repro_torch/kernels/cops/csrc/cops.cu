@@ -1,27 +1,41 @@
 // COPS kernels of the SOA store for Hopper (sm_90a), hand-written CUDA.
 //
 // Replaces (src/repro/kernels/cops/kernel.py):
-//   cops_lookup    <- _lookup_kernel (l.789, via lookup_call l.830)
-//   cops_insert    <- _insert_kernel (l.75, via insert_call l.162), single-value
-//                     mode (claim-or-update)
-//   cops_append    <- _insert_kernel, multi_value=True mode (l.103-118): claim
-//                     the lowest free lane of the first window that has one
-//   cops_retrieve  <- _retrieve_kernel (l.334, via retrieve_multi_call l.384):
-//                     the multi-value walk, counts and the slot arena
+//   cops_lookup      <- _lookup_kernel (l.789, via lookup_call l.830)
+//   cops_insert      <- _insert_kernel (l.75, via insert_call l.162),
+//                       single-value mode (claim-or-update)
+//   cops_append      <- _insert_kernel, multi_value=True mode (l.103-118):
+//                       claim the lowest free lane of the first window that
+//                       has one
+//   cops_retrieve    <- _retrieve_kernel (l.334, via retrieve_multi_call
+//                       l.384): the multi-value walk, counts and slot arena
+//   cops_insert64    <- _insert64_kernel (l.518, via insert64_call l.603),
+//                       single-value mode, for two-plane keys
+//   cops_append64    <- _insert64_kernel, multi_value=True mode (l.547-561)
+//   cops_lookup64    <- _lookup64_kernel (l.629, via lookup64_call l.672)
+//   cops_retrieve64  <- _retrieve64_kernel (l.694, via retrieve_multi64_call
+//                       l.756)
 //
-// The store is the SOA layout: a key plane and a value plane, each (p, W)
-// u32, row-major; one row is one probe window.  A walk starts at row
-// h1(k) = murmur3(k ^ seed) mod p and steps by g(k) = xxhash(k ^ seed2)
+// The store is the SOA layout: KW key planes and a value plane, each (p, W)
+// u32, row-major; one row is one probe window.  Two-plane keys (u64 and
+// two-column composite keys) keep the low word in plane 0, which holds the
+// EMPTY / TOMBSTONE sentinels, and the high word in plane 1; their key
+// batches are (n, 2) u32.  A walk hashes the key's probe word: the key for
+// one plane, combine_planes(hi, lo) for two.  It starts at row
+// h1 = murmur3(word ^ seed) mod p and steps by g = xxhash(word ^ seed2)
 // mod (p - 1) + 1 ("cops", double hashing over rows) or by 1 ("linear"),
 // for at most max_probes windows (the coverage-clamped budget).  The hash
-// arithmetic is bit-identical to repro_torch/core/hashing.py.
+// arithmetic is bit-identical to repro_torch/core/hashing.py.  A key
+// matches a lane when every plane holds its word.
 //
 // What bounds these kernels: each probe window is one random read of
-// W * 4 bytes of the key plane (at W = 32 one 128-byte line; at W = 1 one
-// 32-byte sector for 4 useful bytes), and each hit one random 32-byte
-// sector of the value plane (or of the two arena planes).  A walk's
-// windows depend on each other, so the work is latency- and sector-bound,
-// far from the card's 3.35 TB/s on sequential streams.  The design:
+// W * 4 bytes of plane 0 (at W = 32 one 128-byte line; at W = 1 one 32-byte
+// sector for 4 useful bytes), and each hit one random 32-byte sector of the
+// value plane (or of the two arena planes).  A two-plane walk reads plane 1
+// only in the lanes whose plane 0 holds the key's low word: one 32-byte
+// sector per such window, not a second line.  A walk's windows depend on
+// each other, so the work is latency- and sector-bound, far from the card's
+// 3.35 TB/s on sequential streams.  The design:
 //   - one group of G = min(W, 32) lanes walks one key: at W = 32 a warp
 //     reads a whole window in one coalesced 128-byte load, and votes on it
 //     with __ballot_sync + __ffs (the paper's cooperative-group probe,
@@ -33,7 +47,7 @@
 //   - the key, value and status streams are read and written once,
 //     coalesced, by lane 0 of each group.
 //
-// The insert takes DISTINCT keys (the caller's dedup front end): a key
+// The u32 insert takes DISTINCT keys (the caller's dedup front end): a key
 // absent at the start of the batch can then be claimed by no other group,
 // so the walk's absence proof holds while other groups write.  A walk
 // remembers the earliest EMPTY / TOMBSTONE lane it sees and runs on to a
@@ -47,13 +61,37 @@
 // the single-writer reference; the live key->value map does not.  Key
 // reads in the insert are volatile so a re-read sees other groups' claims.
 //
+// The two-plane insert cannot test a match in the walk that claims.  A
+// claim publishes plane 0 with the CAS and plane 1 only after it, and the
+// planes lie apart (SOA), so no single CAS covers both.  A group walking
+// key X = (lo a, hi h) would match a slot that another group has just
+// claimed for Y = (lo a, hi c) but not yet finished, whenever the slot's
+// plane 1 still holds h: 0xFFFFFFFF in a fresh EMPTY slot, 0xFFFFFFFE in a
+// reused TOMBSTONE (plane 1 has no sentinel restriction, so a user key may
+// hold either).  X would overwrite Y's value, report UPDATED, and be lost.
+// So cops_insert64 runs two passes over the DISTINCT keys:
+//   1. the match walk (the lookup's): read-only on the key planes as they
+//      were before the batch, it writes the value of every key found and
+//      marks it UPDATED;
+//   2. the claim walk (the append's) of the keys not found: it reads only
+//      plane 0, for free lanes, and claims the lowest free lane of the
+//      first window that has one with the CAS on plane 0, then writes
+//      plane 1 and the value.
+// No key is tested against a slot that another group may still be
+// writing: pass 1 ends before pass 2 starts (one stream), and pass 2 tests
+// no match.  A key absent before the batch stays absent from everyone
+// else's view (the keys are distinct), and the first window holding a free
+// lane is the earliest candidate at or before the key's first EMPTY
+// window, so pass 2 lands where the one-pass walk would.  On an empty store
+// the wrapper skips pass 1.
+//
 // The append has no dedup front end: every pair is its own claimer, and
 // the consecutive duplicates of a multi-value batch start on the same row
 // and race for its lanes.  It walks to the first window that holds an
-// EMPTY or TOMBSTONE lane and claims through the same CAS loop.  A window
-// seen full stays full (claims never free a slot), so a pair never lands
-// past the first EMPTY window of its walk, and a FULL pair's whole walk
-// was full.
+// EMPTY or TOMBSTONE lane and claims through the same CAS loop, testing no
+// match.  A window seen full stays full (claims never free a slot), so a
+// pair never lands past the first EMPTY window of its walk, and a FULL
+// pair's whole walk was full.
 //
 // The retrieve walk is read-only on the store and takes distinct
 // representatives (the torch dedup front end), so its arena stamps never
@@ -82,6 +120,7 @@ struct Walk {
   uint32_t seed2;
   int linear;
   long long max_probes;
+  size_t plane;  // words per key plane: num_rows * window
 };
 
 __device__ __forceinline__ uint32_t mix_murmur3(uint32_t x) {
@@ -103,12 +142,48 @@ __device__ __forceinline__ uint32_t mix_xxhash(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t first_row(const Walk& w, uint32_t k) {
-  return mix_murmur3(k ^ w.seed) % w.num_rows;
+// hashing.combine_planes: the probe word of a two-plane key
+__device__ __forceinline__ uint32_t combine_planes(uint32_t hi, uint32_t lo) {
+  const uint32_t h = mix_murmur3(lo);
+  return h ^ (mix_murmur3(hi) + 0x9E3779B9u + (h << 6) + (h >> 2));
 }
 
-__device__ __forceinline__ uint32_t row_step(const Walk& w, uint32_t k) {
-  return w.linear ? 1u : mix_xxhash(k ^ w.seed2) % (w.num_rows - 1u) + 1u;
+// A key of the batch: its plane words and the probe word a walk hashes.
+struct Key {
+  uint32_t k0;    // plane 0 (the low word)
+  uint32_t k1;    // plane 1 (KW == 2 only)
+  uint32_t word;  // probe word
+};
+
+template <int KW>
+__device__ __forceinline__ Key load_key(const uint32_t* keys, long long q) {
+  Key k;
+  if (KW == 1) {
+    k.k0 = k.word = keys[q];
+    k.k1 = 0;
+  } else {
+    const uint2 kk = reinterpret_cast<const uint2*>(keys)[q];
+    k.k0 = kk.x;
+    k.k1 = kk.y;
+    k.word = combine_planes(k.k1, k.k0);
+  }
+  return k;
+}
+
+// Does the lane at flat slot `at`, whose plane 0 holds x, hold key k?
+// Plane 1 is read only where plane 0 matches.  Read-only walks only.
+template <int KW>
+__device__ __forceinline__ bool holds(const uint32_t* tk, const Walk& w,
+                                      size_t at, uint32_t x, const Key& k) {
+  return x == k.k0 && (KW == 1 || __ldg(tk + w.plane + at) == k.k1);
+}
+
+__device__ __forceinline__ uint32_t first_row(const Walk& w, uint32_t word) {
+  return mix_murmur3(word ^ w.seed) % w.num_rows;
+}
+
+__device__ __forceinline__ uint32_t row_step(const Walk& w, uint32_t word) {
+  return w.linear ? 1u : mix_xxhash(word ^ w.seed2) % (w.num_rows - 1u) + 1u;
 }
 
 // row + step < 2p <= 2^32 because p < 2^31
@@ -143,11 +218,41 @@ __device__ __forceinline__ Group make_group(int size) {
   return g;
 }
 
+__device__ __forceinline__ int group_size(const Walk& w) {
+  return w.window < 32 ? (int)w.window : 32;
+}
+
 __device__ __forceinline__ uint32_t load_volatile(const uint32_t* p) {
   return *reinterpret_cast<const volatile uint32_t*>(p);
 }
 
-// Lowest EMPTY / TOMBSTONE lane of a window as it stands now, -1 if none.
+// The read-only walk of key k: its flat slot (row * W + lane), or -1 when
+// the walk reaches a window holding an EMPTY, or the budget, first.
+template <int KW>
+__device__ long long find(const uint32_t* tk, const Walk& w, const Group& g,
+                          const Key& k) {
+  const uint32_t step = row_step(w, k.word);
+  uint32_t row = first_row(w, k.word);
+  for (long long attempt = 0; attempt < w.max_probes; ++attempt) {
+    const size_t base = (size_t)row * w.window;
+    int mlane = -1;
+    bool any_empty = false;
+    for (uint32_t c = 0; c < w.window; c += g.size) {
+      const size_t at = base + c + g.lane;
+      const uint32_t x = __ldg(tk + at);
+      const unsigned mb = g.ballot(holds<KW>(tk, w, at, x, k));
+      if (mlane < 0 && mb) mlane = (int)c + __ffs(mb) - 1;
+      any_empty |= g.ballot(x == kEmpty) != 0;
+    }
+    if (mlane >= 0) return (long long)base + mlane;
+    if (any_empty) break;
+    row = next_row(w, row, step);
+  }
+  return -1;
+}
+
+// Lowest EMPTY / TOMBSTONE lane of a window of plane 0 as it stands now,
+// -1 if none.
 __device__ int free_lane(const uint32_t* tk, const Walk& w, uint32_t row,
                          const Group& g) {
   const uint32_t* win = tk + (size_t)row * w.window;
@@ -172,23 +277,28 @@ __device__ int next_free(const uint32_t* tk, const Walk& w, const Group& g,
   return lane;
 }
 
-// Claim `lane` of `row` for k with atomicCAS(slot, observed sentinel, k) and
-// write v beside it.  A lost CAS re-reads the same window first, then the
-// following rows of the walk.  False when the budget runs out.
+// Claim `lane` of `row` for k with atomicCAS(plane-0 slot, observed
+// sentinel, k0), then write plane 1 (KW == 2) and v beside it.  A lost CAS
+// re-reads the same window first, then the following rows of the walk.
+// False when the budget runs out.
+template <int KW>
 __device__ bool claim(uint32_t* tk, uint32_t* tv, const Walk& w,
                       const Group& g, uint32_t row, int lane,
-                      long long attempt, uint32_t step, uint32_t k,
+                      long long attempt, uint32_t step, const Key& k,
                       uint32_t v) {
   while (lane >= 0) {
+    const size_t at = (size_t)row * w.window + lane;
     int won = 0;
     if (g.lane == 0) {
-      uint32_t* slot = tk + (size_t)row * w.window + lane;
-      const uint32_t seen = load_volatile(slot);
+      const uint32_t seen = load_volatile(tk + at);
       if (seen == kEmpty || seen == kTombstone)
-        won = atomicCAS(slot, seen, k) == seen;
+        won = atomicCAS(tk + at, seen, k.k0) == seen;
     }
     if (g.broadcast(won)) {
-      if (g.lane == 0) tv[(size_t)row * w.window + lane] = v;
+      if (g.lane == 0) {
+        if (KW == 2) tk[w.plane + at] = k.k1;
+        tv[at] = v;
+      }
       return true;
     }
     lane = next_free(tk, w, g, row, attempt, step);
@@ -196,18 +306,19 @@ __device__ bool claim(uint32_t* tk, uint32_t* tv, const Walk& w,
   return false;
 }
 
+// The u32 single-value upsert in one walk (see the header).
 __global__ void __launch_bounds__(kThreads)
 insert_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
               const uint32_t* __restrict__ keys,
               const uint32_t* __restrict__ vals, int* __restrict__ status,
               long long n, Walk w) {
-  const int G = w.window < 32 ? (int)w.window : 32;
+  const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (q >= n) return;  // whole groups leave together
   const Group g = make_group(G);
-  const uint32_t k = keys[q];
-  const uint32_t step = row_step(w, k);
-  uint32_t row = first_row(w, k);
+  const Key k = load_key<1>(keys, q);
+  const uint32_t step = row_step(w, k.word);
+  uint32_t row = first_row(w, k.word);
 
   int st = kFull;
   uint32_t cand_row = 0;
@@ -219,7 +330,7 @@ insert_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
     bool any_empty = false;
     for (uint32_t c = 0; c < w.window; c += G) {
       const uint32_t x = load_volatile(win + c + g.lane);
-      const unsigned mb = g.ballot(x == k);
+      const unsigned mb = g.ballot(x == k.k0);
       const unsigned eb = g.ballot(x == kEmpty);
       const unsigned fb = eb | g.ballot(x == kTombstone);
       if (mlane < 0 && mb) mlane = (int)c + __ffs(mb) - 1;
@@ -241,61 +352,64 @@ insert_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
   }
 
   if (st != kUpdated && cand_lane >= 0 &&
-      claim(tk, tv, w, g, cand_row, cand_lane, cand_attempt, step, k,
-            vals[q]))
+      claim<1>(tk, tv, w, g, cand_row, cand_lane, cand_attempt, step, k,
+               vals[q]))
     st = kInserted;
   if (g.lane == 0) status[q] = st;
 }
 
+// Pass 1 of the two-plane upsert: write the value of every key found and
+// mark it UPDATED (FULL, for now, where not found).
+template <int KW>
+__global__ void __launch_bounds__(kThreads)
+match_kernel(const uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
+             const uint32_t* __restrict__ keys,
+             const uint32_t* __restrict__ vals, int* __restrict__ status,
+             long long n, Walk w) {
+  const int G = group_size(w);
+  const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (q >= n) return;
+  const Group g = make_group(G);
+  const long long hit = find<KW>(tk, w, g, load_key<KW>(keys, q));
+  if (g.lane == 0) {
+    if (hit >= 0) tv[hit] = vals[q];
+    status[q] = hit >= 0 ? kUpdated : kFull;
+  }
+}
+
+// The append, and pass 2 of the two-plane upsert (`after_match`: skip the
+// keys that pass 1 marked UPDATED).
+template <int KW>
 __global__ void __launch_bounds__(kThreads)
 append_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
               const uint32_t* __restrict__ keys,
               const uint32_t* __restrict__ vals, int* __restrict__ status,
-              long long n, Walk w) {
-  const int G = w.window < 32 ? (int)w.window : 32;
+              long long n, Walk w, int after_match) {
+  const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (q >= n) return;
+  if (q >= n || (after_match && status[q] == kUpdated)) return;
   const Group g = make_group(G);
-  const uint32_t k = keys[q];
-  const uint32_t step = row_step(w, k);
-  uint32_t row = first_row(w, k);
+  const Key k = load_key<KW>(keys, q);
+  const uint32_t step = row_step(w, k.word);
+  uint32_t row = first_row(w, k.word);
   long long attempt = 0;
   const int lane = next_free(tk, w, g, row, attempt, step);
-  const bool ok = claim(tk, tv, w, g, row, lane, attempt, step, k, vals[q]);
+  const bool ok = claim<KW>(tk, tv, w, g, row, lane, attempt, step, k,
+                            vals[q]);
   if (g.lane == 0) status[q] = ok ? kInserted : kFull;
 }
 
+template <int KW>
 __global__ void __launch_bounds__(kThreads)
 lookup_kernel(const uint32_t* __restrict__ tk, const uint32_t* __restrict__ tv,
               const uint32_t* __restrict__ keys, uint32_t* __restrict__ out,
               bool* __restrict__ found, long long* __restrict__ slot_out,
               long long n, Walk w) {
-  const int G = w.window < 32 ? (int)w.window : 32;
+  const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (q >= n) return;
   const Group g = make_group(G);
-  const uint32_t k = keys[q];
-  const uint32_t step = row_step(w, k);
-  uint32_t row = first_row(w, k);
-
-  long long hit = -1;
-  for (long long attempt = 0; attempt < w.max_probes; ++attempt) {
-    const uint32_t* win = tk + (size_t)row * w.window;
-    int mlane = -1;
-    bool any_empty = false;
-    for (uint32_t c = 0; c < w.window; c += G) {
-      const uint32_t x = __ldg(win + c + g.lane);
-      const unsigned mb = g.ballot(x == k);
-      if (mlane < 0 && mb) mlane = (int)c + __ffs(mb) - 1;
-      any_empty |= g.ballot(x == kEmpty) != 0;
-    }
-    if (mlane >= 0) {
-      hit = (long long)row * w.window + mlane;
-      break;
-    }
-    if (any_empty) break;
-    row = next_row(w, row, step);
-  }
+  const long long hit = find<KW>(tk, w, g, load_key<KW>(keys, q));
   if (g.lane == 0) {
     out[q] = hit >= 0 ? __ldg(tv + hit) : 0u;
     found[q] = hit >= 0;
@@ -306,31 +420,34 @@ lookup_kernel(const uint32_t* __restrict__ tk, const uint32_t* __restrict__ tv,
 // counts[q]: the matches of key q's walk (0 where !active[q]); with
 // `qa` / `ra` (both or neither), each matching slot gets qa = q and ra = the
 // match's rank in walk order.
+template <int KW>
 __global__ void __launch_bounds__(kThreads)
 retrieve_kernel(const uint32_t* __restrict__ tk,
                 const uint32_t* __restrict__ keys,
                 const bool* __restrict__ active, int* __restrict__ counts,
                 int* __restrict__ qa, int* __restrict__ ra, long long n,
                 Walk w) {
-  const int G = w.window < 32 ? (int)w.window : 32;
+  const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (q >= n) return;
   const Group g = make_group(G);
   int seen = 0;
   if (active[q]) {
-    const uint32_t k = keys[q];
-    const uint32_t step = row_step(w, k);
+    const Key k = load_key<KW>(keys, q);
+    const uint32_t step = row_step(w, k.word);
     const unsigned below = (1u << g.lane) - 1u;  // lanes before this one
-    uint32_t row = first_row(w, k);
+    uint32_t row = first_row(w, k.word);
     for (long long attempt = 0; attempt < w.max_probes; ++attempt) {
       const size_t base = (size_t)row * w.window;
       bool any_empty = false;
       for (uint32_t c = 0; c < w.window; c += G) {
-        const uint32_t x = __ldg(tk + base + c + g.lane);
-        const unsigned mb = g.ballot(x == k);
-        if (qa && x == k) {
-          qa[base + c + g.lane] = (int)q;
-          ra[base + c + g.lane] = seen + __popc(mb & below);
+        const size_t at = base + c + g.lane;
+        const uint32_t x = __ldg(tk + at);
+        const bool m = holds<KW>(tk, w, at, x, k);
+        const unsigned mb = g.ballot(m);
+        if (qa && m) {
+          qa[at] = (int)q;
+          ra[at] = seen + __popc(mb & below);
         }
         seen += __popc(mb);
         any_empty |= g.ballot(x == kEmpty) != 0;
@@ -351,6 +468,7 @@ Walk make_walk(unsigned num_rows, int window, unsigned seed, int linear,
   w.seed2 = seed * 0x9E3779B1u;  // the step mixer's seed, mod 2^32
   w.linear = linear;
   w.max_probes = max_probes;
+  w.plane = (size_t)num_rows * (size_t)window;
   return w;
 }
 
@@ -359,10 +477,55 @@ unsigned blocks_for(long long n, int window) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
+template <int KW>
+int lookup(const void* table_keys, const void* table_values, const void* keys,
+           void* values, void* found, void* slots, long long n,
+           unsigned num_rows, int window, unsigned seed, int linear,
+           long long max_probes, void* stream) {
+  if (n <= 0) return 0;
+  lookup_kernel<KW><<<blocks_for(n, window), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const uint32_t*)table_keys, (const uint32_t*)table_values,
+      (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
+      (long long*)slots, n,
+      make_walk(num_rows, window, seed, linear, max_probes));
+  return (int)cudaGetLastError();
+}
+
+template <int KW>
+int append(void* table_keys, void* table_values, const void* keys,
+           const void* values, void* status, long long n, unsigned num_rows,
+           int window, unsigned seed, int linear, long long max_probes,
+           int after_match, void* stream) {
+  if (n <= 0) return 0;
+  append_kernel<KW><<<blocks_for(n, window), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (uint32_t*)table_keys, (uint32_t*)table_values, (const uint32_t*)keys,
+      (const uint32_t*)values, (int*)status, n,
+      make_walk(num_rows, window, seed, linear, max_probes), after_match);
+  return (int)cudaGetLastError();
+}
+
+template <int KW>
+int retrieve(const void* table_keys, const void* keys, const void* active,
+             void* counts, void* qarena, void* rank_arena, long long n,
+             unsigned num_rows, int window, unsigned seed, int linear,
+             long long max_probes, void* stream) {
+  if (n <= 0) return 0;
+  retrieve_kernel<KW><<<blocks_for(n, window), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)table_keys, (const uint32_t*)keys,
+      (const bool*)active, (int*)counts, (int*)qarena, (int*)rank_arena, n,
+      make_walk(num_rows, window, seed, linear, max_probes));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Every entry point launches on `stream`, allocate nothing, do not
-// synchronise, and return cudaGetLastError() of the launch (0 = success).
+// Every entry point launches on `stream`, allocates nothing, does not
+// synchronise, and returns cudaGetLastError() of its launches (0 =
+// success).  `table_keys` is the (KW, p, W) key planes, `keys` the (n, KW)
+// key batch; the other planes are (p, W) and the other batches (n,).
 extern "C" int cops_insert(void* table_keys, void* table_values,
                            const void* keys, const void* values, void* status,
                            long long n, unsigned num_rows, int window,
@@ -376,18 +539,45 @@ extern "C" int cops_insert(void* table_keys, void* table_values,
   return (int)cudaGetLastError();
 }
 
+// The two passes of the header; `match_pass` = 0 skips pass 1 (an empty
+// store holds no key).
+extern "C" int cops_insert64(void* table_keys, void* table_values,
+                             const void* keys, const void* values,
+                             void* status, long long n, unsigned num_rows,
+                             int window, unsigned seed, int linear,
+                             long long max_probes, int match_pass,
+                             void* stream) {
+  if (n <= 0) return 0;
+  if (match_pass) {
+    match_kernel<2><<<blocks_for(n, window), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+        (const uint32_t*)table_keys, (uint32_t*)table_values,
+        (const uint32_t*)keys, (const uint32_t*)values, (int*)status, n,
+        make_walk(num_rows, window, seed, linear, max_probes));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return append<2>(table_keys, table_values, keys, values, status, n,
+                   num_rows, window, seed, linear, max_probes, match_pass,
+                   stream);
+}
+
 extern "C" int cops_lookup(const void* table_keys, const void* table_values,
                            const void* keys, void* values, void* found,
                            void* slots, long long n, unsigned num_rows,
                            int window, unsigned seed, int linear,
                            long long max_probes, void* stream) {
-  if (n <= 0) return 0;
-  lookup_kernel<<<blocks_for(n, window), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)table_keys, (const uint32_t*)table_values,
-      (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
-      (long long*)slots, n,
-      make_walk(num_rows, window, seed, linear, max_probes));
-  return (int)cudaGetLastError();
+  return lookup<1>(table_keys, table_values, keys, values, found, slots, n,
+                   num_rows, window, seed, linear, max_probes, stream);
+}
+
+extern "C" int cops_lookup64(const void* table_keys, const void* table_values,
+                             const void* keys, void* values, void* found,
+                             void* slots, long long n, unsigned num_rows,
+                             int window, unsigned seed, int linear,
+                             long long max_probes, void* stream) {
+  return lookup<2>(table_keys, table_values, keys, values, found, slots, n,
+                   num_rows, window, seed, linear, max_probes, stream);
 }
 
 extern "C" int cops_append(void* table_keys, void* table_values,
@@ -395,12 +585,17 @@ extern "C" int cops_append(void* table_keys, void* table_values,
                            long long n, unsigned num_rows, int window,
                            unsigned seed, int linear, long long max_probes,
                            void* stream) {
-  if (n <= 0) return 0;
-  append_kernel<<<blocks_for(n, window), kThreads, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)table_keys, (uint32_t*)table_values, (const uint32_t*)keys,
-      (const uint32_t*)values, (int*)status, n,
-      make_walk(num_rows, window, seed, linear, max_probes));
-  return (int)cudaGetLastError();
+  return append<1>(table_keys, table_values, keys, values, status, n,
+                   num_rows, window, seed, linear, max_probes, 0, stream);
+}
+
+extern "C" int cops_append64(void* table_keys, void* table_values,
+                             const void* keys, const void* values,
+                             void* status, long long n, unsigned num_rows,
+                             int window, unsigned seed, int linear,
+                             long long max_probes, void* stream) {
+  return append<2>(table_keys, table_values, keys, values, status, n,
+                   num_rows, window, seed, linear, max_probes, 0, stream);
 }
 
 // `qarena` / `rank_arena` are both null (counts only) or both (p * W,)
@@ -410,11 +605,16 @@ extern "C" int cops_retrieve(const void* table_keys, const void* keys,
                              void* rank_arena, long long n, unsigned num_rows,
                              int window, unsigned seed, int linear,
                              long long max_probes, void* stream) {
-  if (n <= 0) return 0;
-  retrieve_kernel<<<blocks_for(n, window), kThreads, 0,
-                    (cudaStream_t)stream>>>(
-      (const uint32_t*)table_keys, (const uint32_t*)keys,
-      (const bool*)active, (int*)counts, (int*)qarena, (int*)rank_arena, n,
-      make_walk(num_rows, window, seed, linear, max_probes));
-  return (int)cudaGetLastError();
+  return retrieve<1>(table_keys, keys, active, counts, qarena, rank_arena, n,
+                     num_rows, window, seed, linear, max_probes, stream);
+}
+
+extern "C" int cops_retrieve64(const void* table_keys, const void* keys,
+                               const void* active, void* counts,
+                               void* qarena, void* rank_arena, long long n,
+                               unsigned num_rows, int window, unsigned seed,
+                               int linear, long long max_probes,
+                               void* stream) {
+  return retrieve<2>(table_keys, keys, active, counts, qarena, rank_arena, n,
+                     num_rows, window, seed, linear, max_probes, stream);
 }

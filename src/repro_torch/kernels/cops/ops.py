@@ -1,26 +1,35 @@
 """The COPS kernels' wrappers, their plain versions and launch counters.
 
-The wrappers take the table's bare (p, W) int32 key (and value) planes
-(SOA plane 0, u32 bits) and int32 word batches:
+The u32 wrappers take the table's bare (p, W) int32 key plane (SOA plane
+0, u32 bits), the value plane and (n,) int32 word batches; each has a
+two-plane twin for two-word keys (u64 and two-column composite keys) that
+takes the (2, p, W) key planes and (n, 2) key batches (plane 0 the low
+word, which holds the sentinels):
 
-- ``insert`` (single-value upsert of distinct keys) -> ``cops_insert``;
-- ``lookup`` (value, found, slot) -> ``cops_lookup``;
-- ``append`` (multi-value append, every pair its own claimer) ->
-  ``cops_append``;
-- ``retrieve_walk`` (the multi-value walk: per-query match counts and,
-  with ``collect``, the (query, rank) slot arena) -> ``cops_retrieve``.
+- ``insert`` / ``insert64`` (single-value upsert of distinct keys) ->
+  ``cops_insert`` / ``cops_insert64``;
+- ``lookup`` / ``lookup64`` (value, found, slot) -> ``cops_lookup`` /
+  ``cops_lookup64``;
+- ``append`` / ``append64`` (multi-value append, every pair its own
+  claimer) -> ``cops_append`` / ``cops_append64``;
+- ``retrieve_walk`` / ``retrieve_walk64`` (the multi-value walk: per-query
+  match counts and, with ``collect``, the (query, rank) slot arena) ->
+  ``cops_retrieve`` / ``cops_retrieve64``.
 
 On **CUDA** tensors a wrapper checks dtype, shape, device and contiguity,
 launches its kernel (``csrc/cops.cu``, built by ``kernels.build``) on the
 current stream, adds one to ``LAUNCHES``, and raises if the launch
-reports a CUDA error.  On **CPU** tensors it runs its plain version below:
-``insert_plain`` (the bulk engine's fast lane: probe -> virtual-fill
-placement -> apply), ``lookup_plain`` (``bulk.probe_matches`` + a
-gather), ``append_plain`` (virtual-fill placement of every pair, as
+reports a CUDA error.  On **CPU** tensors it runs its plain version below,
+one for each pair of twins, over (p, W) or (kw, p, W) key planes:
+``insert_plain`` (the bulk engine's lane: probe -> virtual-fill placement
+-> apply), ``lookup_plain`` (``bulk.probe_matches`` + a gather),
+``append_plain`` (virtual-fill placement of every pair, as
 ``repro.core.bulk.insert_multi``) and ``retrieve_walk_plain`` (the port of
 ``repro.core.bulk_retrieve.fused_walk``), each bit-exact against the JAX
-engine.  On any other device it raises.  Nothing falls back: a CUDA
-tensor never reaches a plain version.
+engine.  A match holds on every key plane; the walk's row and step come
+from the key's probe word (``single_value.key_hash_word``).  On any other
+device a wrapper raises.  Nothing falls back: a CUDA tensor never reaches
+a plain version.
 
 The plain versions run on any device (``chip_smoke.py`` holds the kernels
 against them on the card) and walk at most ``PLAIN_CHUNK`` keys at a
@@ -43,12 +52,13 @@ from repro_torch.core.common import (
     STATUS_INSERTED,
     STATUS_UPDATED,
     SUPPORTED_WINDOWS,
-    as_u32,
 )
+from repro_torch.core.single_value import key_hash_word
 
 #: launches of each kernel since the last ``reset_launches``
 LAUNCHES = {"cops_insert": 0, "cops_lookup": 0, "cops_append": 0,
-            "cops_retrieve": 0}
+            "cops_retrieve": 0, "cops_insert64": 0, "cops_lookup64": 0,
+            "cops_append64": 0, "cops_retrieve64": 0}
 
 #: keys per walk of the plain versions (bounds their (n, W) temporaries)
 PLAIN_CHUNK = 1 << 22
@@ -65,9 +75,15 @@ def reset_launches() -> None:
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _planes(table_keys):
+    """(kw, p, W) view of a (p, W) key plane or of (kw, p, W) planes."""
+    return table_keys if table_keys.ndim == 3 else table_keys[None]
+
+
 def _tstatic(planes, scheme, seed, max_probes):
-    num_rows, window = planes.shape
-    return (layouts.SoaOps(num_rows, window, 1, 1), scheme, seed, max_probes)
+    key_words, num_rows, window = planes.shape
+    return (layouts.SoaOps(num_rows, window, key_words, 1), scheme, seed,
+            max_probes)
 
 
 def insert_plain(table_keys, table_values, keys, values, *, seed, scheme,
@@ -75,14 +91,15 @@ def insert_plain(table_keys, table_values, keys, values, *, seed, scheme,
     """Upsert DISTINCT keys into the planes, in place; status (m,) int32
     (INSERTED / UPDATED / FULL).  ``count`` is the store's live count
     before the batch (0 skips the match walk)."""
-    tstat = _tstatic(table_keys, scheme, seed, max_probes)
+    kps = _planes(table_keys)
+    tstat = _tstatic(kps, scheme, seed, max_probes)
     ops = tstat[0]
-    store = {"keys": table_keys[None], "values": table_values[None]}
-    status = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    store = {"keys": kps, "values": table_values[None]}
+    status = torch.empty(keys.shape[:1], dtype=torch.int32, device=keys.device)
     for s in range(0, keys.shape[0], PLAIN_CHUNK):
         k, v = keys[s:s + PLAIN_CHUNK], values[s:s + PLAIN_CHUNK]
-        words = as_u32(k)
-        every = torch.ones(k.shape, dtype=torch.bool, device=k.device)
+        words = key_hash_word(k)
+        every = torch.ones(v.shape, dtype=torch.bool, device=k.device)
         matched, mrow, mlane = bulk.probe_matches(tstat, store, k, words,
                                                   every, count)
         placed, crow, clane, _ = bulk.place_claims(tstat, store, words,
@@ -99,17 +116,19 @@ def lookup_plain(table_keys, table_values, keys, *, seed, scheme, max_probes,
                  slots=False):
     """``(values int32, found bool, slot int64 or None)``: each key's value
     (0 if absent) and flat slot ``row * W + lane`` (-1 if absent)."""
-    tstat = _tstatic(table_keys, scheme, seed, max_probes)
-    window = table_keys.shape[1]
+    kps = _planes(table_keys)
+    tstat = _tstatic(kps, scheme, seed, max_probes)
+    window = kps.shape[2]
     flat_v = table_values.reshape(-1)
-    values = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
-    found = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-    slot = torch.empty(keys.shape, dtype=torch.int64, device=keys.device)
-    for s in range(0, keys.shape[0], PLAIN_CHUNK):
+    n, dev = keys.shape[0], keys.device
+    values = torch.empty((n,), dtype=torch.int32, device=dev)
+    found = torch.empty((n,), dtype=torch.bool, device=dev)
+    slot = torch.empty((n,), dtype=torch.int64, device=dev)
+    for s in range(0, n, PLAIN_CHUNK):
         k = keys[s:s + PLAIN_CHUNK]
-        every = torch.ones(k.shape, dtype=torch.bool, device=k.device)
+        every = torch.ones(k.shape[:1], dtype=torch.bool, device=dev)
         matched, mrow, mlane = bulk.probe_matches(
-            tstat, {"keys": table_keys[None]}, k, as_u32(k), every)
+            tstat, {"keys": kps}, k, key_hash_word(k), every)
         at = torch.where(matched, mrow * window + mlane, -1)
         values[s:s + PLAIN_CHUNK] = torch.where(matched,
                                                 flat_v[at.clamp(min=0)], 0)
@@ -124,17 +143,18 @@ def append_plain(table_keys, table_values, keys, values, *, seed, scheme,
     (m,) int32 (INSERTED / FULL).  Each pair claims the lowest EMPTY /
     TOMBSTONE lane of the first window of its walk that has one, in batch
     order (``bulk.place_claims`` with every element a claimer)."""
-    tstat = _tstatic(table_keys, scheme, seed, max_probes)
+    kps = _planes(table_keys)
+    tstat = _tstatic(kps, scheme, seed, max_probes)
     ops = tstat[0]
-    store = {"keys": table_keys[None], "values": table_values[None]}
-    status = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    store = {"keys": kps, "values": table_values[None]}
+    status = torch.empty(keys.shape[:1], dtype=torch.int32, device=keys.device)
     for s in range(0, keys.shape[0], PLAIN_CHUNK):
         k, v = keys[s:s + PLAIN_CHUNK], values[s:s + PLAIN_CHUNK]
-        every = torch.ones(k.shape, dtype=torch.bool, device=k.device)
-        placed, row, lane, _ = bulk.place_claims(tstat, store, as_u32(k),
-                                                 every)
+        every = torch.ones(v.shape, dtype=torch.bool, device=k.device)
+        placed, row, lane, _ = bulk.place_claims(tstat, store,
+                                                 key_hash_word(k), every)
         ops.scatter_batch(store, (row * ops.window + lane)[placed],
-                          k[placed][:, None], v[placed][:, None],
+                          bulk._key_cols(k)[placed], v[placed][:, None],
                           every[placed])
         status[s:s + PLAIN_CHUNK] = torch.where(placed, STATUS_INSERTED,
                                                 STATUS_FULL)
@@ -152,7 +172,8 @@ def retrieve_walk_plain(table_keys, keys, active, *, seed, scheme,
     rank in walk order (window by window, lane order within a window; 0
     if none); else both are None.  Active keys must be distinct.
     """
-    num_rows, window = table_keys.shape
+    kps = _planes(table_keys)
+    _, num_rows, window = kps.shape
     n, dev = keys.shape[0], keys.device
     counts = torch.zeros((n,), dtype=torch.int32, device=dev)
     qa = ra = None
@@ -162,16 +183,15 @@ def retrieve_walk_plain(table_keys, keys, active, *, seed, scheme,
     reps = torch.nonzero(active).squeeze(1)
     for s in range(0, reps.shape[0], PLAIN_CHUNK):
         act = reps[s:s + PLAIN_CHUNK]
-        key = keys[act]
-        words = as_u32(key)
+        key = bulk._key_cols(keys)[act]
+        words = key_hash_word(keys[act])
         row = probing.initial_row(words, num_rows, seed)
         step = probing.row_step(scheme, words, num_rows, seed)
         seen = torch.zeros(act.shape, dtype=torch.int64, device=dev)
         for _ in range(max_probes):
             if act.numel() == 0:
                 break
-            win = table_keys[row]                                  # (m, W)
-            match = win == key[:, None]
+            win, match = bulk.window_match(kps, row, key)          # (m, W)
             if collect:
                 rank = seen[:, None] + torch.cumsum(match, dim=1) - 1
                 who, lane = torch.nonzero(match, as_tuple=True)
@@ -196,16 +216,18 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import build
     lib = build.library("cops")
     vp, ll, ui, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int
-    lib.cops_insert.argtypes = [vp, vp, vp, vp, vp, ll, ui, i, ui, i, ll, vp]
-    lib.cops_insert.restype = ctypes.c_int
-    lib.cops_lookup.argtypes = [vp, vp, vp, vp, vp, vp, ll, ui, i, ui, i, ll,
-                                vp]
-    lib.cops_lookup.restype = ctypes.c_int
-    lib.cops_append.argtypes = [vp, vp, vp, vp, vp, ll, ui, i, ui, i, ll, vp]
-    lib.cops_append.restype = ctypes.c_int
-    lib.cops_retrieve.argtypes = [vp, vp, vp, vp, vp, vp, ll, ui, i, ui, i,
-                                  ll, vp]
-    lib.cops_retrieve.restype = ctypes.c_int
+    walk = [ll, ui, i, ui, i, ll]     # n, num_rows, window, seed, linear, max_probes
+    for name, args in (("cops_insert", [vp] * 5 + walk),
+                       ("cops_lookup", [vp] * 6 + walk),
+                       ("cops_append", [vp] * 5 + walk),
+                       ("cops_retrieve", [vp] * 6 + walk),
+                       ("cops_insert64", [vp] * 5 + walk + [i]),
+                       ("cops_lookup64", [vp] * 6 + walk),
+                       ("cops_append64", [vp] * 5 + walk),
+                       ("cops_retrieve64", [vp] * 6 + walk)):
+        fn = getattr(lib, name)
+        fn.argtypes = args + [vp]     # ... and the stream
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -230,120 +252,181 @@ def _on_cpu(*tensors, masks=()) -> bool:
     return False
 
 
-def _check_geometry(planes, keys, others, scheme):
-    table_keys = planes[0]
-    if table_keys.ndim != 2 or any(p.shape != table_keys.shape for p in planes):
+def _check_geometry(key_words, table_keys, keys, planes, batches, scheme):
+    """``table_keys`` (p, W) for 1-word keys, (key_words, p, W) otherwise;
+    the other ``planes`` (p, W); ``keys`` (n,) or (n, key_words); the other
+    ``batches`` (n,)."""
+    if key_words == 1:
+        planes_ok, keys_ok = table_keys.ndim == 2, keys.ndim == 1
+    else:
+        planes_ok = (table_keys.ndim == 3
+                     and table_keys.shape[0] == key_words)
+        keys_ok = keys.ndim == 2 and keys.shape[1] == key_words
+    if not planes_ok:
+        raise ValueError(f"key planes of shape {tuple(table_keys.shape)} for "
+                         f"{key_words}-word keys")
+    shape = table_keys.shape[-2:]
+    if any(p.shape != shape for p in planes):
         raise ValueError(f"planes must be equal (p, W) tensors, got "
-                         f"{[tuple(p.shape) for p in planes]}")
-    if table_keys.shape[0] >= 2 ** 31:
+                         f"{[tuple(p.shape) for p in planes]} beside {tuple(shape)}")
+    if shape[0] >= 2 ** 31:
         raise ValueError("the kernels need fewer than 2^31 rows")
-    if table_keys.shape[1] not in SUPPORTED_WINDOWS:
-        raise ValueError(f"window {table_keys.shape[1]} not in {SUPPORTED_WINDOWS}")
-    if keys.ndim != 1 or any(o.shape != keys.shape for o in others):
-        raise ValueError("key, value and output batches must be equal (n,) tensors")
+    if shape[1] not in SUPPORTED_WINDOWS:
+        raise ValueError(f"window {shape[1]} not in {SUPPORTED_WINDOWS}")
+    if not keys_ok or any(b.shape != keys.shape[:1] for b in batches):
+        raise ValueError(f"a batch of {key_words}-word keys of shape "
+                         f"{tuple(keys.shape)} beside batches "
+                         f"{[tuple(b.shape) for b in batches]}")
     if scheme not in _SCHEMES:
         raise ValueError(f"scheme {scheme!r} not in {_SCHEMES}")
 
 
-def _launched(name: str, rc: int) -> None:
+def _launch(name, table_keys, n, seed, scheme, max_probes, *args,
+            extra=()):
+    """Launch kernel ``name`` on the current stream with the tensors
+    ``args`` (pointers; None for a null one), the walk's parameters and
+    ``extra`` ints; count it and raise on a CUDA error."""
+    num_rows, window = table_keys.shape[-2:]
+    with torch.cuda.device(table_keys.device):
+        rc = getattr(_lib(), name)(
+            *(None if a is None else a.data_ptr() for a in args), n,
+            num_rows, window, seed & 0xFFFFFFFF, int(scheme == "linear"),
+            max_probes, *extra, torch.cuda.current_stream().cuda_stream)
     LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
-def insert(table_keys, table_values, keys, values, *, seed, scheme,
-           max_probes, count):
-    """Upsert DISTINCT keys into the planes in place -> status (m,) int32."""
-    _check_geometry((table_keys, table_values), keys, [values], scheme)
+def _insert(key_words, table_keys, table_values, keys, values, *, seed,
+            scheme, max_probes, count):
+    _check_geometry(key_words, table_keys, keys, [table_values], [values],
+                    scheme)
     if _on_cpu(table_keys, table_values, keys, values):
         return insert_plain(table_keys, table_values, keys, values, seed=seed,
                             scheme=scheme, max_probes=max_probes, count=count)
-    status = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
-    if keys.shape[0]:
-        with torch.cuda.device(keys.device):
-            rc = _lib().cops_insert(
-                table_keys.data_ptr(), table_values.data_ptr(),
-                keys.data_ptr(), values.data_ptr(), status.data_ptr(),
-                keys.shape[0], table_keys.shape[0], table_keys.shape[1],
-                seed & 0xFFFFFFFF, int(scheme == "linear"), max_probes,
-                torch.cuda.current_stream().cuda_stream)
-            _launched("cops_insert", rc)
+    n = keys.shape[0]
+    status = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    if n:
+        # the two-plane insert's first pass, the match walk, can only
+        # find something in a store that holds a key
+        extra = () if key_words == 1 else (int(count > 0),)
+        _launch("cops_insert" if key_words == 1 else "cops_insert64",
+                table_keys, n, seed, scheme, max_probes, table_keys,
+                table_values, keys, values, status, extra=extra)
     return status
+
+
+def insert(table_keys, table_values, keys, values, *, seed, scheme,
+           max_probes, count):
+    """Upsert DISTINCT keys into the planes in place -> status (m,) int32."""
+    return _insert(1, table_keys, table_values, keys, values, seed=seed,
+                   scheme=scheme, max_probes=max_probes, count=count)
+
+
+def insert64(table_keys, table_values, keys, values, *, seed, scheme,
+             max_probes, count):
+    """``insert`` of DISTINCT (m, 2) keys into the (2, p, W) key planes."""
+    return _insert(2, table_keys, table_values, keys, values, seed=seed,
+                   scheme=scheme, max_probes=max_probes, count=count)
+
+
+def _lookup(key_words, table_keys, table_values, keys, *, seed, scheme,
+            max_probes, slots):
+    _check_geometry(key_words, table_keys, keys, [table_values], [], scheme)
+    if _on_cpu(table_keys, table_values, keys):
+        return lookup_plain(table_keys, table_values, keys, seed=seed,
+                            scheme=scheme, max_probes=max_probes, slots=slots)
+    n, dev = keys.shape[0], keys.device
+    values = torch.empty((n,), dtype=torch.int32, device=dev)
+    found = torch.empty((n,), dtype=torch.bool, device=dev)
+    slot = torch.empty((n,), dtype=torch.int64, device=dev) if slots else None
+    if n:
+        _launch("cops_lookup" if key_words == 1 else "cops_lookup64",
+                table_keys, n, seed, scheme, max_probes, table_keys,
+                table_values, keys, values, found, slot)
+    return values, found, slot
 
 
 def lookup(table_keys, table_values, keys, *, seed, scheme, max_probes,
            slots=False):
     """``(values int32, found bool, slot int64 or None)`` for each key."""
-    _check_geometry((table_keys, table_values), keys, [], scheme)
-    if _on_cpu(table_keys, table_values, keys):
-        return lookup_plain(table_keys, table_values, keys, seed=seed,
-                            scheme=scheme, max_probes=max_probes, slots=slots)
+    return _lookup(1, table_keys, table_values, keys, seed=seed,
+                   scheme=scheme, max_probes=max_probes, slots=slots)
+
+
+def lookup64(table_keys, table_values, keys, *, seed, scheme, max_probes,
+             slots=False):
+    """``lookup`` of (n, 2) keys in the (2, p, W) key planes."""
+    return _lookup(2, table_keys, table_values, keys, seed=seed,
+                   scheme=scheme, max_probes=max_probes, slots=slots)
+
+
+def _append(key_words, table_keys, table_values, keys, values, *, seed,
+            scheme, max_probes):
+    _check_geometry(key_words, table_keys, keys, [table_values], [values],
+                    scheme)
+    if _on_cpu(table_keys, table_values, keys, values):
+        return append_plain(table_keys, table_values, keys, values, seed=seed,
+                            scheme=scheme, max_probes=max_probes)
     n = keys.shape[0]
-    values = torch.empty((n,), dtype=torch.int32, device=keys.device)
-    found = torch.empty((n,), dtype=torch.bool, device=keys.device)
-    slot = (torch.empty((n,), dtype=torch.int64, device=keys.device)
-            if slots else None)
+    status = torch.empty((n,), dtype=torch.int32, device=keys.device)
     if n:
-        with torch.cuda.device(keys.device):
-            rc = _lib().cops_lookup(
-                table_keys.data_ptr(), table_values.data_ptr(),
-                keys.data_ptr(), values.data_ptr(), found.data_ptr(),
-                slot.data_ptr() if slots else None, n, table_keys.shape[0],
-                table_keys.shape[1], seed & 0xFFFFFFFF,
-                int(scheme == "linear"), max_probes,
-                torch.cuda.current_stream().cuda_stream)
-            _launched("cops_lookup", rc)
-    return values, found, slot
+        _launch("cops_append" if key_words == 1 else "cops_append64",
+                table_keys, n, seed, scheme, max_probes, table_keys,
+                table_values, keys, values, status)
+    return status
 
 
 def append(table_keys, table_values, keys, values, *, seed, scheme,
            max_probes):
     """Append every (key, value) pair into the planes in place -> status
     (m,) int32 (INSERTED / FULL)."""
-    _check_geometry((table_keys, table_values), keys, [values], scheme)
-    if _on_cpu(table_keys, table_values, keys, values):
-        return append_plain(table_keys, table_values, keys, values, seed=seed,
-                            scheme=scheme, max_probes=max_probes)
-    status = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
-    if keys.shape[0]:
-        with torch.cuda.device(keys.device):
-            rc = _lib().cops_append(
-                table_keys.data_ptr(), table_values.data_ptr(),
-                keys.data_ptr(), values.data_ptr(), status.data_ptr(),
-                keys.shape[0], table_keys.shape[0], table_keys.shape[1],
-                seed & 0xFFFFFFFF, int(scheme == "linear"), max_probes,
-                torch.cuda.current_stream().cuda_stream)
-            _launched("cops_append", rc)
-    return status
+    return _append(1, table_keys, table_values, keys, values, seed=seed,
+                   scheme=scheme, max_probes=max_probes)
 
 
-def retrieve_walk(table_keys, keys, active, *, seed, scheme, max_probes,
-                  collect):
-    """``(counts, qarena, rank_arena)`` of the multi-value walk of the
-    active (distinct) keys; see ``retrieve_walk_plain``."""
-    _check_geometry((table_keys,), keys, [active], scheme)
-    n = keys.shape[0]
+def append64(table_keys, table_values, keys, values, *, seed, scheme,
+             max_probes):
+    """``append`` of (m, 2) keys into the (2, p, W) key planes."""
+    return _append(2, table_keys, table_values, keys, values, seed=seed,
+                   scheme=scheme, max_probes=max_probes)
+
+
+def _retrieve_walk(key_words, table_keys, keys, active, *, seed, scheme,
+                   max_probes, collect):
+    _check_geometry(key_words, table_keys, keys, [], [active], scheme)
+    n, dev = keys.shape[0], keys.device
     if n >= 2 ** 31:
         raise ValueError("the arena holds int32 batch indices: n < 2^31")
     if _on_cpu(table_keys, keys, masks=(active,)):
         return retrieve_walk_plain(table_keys, keys, active, seed=seed,
                                    scheme=scheme, max_probes=max_probes,
                                    collect=collect)
-    dev = keys.device
     counts = torch.empty((n,), dtype=torch.int32, device=dev)
     qa = ra = None
     if collect:
-        cap = table_keys.numel()
+        cap = table_keys.shape[-2] * table_keys.shape[-1]
         qa = torch.full((cap,), n, dtype=torch.int32, device=dev)
         ra = torch.zeros((cap,), dtype=torch.int32, device=dev)
     if n:
-        with torch.cuda.device(dev):
-            rc = _lib().cops_retrieve(
-                table_keys.data_ptr(), keys.data_ptr(), active.data_ptr(),
-                counts.data_ptr(), qa.data_ptr() if collect else None,
-                ra.data_ptr() if collect else None, n, table_keys.shape[0],
-                table_keys.shape[1], seed & 0xFFFFFFFF,
-                int(scheme == "linear"), max_probes,
-                torch.cuda.current_stream().cuda_stream)
-            _launched("cops_retrieve", rc)
+        _launch("cops_retrieve" if key_words == 1 else "cops_retrieve64",
+                table_keys, n, seed, scheme, max_probes, table_keys, keys,
+                active, counts, qa, ra)
     return counts, qa, ra
+
+
+def retrieve_walk(table_keys, keys, active, *, seed, scheme, max_probes,
+                  collect):
+    """``(counts, qarena, rank_arena)`` of the multi-value walk of the
+    active (distinct) keys; see ``retrieve_walk_plain``."""
+    return _retrieve_walk(1, table_keys, keys, active, seed=seed,
+                          scheme=scheme, max_probes=max_probes,
+                          collect=collect)
+
+
+def retrieve_walk64(table_keys, keys, active, *, seed, scheme, max_probes,
+                    collect):
+    """``retrieve_walk`` of (n, 2) keys over the (2, p, W) key planes."""
+    return _retrieve_walk(2, table_keys, keys, active, seed=seed,
+                          scheme=scheme, max_probes=max_probes,
+                          collect=collect)

@@ -12,16 +12,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import bulk
 from repro_torch.core import multi_value as mv
 from repro_torch.core import single_value as sv
 from repro_torch.core.common import (
+    STATUS_FULL,
     STATUS_INSERTED,
     STATUS_MASKED,
     STATUS_UPDATED,
     SUPPORTED_WINDOWS,
+    TOMBSTONE_WORD,
     to_numpy_u32,
 )
 from repro_torch.kernels.cops import contract, ops
+
+#: every launch counter at zero
+_NONE = dict.fromkeys(ops.LAUNCHES, 0)
 
 
 def _need_card():
@@ -67,8 +73,7 @@ def test_table_on_card_goes_through_kernels():
                     to_numpy_u32(v), f.cpu(), sv.contains(t, keys).cpu(),
                     t.count)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"cops_insert": 3, "cops_lookup": 3,
-                            "cops_append": 0, "cops_retrieve": 0}
+    assert ops.LAUNCHES == {**_NONE, "cops_insert": 3, "cops_lookup": 3}
     gpu, cpu = out["cuda"], out["cpu"]
     assert bool((gpu[0] == STATUS_INSERTED).all())
     assert bool(((gpu[1] == STATUS_UPDATED) | (gpu[1] == STATUS_MASKED)).all())
@@ -133,8 +138,7 @@ def test_multi_value_table_on_card_goes_through_kernels():
                     "erased": erased.cpu(), "status2": st2.cpu(),
                     "seg2": seg2, "count": t.count}
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"cops_insert": 0, "cops_lookup": 0,
-                            "cops_append": 2, "cops_retrieve": 4}
+    assert ops.LAUNCHES == {**_NONE, "cops_append": 2, "cops_retrieve": 4}
     gpu, cpu = out["cuda"], out["cpu"]
     assert bool(((gpu["status1"] == STATUS_INSERTED)
                  | (gpu["status1"] == STATUS_MASKED)).all())
@@ -142,3 +146,133 @@ def test_multi_value_table_on_card_goes_through_kernels():
         b = cpu[name]
         assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
                 else a == b), name
+
+
+# ---------------------------------------------------------------------------
+# two-word keys: cops_insert64, cops_append64, cops_lookup64, cops_retrieve64
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", SUPPORTED_WINDOWS)
+def test_kernels64_hold_to_plain(window, scheme):
+    """The two-plane kernels against their plain versions: the insert and
+    the append under their contracts, the lookup and the retrieve walk
+    bit-exact; a quarter of the keys share 2^10 plane-0 words, some with
+    plane 1 at 0xFFFFFFFF / 0xFFFFFFFE."""
+    _need_card()
+    single = contract.run_case(1 << 14, window=window, scheme=scheme,
+                               device="cuda", key_words=2)
+    multi = contract.run_multi_case(1 << 14, window=window, scheme=scheme,
+                                    device="cuda", key_words=2)
+    torch.cuda.synchronize()
+    assert all(single.values()), single
+    assert all(multi.values()), multi
+
+
+def _u64(lo, hi):
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+
+@pytest.mark.cuda
+def test_wide_key_tables_on_card_go_through_kernels():
+    """The public entry points of both tables on CUDA ``key_words=2``
+    tables launch the 64-bit kernels and agree with CPU tables, whatever
+    the key spelling (numpy uint64, (n, 2) planes, a column tuple)."""
+    _need_card()
+    rng = np.random.default_rng(2)
+    lo = rng.integers(1, 64, 3000).astype(np.uint32)
+    hi = rng.integers(0, 2 ** 32, 3000, dtype=np.uint32)
+    hi[:40], hi[40:80] = 0xFFFFFFFF, 0xFFFFFFFE
+    u64 = np.unique(_u64(lo, hi))[:2000]
+    rng.shuffle(u64)
+    planes = np.stack([(u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                       (u64 >> np.uint64(32)).astype(np.uint32)], axis=1)
+    cols = (planes[:, 1], planes[:, 0])
+    vals = rng.integers(0, 2 ** 32, 2000, dtype=np.uint32)
+    mask = rng.random(1200) < 0.9
+    dup = np.concatenate([planes[:1000], planes[:200]])
+    out = {}
+    ops.reset_launches()
+    for dev in ("cuda", "cpu"):
+        t = sv.create(4096, window=32, device=dev, key_words=2)
+        t, st1 = sv.insert(t, u64, vals)
+        t, st2 = sv.insert(t, dup, vals[:1200] ^ 1, mask=mask)
+        t, erased = sv.erase(t, (cols[0][:500], cols[1][:500]))
+        t, st3 = sv.insert(t, planes[:600], vals[:600])
+        v, f = sv.retrieve(t, cols)
+        m = mv.create(4096, window=32, device=dev, key_words=2)
+        m, st4 = mv.insert(m, np.repeat(u64[:500], 3), np.arange(1500,
+                                                               dtype=np.uint32))
+        c = mv.count_values(m, planes[:600])
+        seg = _segments(*mv.retrieve_all(m, planes[:600], int(c.sum())))
+        m, me = mv.erase(m, u64[:100])
+        out[dev] = (st1.cpu(), st2.cpu(), erased.cpu(), st3.cpu(),
+                    to_numpy_u32(v), f.cpu(), sv.contains(t, u64).cpu(),
+                    t.count, st4.cpu(), c.cpu(), seg, me.cpu(), m.count)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {**_NONE, "cops_insert64": 3, "cops_lookup64": 3,
+                            "cops_append64": 1, "cops_retrieve64": 3}
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert bool((gpu[0] == STATUS_INSERTED).all())
+    for a, b in zip(gpu, cpu):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        elif isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert a == b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 4, 32])
+def test_insert64_never_matches_a_half_published_key(window):
+    """The race of a key published only on plane 0: many keys share four
+    plane-0 words, with plane-1 words 0xFFFFFFFF (EMPTY's bits, held by a
+    fresh slot's plane 1) and 0xFFFFFFFE (TOMBSTONE's, held by an erased
+    one), in a table of a few rows.  120 rounds, on an empty store and on
+    one holding tombstones; the insert and append contracts must hold
+    every time."""
+    _need_card()
+    rng = np.random.default_rng(window)
+    lo = np.repeat(np.arange(1, 5, dtype=np.uint32), 40)
+    hi = np.tile(np.concatenate([[0xFFFFFFFF, 0xFFFFFFFE],
+                                 np.arange(38)]).astype(np.uint32), 4)
+    every = torch.from_numpy(np.stack([lo, hi], 1).view(np.int32)).cuda()
+    for rnd in range(120):
+        t = sv.create(140, window=window, device="cuda", key_words=2)
+        kw = dict(seed=t.seed, scheme=t.scheme,
+                  max_probes=bulk._tstatic(t)[3])
+        order = torch.from_numpy(rng.permutation(160)).cuda()
+        keys = every[order]
+        vals = contract.values_for(keys, rnd)
+        first, second = keys[:100], keys[60:]
+        kernel = contract.table_planes(t)
+        plain = tuple(x.clone() for x in kernel)
+        count = 0
+        for step, batch in enumerate((first, second)):
+            v = vals[:batch.shape[0]] ^ step
+            ks = ops.insert64(*kernel, batch, v, count=count, **kw)
+            ps = ops.insert_plain(*plain, batch, v, count=count, **kw)
+            parts = contract.check_insert(kernel, plain, ks, ps, **kw)
+            assert all(parts.values()), (rnd, step, parts)
+            count += int((ks == STATUS_INSERTED).sum())
+            if step == 0:
+                # erase every other key: the second batch meets tombstones
+                gone = first[::2]
+                for planes in (kernel, plain):
+                    _, f, slot = ops.lookup_plain(*planes, gone, slots=True,
+                                                  **kw)
+                    planes[0].view(2, -1)[:, slot[f]] = TOMBSTONE_WORD
+                count -= gone.shape[0]
+        m = mv.create(140, window=window, device="cuda", key_words=2)
+        kernel = contract.table_planes(m)
+        plain = tuple(x.clone() for x in kernel)
+        pairs = keys[torch.arange(140, device="cuda") % 40]
+        pv = torch.arange(140, dtype=torch.int32, device="cuda")
+        ks = ops.append64(*kernel, pairs, pv, **kw)
+        ps = ops.append_plain(*plain, pairs, pv, **kw)
+        parts = contract.check_append(kernel, plain, pairs, ks, ps, **kw)
+        assert all(parts.values()), (rnd, parts)
+        assert not bool((ks == STATUS_FULL).any())
+    torch.cuda.synchronize()

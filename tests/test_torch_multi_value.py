@@ -242,7 +242,7 @@ def test_cpu_table_launches_no_kernel():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"key_words": 2}, {"value_words": 2}, {"scheme": "quadratic"},
+    {"key_words": 3}, {"value_words": 2}, {"scheme": "quadratic"},
     {"scheme": "bucketed"}, {"kind": "bucketed"}, {"layout": "aos"},
     {"layout": "packed"}, {"layout": "bucketed"},
 ])

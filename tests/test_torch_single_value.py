@@ -222,7 +222,7 @@ def test_torch_key_spellings_agree():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"key_words": 2}, {"value_words": 2}, {"scheme": "quadratic"},
+    {"key_words": 3}, {"value_words": 2}, {"scheme": "quadratic"},
     {"scheme": "bucketed"}, {"layout": "aos"}, {"layout": "packed"},
     {"layout": "bucketedq"},
 ])
@@ -236,7 +236,7 @@ def test_unknown_configurations_raise():
         tsv.create(64, scheme="cuckoo", device="cpu")
     with pytest.raises(ValueError):
         tsv.create(64, window=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="words"):
         tsv.insert(tsv.create(64, device="cpu"),
                    np.zeros((4, 2), np.uint32), np.zeros(4, np.uint32))
 
@@ -260,13 +260,30 @@ def test_cpu_table_launches_no_kernel():
 
 
 def test_package_imports_neither_jax_nor_repro():
-    """Every module of repro_torch imports without pulling in JAX or the
-    JAX package."""
+    """Every module of repro_torch imports, and both tables run their u32
+    and two-word key paths (every key spelling) on the CPU, without
+    pulling in JAX or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import numpy as np\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from repro_torch.core import convert, multi_value as mv, "
+        "single_value as sv\n"
+        "k64 = np.arange(1, 41, dtype=np.uint64) * np.uint64(2 ** 33 + 3)\n"
+        "cols = (np.arange(40, dtype=np.uint32), np.arange(1, 41, "
+        "dtype=np.uint32))\n"
+        "for kw, keys in ((1, cols[1]), (2, k64), (2, cols)):\n"
+        "    t = sv.create(128, key_words=kw, device='cpu')\n"
+        "    t, _ = sv.insert(t, keys, cols[0])\n"
+        "    sv.retrieve(t, keys); sv.contains(t, keys)\n"
+        "    t, _ = sv.erase(t, keys)\n"
+        "    convert.table_to_numpy(t)\n"
+        "    m = mv.create(128, key_words=kw, device='cpu')\n"
+        "    m, _ = mv.insert(m, keys, cols[0])\n"
+        "    mv.count_values(m, keys); mv.retrieve_all(m, keys, 64)\n"
+        "    mv.erase(m, keys)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith"
         "('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
