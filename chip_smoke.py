@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths — bulk build and bulk retrieval on the
-single-value COPS table, the paper's headline (§IV-B, Fig. 5), and on the
-multi-value table (§IV-B.4, Fig. 7) — at the paper's scale, and holds
+Drives the port's paths — bulk build and bulk retrieval on the
+single-value COPS table, the paper's headline (§IV-B, Fig. 5), on the
+multi-value table and the bucket list (§IV-B.4, §IV-C, Fig. 7), and the
+metagenomics pipeline (§V-C, Fig. 8) — at the paper's scale, and holds
 every kernel of each path against its plain PyTorch version.  Phases, one
 status line each:
 
@@ -60,7 +61,32 @@ status line each:
     The counters are zeroed just before it and read just after it;
 11. each two-plane kernel alone and its plain version at the shapes of
     phases 9 and 10 (``cops_insert64`` both as the build and as the
-    upsert of every key), compared and timed, with their byte bounds.
+    upsert of every key), compared and timed, with their byte bounds;
+12. ``cops_bucket_walk`` vs plain (identical arenas) on bucket lists of
+    2^20 pairs for Fig. 7's wc-bl-1 (growth 1.1, s0 1) and wc-bl-2
+    (growth 1.0, s0 r) at r = 1, 8, 32, with chains grown across two
+    batches, duplicate and absent queries (``contract.run_bucket_case``);
+    and ``kmer_hash`` vs plain on 2^24 bases with 0.1% N, as one row and
+    as 150-base reads, for k = 8, 16, 20, 31;
+13. the bucket list's main path, Fig. 7's wc-bl-1 cell at r = 8: phase
+    6's 2^28 pairs into ``bucket_list.create(2^25 / 0.8, 2^29 + 64)``,
+    W = 32, cops — insert, count_values and retrieve_all of the 2^25 keys
+    and of absent keys, each exact against a stable sort of the inserted
+    pairs; timed, the insert split into its sort, its claim placement and
+    the rest, and the storage density printed beside wc-oa's.  The
+    counters are zeroed just before it and read just after it;
+14. the Fig. 8 pipeline: a reference of 256 genomes of 2^22 bases (32
+    ancestors x 8 strains at 1% substitutions) made on the card from a
+    seed, sketched in windows of 127 bases at stride 112 (k = 16, 16
+    hashes each) and indexed in a bucket list genome by genome; then 2^20
+    reads of 150 bases (1% substitutions, 0.1% N) classified by k-mer
+    votes, every retrieval exact against a sort of the inserted pairs and
+    the species-level accuracy at least 0.8; k-mers hashed, pairs indexed
+    and reads classified per second.  The counters are zeroed just
+    before it and read just after it;
+15. ``cops_bucket_walk`` at phase 13's shapes and ``kmer_hash`` at phase
+    14's reads, each alone and its plain version, compared and timed,
+    with their bounds.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
@@ -90,8 +116,26 @@ N_MV_ABSENT = 2 ** 24
 MV_CASES = (("wc-oa", 32, "cops", 1, None), ("wc-oa", 32, "cops", 8, None),
             ("wc-oa", 32, "cops", 32, None),
             ("lp-oa", 1, "linear", 8, 8192))  # fig7_multi_value.py:83-85
+N_BL = 2 ** 28            # fig7 wc-bl: 2^25 keys x r = 8, as phase 6
+BL_CASES = (("wc-bl-1", 1.1, 1, 1), ("wc-bl-1", 1.1, 1, 8),
+            ("wc-bl-1", 1.1, 1, 32), ("wc-bl-2", 1.0, 1, 1),
+            ("wc-bl-2", 1.0, 8, 8), ("wc-bl-2", 1.0, 32, 32))  # fig7:115-124
+KMER_KS = (8, 16, 20, 31)
+N_KMER_CHECK = 2 ** 24    # bases of phase 12's k-mer cases
+N_ANCESTORS, N_STRAINS = 32, 8        # the reference: 256 genomes
+GENOME_LEN = 2 ** 22
+K_MER, SKETCH, WIN_LEN, WIN_STRIDE = 16, 16, 127, 112   # MetaCache defaults
+N_READS, READ_LEN = 2 ** 20, 150
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+# 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper white paper; the guide's
+# table has no integer rate): 32-bit integer operations per second
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# the fewest 32-bit operations per k-mer of the hash function: a rolling
+# update of the forward and reverse words (6), validity (3), the min (1),
+# fmix32 (8: three xor-shifts, two multiplies) and the INVALID select (1)
+OPS_PER_KMER = 19
 SOURCE = "src/repro_torch/kernels/cops/csrc/cops.cu"
+MINHASH_SOURCE = "src/repro_torch/kernels/minhash/csrc/minhash.cu"
 REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
             "cops_lookup": "src/repro/kernels/cops/kernel.py:789",
             "cops_append": "src/repro/kernels/cops/kernel.py:103",
@@ -99,7 +143,9 @@ REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
             "cops_insert64": "src/repro/kernels/cops/kernel.py:518",
             "cops_lookup64": "src/repro/kernels/cops/kernel.py:629",
             "cops_append64": "src/repro/kernels/cops/kernel.py:547",
-            "cops_retrieve64": "src/repro/kernels/cops/kernel.py:694"}
+            "cops_retrieve64": "src/repro/kernels/cops/kernel.py:694",
+            "cops_bucket_walk": "src/repro/kernels/cops/kernel.py:435",
+            "kmer_hash": "src/repro/kernels/minhash/kernel.py:33"}
 
 
 def card_line() -> str:
@@ -203,16 +249,20 @@ def multi_walk_windows(torch, table_keys, keys, seed, scheme, budget):
     return walked, int(last.sum()), sectors
 
 
-def kernel_record(name, launches, err, times, plain_times, bound_bytes):
+def kernel_record(name, launches, err, times, plain_times, bound_bytes,
+                  source=SOURCE, bound_ops=0):
     """One entry of the ``{"kernels": [...]}`` line: the main path's
     ``launches`` of the kernel, its median time of ``times``, the plain
-    version's time and the byte bound at the card's peak rate."""
-    return {"name": name, "route": "cuda", "source": SOURCE,
+    version's time and the bound: the larger of the bytes at the card's
+    memory rate and the 32-bit integer operations at its integer rate."""
+    by_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = bound_ops / INT32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": statistics.median(times),
-            "plain_ms": plain_times[0],
-            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None}
+            "plain_ms": plain_times[0], "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
 
 
 def pair_err(a, b) -> float:
@@ -664,6 +714,411 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
                           rw_p_t, rw_bytes)]
 
 
+def bucket_cases(torch, check, phase):
+    """Phase 12: ``cops_bucket_walk`` vs plain at N_CHECK pairs on the
+    wc-bl cells of Fig. 7."""
+    from repro_torch.kernels.cops import contract
+    for name, growth, s0, r in BL_CASES:
+        t0 = time.perf_counter()
+        checks = contract.run_bucket_case(N_CHECK, r=r, growth=growth, s0=s0,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        bad = [k for k, ok in checks.items()
+               if not check(f"phase{phase} {name} r={r} {k}", ok)]
+        print(f"phase {phase} bucket walk vs plain {name} (growth {growth}, "
+              f"s0 {s0}) r={r} n={N_CHECK}: "
+              f"{'ok' if not bad else 'FAILED ' + str(bad)} "
+              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+
+def random_bases(torch, gen, shape, n_rate):
+    """uint8 base codes on the card, with N (code 4) at ``n_rate``."""
+    bases = torch.randint(0, 4, shape, dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    n = torch.rand(shape, device="cuda", generator=gen) < n_rate
+    return torch.where(n, 4, bases).to(torch.uint8)
+
+
+def kmer_cases(torch, check, phase):
+    """Phase 12: ``kmer_hash`` vs plain on N_KMER_CHECK bases with 0.1% N,
+    as one row and as 150-base reads, for every k of KMER_KS."""
+    from repro_torch.kernels.minhash import ops as mh
+    from repro_torch.kernels.minhash import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    row = random_bases(torch, gen, (1, N_KMER_CHECK), 0.001)
+    reads = row[0, :N_KMER_CHECK // READ_LEN * READ_LEN].view(-1, READ_LEN)
+    t0 = time.perf_counter()
+    bad = []
+    for k in KMER_KS:
+        for label, bases in (("row", row), ("reads", reads)):
+            ok = torch.equal(mh.kmer_hash(bases, k), ref.kmer_hashes(bases, k))
+            if not check(f"phase{phase} kmer k={k} {label} exact", ok):
+                bad.append(f"k={k} {label}")
+    torch.cuda.synchronize()
+    print(f"phase {phase} kmer_hash vs plain on {N_KMER_CHECK} bases (0.1% N;"
+          f" one row and {reads.shape[0]} reads of {READ_LEN}) k={KMER_KS}: "
+          f"{'ok' if not bad else 'FAILED ' + str(bad)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def pair_reference(torch, keys, vals, queries):
+    """What ``retrieve_all(queries)`` must give for a table built from the
+    pairs (``keys``, ``vals``) in this order, without a table: each
+    query's values in insertion order, read off a stable sort of the
+    pairs by key.  Returns ``(values, offsets, counts)``."""
+    sk, order = torch.sort(keys, stable=True)
+    sv = vals[order]
+    del order
+    lo = torch.searchsorted(sk, queries)
+    counts = torch.searchsorted(sk, queries, right=True) - lo
+    del sk
+    offsets = torch.zeros(queries.shape[0] + 1, dtype=torch.int64,
+                          device=queries.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    seg = torch.repeat_interleave(
+        torch.arange(queries.shape[0], device=queries.device), counts)
+    pos = lo[seg] + torch.arange(seg.shape[0], device=seg.device) - offsets[seg]
+    return sv[pos], offsets.to(torch.int32), counts.to(torch.int32)
+
+
+def check_retrieval(torch, check, tag, got, want):
+    """``retrieve_all``'s (values, offsets, counts) exactly as ``want``."""
+    values, offsets, counts = got
+    m = want[0].shape[0]
+    check(f"{tag} counts", torch.equal(counts, want[2]))
+    check(f"{tag} offsets", torch.equal(offsets, want[1]))
+    check(f"{tag} segments in insertion order",
+          values.shape[0] >= m and torch.equal(values[:m], want[0]))
+
+
+def chain_bytes(torch, pool, found, ptr, rcnt, bidx, schedule):
+    """(links followed, 32-byte arena sectors stamped) by the chain walks
+    of the ``found`` queries: each bucket run of ``valid`` 4-byte slots
+    from ``start`` touches its sectors of both arenas once."""
+    sizes, cum = (x.long() for x in schedule)
+    q = torch.nonzero(found).squeeze(1)
+    j, p, c = bidx[q].long(), ptr[q].long() & 0xFFFFFFFF, rcnt[q].long()
+    links = sectors = 0
+    while q.numel():
+        link = j > 0
+        valid = torch.minimum(c - cum[j], sizes[j])
+        start = p + link
+        run = valid > 0
+        sectors += 2 * int(((start + valid - 1) // 8 - start // 8 + 1)[run]
+                           .sum())
+        links += int(link.sum())
+        q, j, c = q[link], j[link] - 1, c[link]
+        p = pool[p[link]].long() & 0xFFFFFFFF
+    return links, sectors
+
+
+def bucket_list_path(torch, card, check, phase, base, absent):
+    """Phase 13: Fig. 7's wc-bl-1 cell at r = 8 through the public entry
+    points — the distinct ``base`` keys, R_MV in a row, values 0 .. n-1,
+    into ``bucket_list.create(n_keys / 0.8, 2n + 64)``, s0 = 1, growth
+    1.1, W = 32, cops: insert, count_values and retrieve_all (present and
+    absent keys), each checked exactly against ``pair_reference``, and
+    timed.  The counters are zeroed just before and read just after.
+    Returns ``(launches, table)``."""
+    from repro_torch.core import bucket_list as bl
+    from repro_torch.core import bulk
+    from repro_torch.core.common import STATUS_INSERTED, as_u32, table_geometry
+    from repro_torch.kernels.cops import contract, ops
+    n_keys = base.shape[0]
+    keys = base.repeat_interleave(R_MV)
+    vals = torch.arange(N_BL, dtype=torch.int32, device="cuda")
+    since = len(check.failed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+
+    def fresh():
+        return (bl.create(int(n_keys / contract.LOAD), 2 * N_BL + 64, s0=1,
+                          growth=1.1, window=WINDOW, device="cuda"),)
+
+    ins_t, (table, st) = timed(torch, lambda t: bl.insert(t, keys, vals),
+                               fresh)
+    insert_peak = torch.cuda.max_memory_allocated() / 1e9
+    check("bl insert all INSERTED", bool((st == STATUS_INSERTED).all()))
+    check("bl key count", table.num_keys() == n_keys)
+    del st
+    cnt_t, cnt = timed(torch, lambda: bl.count_values(table, base))
+    ret_t, got = timed(torch, lambda: bl.retrieve_all(table, base, N_BL))
+    want = pair_reference(torch, keys, vals, base)
+    check("bl count_values exact", torch.equal(cnt, want[2]))
+    check_retrieval(torch, check, "bl retrieve_all", got, want)
+    check("bl every key holds r values", bool((want[2] == R_MV).all()))
+    del got, want, cnt
+    got = bl.retrieve_all(table, absent, absent.shape[0])
+    check("bl absent counts 0", not bool(got[2].any()))
+    check("bl absent output zeros",
+          not bool(got[0].any()) and not bool(got[1].any()))
+    check("bl absent count_values 0",
+          not bool(bl.count_values(table, absent).any()))
+    del got
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for name in ("cops_lookup", "cops_bucket_walk"):
+        check(f"{name} launched on the bucket-list path", launches[name] > 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    density = table.storage_density()
+    oa_rows, oa_cap = table_geometry(int(N_MV / contract.LOAD), WINDOW)
+    # the split of the insert, by difference (outside the counted run):
+    # the stable sort of the batch alone, and the claim placement of the
+    # n_keys new keys (priority: each key's first batch position) alone
+    sort_t, _ = timed(torch, lambda: bulk._sort_batch(keys, None, [vals]))
+    empty = fresh()[0].key_store
+    words = as_u32(base)
+    every = torch.ones((n_keys,), dtype=torch.bool, device="cuda")
+    prio = torch.arange(0, N_BL, R_MV, device="cuda")
+    claim_t, _ = timed(torch, lambda: bulk.place_claims(
+        bulk._tstatic(empty), empty.store, words, every, prio=prio))
+    del empty, words, every, prio
+    ins_ms = statistics.median(ins_t)
+    sort_ms, claim_ms = statistics.median(sort_t), statistics.median(claim_t)
+    print(f"phase {phase} bucket list (wc-bl-1) n={N_BL} r={R_MV} keys="
+          f"{n_keys}: key store p={table.key_store.num_rows} W={WINDOW} "
+          f"capacity {table.key_capacity}, pool {table.pool_capacity} slots"
+          f" ({(table.key_capacity * 12 + table.pool_capacity * 4) / 1e9:.2f}"
+          f" GB), pool used {table.alloc_top}; {check.status(since)}; "
+          f"insert {spread(ins_t)} = "
+          f"{N_BL / statistics.median(ins_t) / 1e6:.3f} G pairs/s, "
+          f"count_values {spread(cnt_t)} = "
+          f"{N_BL / statistics.median(cnt_t) / 1e6:.3f} G values/s, "
+          f"retrieve_all {spread(ret_t)} = "
+          f"{N_BL / statistics.median(ret_t) / 1e6:.3f} G values/s (5 runs "
+          f"each, CUDA events, through bl.insert / bl.count_values / "
+          f"bl.retrieve_all); insert split: stable sort {sort_ms:.3f} ms, "
+          f"claim placement of {n_keys} keys {claim_ms:.3f} ms, the rest "
+          f"{ins_ms - sort_ms - claim_ms:.3f} ms (by difference); storage "
+          f"density {density:.4f} (wc-oa at load "
+          f"{contract.LOAD}, phase 6: {N_MV / oa_cap:.4f}, p={oa_rows}); "
+          f"peak {insert_peak:.1f} GB in the insert, {peak:.1f} GB in the "
+          f"phase; launches {launches}; card {card}", flush=True)
+    return launches, table
+
+
+def make_reference(torch, gen):
+    """The synthetic reference of phase 14: N_ANCESTORS random genomes of
+    GENOME_LEN bases, each the ancestor of N_STRAINS strains at 1% point
+    substitutions (to another base); (genomes, length) uint8 on the
+    card, strains of one ancestor in consecutive rows."""
+    anc = torch.randint(0, 4, (N_ANCESTORS, GENOME_LEN), dtype=torch.uint8,
+                        device="cuda", generator=gen)
+    genomes = anc.repeat_interleave(N_STRAINS, dim=0)
+    del anc
+    for g in range(genomes.shape[0]):
+        sub = torch.rand(GENOME_LEN, device="cuda", generator=gen) < 0.01
+        shift = torch.randint(1, 4, (GENOME_LEN,), dtype=torch.uint8,
+                              device="cuda", generator=gen)
+        genomes[g] = torch.where(sub, (genomes[g] + shift) % 4, genomes[g])
+    return genomes
+
+
+def genome_windows(torch, genome):
+    """A genome's sketching windows: WIN_LEN bases at stride WIN_STRIDE,
+    so each k-mer lies in one window; the tail padded with the invalid
+    code 255.  (windows, WIN_LEN) uint8."""
+    kmers = genome.shape[0] - K_MER + 1
+    n_win = -(-kmers // WIN_STRIDE)
+    pad = (n_win - 1) * WIN_STRIDE + WIN_LEN - genome.shape[0]
+    padded = torch.cat([genome, torch.full((pad,), 255, dtype=torch.uint8,
+                                           device=genome.device)])
+    return padded.unfold(0, WIN_LEN, WIN_STRIDE)
+
+
+def sketch_keys(torch, sketch):
+    """A sketch's valid hashes as bucket-list keys: INVALID dropped, the
+    two sentinel words clamped to 0xFFFFFFFD (examples/metagenomics.py)."""
+    h = sketch.reshape(-1)
+    h = h[h != -1]                      # INVALID = 0xFFFFFFFF
+    return torch.where(h == -2, -3, h)  # 0xFFFFFFFE -> 0xFFFFFFFD
+
+
+def metagenomics_path(torch, card, check, phase):
+    """Phase 14: the pipeline of ``examples/metagenomics.py`` and
+    ``benchmarks/fig8_metagenomics.py`` at the size of a real reference:
+    sketch every genome's windows (``sketch_reads``), insert each
+    genome's (hash, genome id) pairs (``bl.insert``), then classify reads
+    by k-mer votes (``sketch_reads``, ``count_values``, ``retrieve_all``,
+    a bincount), every retrieval exact against ``pair_reference`` and the
+    species-level accuracy at least 0.8.  The counters are zeroed just
+    before and read just after.  Returns ``(launches, reads)``."""
+    from repro_torch.core import bucket_list as bl
+    from repro_torch.core import bulk
+    from repro_torch.core.common import STATUS_INSERTED
+    from repro_torch.kernels.cops import ops
+    from repro_torch.kernels.minhash import ops as mh
+    since = len(check.failed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    t0 = time.perf_counter()
+    genomes = make_reference(torch, gen)
+    n_gen = genomes.shape[0]
+    gid = torch.randint(0, n_gen, (N_READS,), device="cuda", generator=gen)
+    pos = torch.randint(0, GENOME_LEN - READ_LEN + 1, (N_READS,),
+                        device="cuda", generator=gen)
+    reads = genomes[gid[:, None], pos[:, None]
+                    + torch.arange(READ_LEN, device="cuda")]
+    sub = torch.rand(reads.shape, device="cuda", generator=gen) < 0.01
+    shift = torch.randint(1, 4, reads.shape, dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    reads = torch.where(sub, (reads + shift) % 4, reads)
+    nbase = torch.rand(reads.shape, device="cuda", generator=gen) < 0.001
+    reads = torch.where(nbase, 4, reads).to(torch.uint8)
+    del pos, sub, shift, nbase
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    n_win = genome_windows(torch, genomes[0]).shape[0]
+    pairs_est = n_gen * n_win * SKETCH
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    mh.reset_launches()
+
+    # sketch every genome, then build the index genome by genome
+    sketches = []
+
+    def sketch_all():
+        for g in range(n_gen):
+            sketches.append(sketch_keys(torch, mh.sketch_reads(
+                genome_windows(torch, genomes[g]), k=K_MER, s=SKETCH,
+                device="cuda")))
+
+    sk_t, _ = timed(torch, sketch_all, reps=1, warmup=0)
+    table = bl.create(2 * pairs_est, 4 * pairs_est, s0=1, growth=1.1,
+                      window=WINDOW, device="cuda")
+    statuses_ok = True
+
+    def build():
+        nonlocal table, statuses_ok
+        for g in range(n_gen):
+            table, st = bl.insert(table, sketches[g], torch.full(
+                sketches[g].shape, g, dtype=torch.int32, device="cuda"))
+            statuses_ok &= bool((st == STATUS_INSERTED).all())
+
+    build_t, _ = timed(torch, build, reps=1, warmup=0)
+    pairs = sum(x.shape[0] for x in sketches)
+    check("fig8 every pair INSERTED", statuses_ok)
+    check("fig8 pool holds every pair", table.alloc_top <= table.pool_capacity)
+
+    def classify():
+        sk = mh.sketch_reads(reads, k=K_MER, s=SKETCH, device="cuda")
+        valid = sk != -1
+        q = sk[valid]
+        q = torch.where(q == -2, -3, q)
+        read_of = torch.nonzero(valid)[:, 0]
+        counts = bl.count_values(table, q)
+        got = bl.retrieve_all(table, q, int(counts.sum()))
+        hit_read = torch.repeat_interleave(read_of, got[2].long())
+        votes = torch.bincount(hit_read * n_gen + got[0][:hit_read.shape[0]],
+                               minlength=N_READS * n_gen)
+        return q, counts, got, votes.view(N_READS, n_gen).argmax(1)
+
+    cls_t, (q, counts, got, pred) = timed(torch, classify, reps=3)
+    torch.cuda.synchronize()
+    launches = {**ops.LAUNCHES, **mh.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # what every insert pays whatever its size (outside the counted run): a
+    # claim placement of no key still scans the whole key store for free
+    # lanes
+    ks = table.key_store
+    none = torch.zeros((0,), dtype=torch.int64, device="cuda")
+    scan_t, _ = timed(torch, lambda: bulk.place_claims(
+        bulk._tstatic(ks), ks.store, none, none.bool(), prio=none))
+    for name in ("kmer_hash", "cops_lookup", "cops_bucket_walk"):
+        check(f"{name} launched on the metagenomics path", launches[name] > 0)
+    want = pair_reference(torch, torch.cat(sketches), torch.cat([
+        torch.full(x.shape, g, dtype=torch.int32, device="cuda")
+        for g, x in enumerate(sketches)]), q)
+    check("fig8 count_values exact", torch.equal(counts, want[2]))
+    check_retrieval(torch, check, "fig8 retrieve_all", got, want)
+    species = float(((pred // N_STRAINS) == (gid // N_STRAINS)).float().mean())
+    genome_acc = float((pred == gid).float().mean())
+    check("fig8 species-level accuracy >= 0.8", species >= 0.8)
+    kmers = n_gen * (GENOME_LEN - K_MER + 1)
+    print(f"phase {phase} metagenomics (fig8) reference {n_gen} genomes x "
+          f"{GENOME_LEN} bases ({N_ANCESTORS} ancestors x {N_STRAINS} "
+          f"strains, 1% substitutions; made in {data_s:.1f} s), k={K_MER}, "
+          f"windows {WIN_LEN}/{WIN_STRIDE} ({n_win} per genome), s={SKETCH}: "
+          f"{check.status(since)}; sketch {sk_t[0]:.3f} ms = "
+          f"{kmers / sk_t[0] / 1e6:.3f} G k-mers hashed/s; build of {pairs} "
+          f"pairs ({table.num_keys()} keys, {pairs / table.num_keys():.3f} "
+          f"values per key; key capacity {table.key_capacity}, pool "
+          f"{table.pool_capacity}, used {table.alloc_top}; storage density "
+          f"{table.storage_density():.4f}) {build_t[0]:.3f} ms = "
+          f"{pairs / build_t[0] / 1e6:.3f} G pairs indexed/s, "
+          f"{build_t[0] / n_gen:.3f} ms per genome's insert, of which the "
+          f"free-lane scan of the key store {statistics.median(scan_t):.3f} "
+          f"ms (a placement of no key, timed alone); classify "
+          f"{N_READS} reads of {READ_LEN} (1% substitutions, 0.1% N; "
+          f"{q.shape[0]} queries, {int(counts.sum())} values) "
+          f"{spread(cls_t)} = {N_READS / statistics.median(cls_t) * 1e3:.0f}"
+          f" reads/s; species-level accuracy {species:.4f}, genome-level "
+          f"{genome_acc:.4f}; peak {peak:.1f} GB; launches {launches}; card "
+          f"{card}", flush=True)
+    return launches, reads
+
+
+def new_kernels(torch, card, check, phase, table, base, reads, bl_launches,
+                mg_launches):
+    """Phase 15: ``cops_bucket_walk`` at phase 13's shapes (2^25 queries on
+    the wc-bl-1 r = 8 table) and ``kmer_hash`` at phase 14's reads, each
+    alone and its plain version, compared and timed, with their bounds.
+    Returns their two kernel records."""
+    from repro_torch.core import bucket_list as bl
+    from repro_torch.kernels.cops import ops
+    from repro_torch.kernels.minhash import ops as mh
+    from repro_torch.kernels.minhash import ref
+    since = len(check.failed)
+    found, ptr, rcnt, bidx = bl._handle_probe(table, base)[2:6]
+    schedule = bl._schedule(table)
+    args = (table.pool, ptr, rcnt, bidx, found, *schedule)
+    walk_t, kout = timed(torch, lambda: ops.bucket_walk(*args))
+    walk_p_t, pout = timed(torch, lambda: ops.bucket_walk_plain(*args),
+                           reps=1, warmup=0)
+    walk_err = max(int((a.long() - b.long()).abs().max())
+                   for a, b in zip(kout, pout))
+    check(f"phase{phase} bucket walk exact",
+          all(torch.equal(a, b) for a, b in zip(kout, pout)))
+    del kout, pout
+    links, sectors = chain_bytes(torch, table.pool, found, ptr, rcnt, bidx,
+                                 schedule)
+    n_q = base.shape[0]
+    stamp_bytes = 13 * n_q + 32 * links + 32 * sectors
+    walk_bytes = 13 * n_q + 32 * links + 8 * table.pool_capacity
+    rows, length = reads.shape
+    n_out = length - K_MER + 1
+    kmer_t, kout = timed(torch, lambda: mh.kmer_hash(reads, K_MER))
+    kmer_p_t, pout = timed(torch, lambda: ref.kmer_hashes(reads, K_MER),
+                           reps=1, warmup=0)
+    kmer_err = int((kout.long() - pout.long()).abs().max())
+    check(f"phase{phase} kmer_hash exact", torch.equal(kout, pout))
+    del kout, pout
+    tile = 256
+    read_bytes = rows * sum(min(tile + K_MER - 1, length - t0)
+                            for t0 in range(0, n_out, tile))
+    kmer_bytes = read_bytes + 4 * rows * n_out
+    kmer_ops = OPS_PER_KMER * rows * n_out
+    ms = 1e3 / HBM_BYTES_PER_S
+    print(f"phase {phase} new kernels: {check.status(since)}; "
+          f"cops_bucket_walk on {n_q} queries ({int(rcnt.sum())} values, "
+          f"{links} links) {spread(walk_t)}, plain {walk_p_t[0]:.3f} ms, bound"
+          f" {walk_bytes * ms:.3f} ms (both (P,) arenas written in full, "
+          f"P={table.pool_capacity}; the stamps alone {stamp_bytes * ms:.3f}"
+          f" ms); kmer_hash k={K_MER} on {rows} x {length} bases "
+          f"{spread(kmer_t)}, plain {kmer_p_t[0]:.3f} ms, bound "
+          f"{kmer_bytes * ms:.3f} ms by bytes ({kmer_ops} operations: "
+          f"{kmer_ops / INT32_OPS_PER_S * 1e3:.3f} ms); card {card}",
+          flush=True)
+    return [kernel_record("cops_bucket_walk", bl_launches, walk_err, walk_t,
+                          walk_p_t, walk_bytes),
+            kernel_record("kmer_hash", mg_launches, kmer_err, kmer_t,
+                          kmer_p_t, kmer_bytes, source=MINHASH_SOURCE,
+                          bound_ops=kmer_ops)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -724,6 +1179,18 @@ def main() -> int:
     del keys, vals
     records += multi_value_kernels(torch, card, check, 11, pool[:n_keys],
                                    mkeys, mvals, mv_kw, mv_fresh, mv_launches)
+    del pool, mkeys, mvals
+    torch.cuda.empty_cache()
+
+    # -- phases 12-15: the bucket list and the metagenomics front end -------
+    bucket_cases(torch, check, 12)
+    kmer_cases(torch, check, 12)
+    pool = contract.distinct_keys(0, n_keys + N_MV_ABSENT, dev)
+    bl_launches, table = bucket_list_path(torch, card, check, 13,
+                                          pool[:n_keys], pool[n_keys:])
+    mg_launches, reads = metagenomics_path(torch, card, check, 14)
+    records += new_kernels(torch, card, check, 15, table, pool[:n_keys],
+                           reads, bl_launches, mg_launches)
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -50,6 +50,11 @@ before the first EMPTY window of its walk; retrieve parity), checked by
 ``kernels/cops/contract.py``.  ``lax.cond`` / ``while_loop`` of the JAX
 engine are Python branches and loops on host-read scalars here.
 
+The bucket list (``core.bucket_list``) builds in the JAX engine's sorted
+domain: ``_sort_batch`` and ``_group_structure`` (1-word keys) give it
+the per-key runs in batch order, and it places its new keys through
+``place_claims`` with each claimer's batch position as ``prio``.
+
 Not ported yet: keys wider than two words and multi-word values,
 combiner callables (``_update_general``, with ``update_values``), the
 telemetry and quotient stores.
@@ -156,6 +161,51 @@ def _group_fast(keys, live):
 
 
 # ---------------------------------------------------------------------------
+# dedup (sorted domain, 1-word keys) — the bucket list's build works here
+# ---------------------------------------------------------------------------
+
+def _sort_batch(keys, mask, payload_cols):
+    """Stable sort of (n,) 1-word keys by (masked, key as u32, batch index).
+
+    One int64 word ``masked << 32 | key`` sorts stably with
+    ``torch.sort``, so masked elements cluster at the end and a key's live
+    elements stay in batch order.  Returns ``(flag, skeys, sidx,
+    payload)``: the sorted masked flags (int32), keys and batch indices
+    (int64), and each payload column gathered into the same order.
+    """
+    masked = torch.zeros(keys.shape, dtype=_I64, device=keys.device)
+    if mask is not None:
+        masked = (~mask).to(_I64)
+    sw, sidx = torch.sort((masked << 32) | as_u32(keys), stable=True)
+    flag = (sw >> 32).to(torch.int32)
+    del sw
+    return flag, keys[sidx], sidx, [c[sidx] for c in payload_cols]
+
+
+def _group_structure(flag, skeys):
+    """Segment layout of the sorted batch: ``(live, is_rep, first_pos,
+    last_pos)``.
+
+    Segments are maximal runs of equal live keys (a masked element is a
+    segment of its own, never read); ``is_rep`` marks the first live
+    element of each group, and ``first_pos`` / ``last_pos`` (int32) bound
+    each element's segment.
+    """
+    n = flag.shape[0]
+    dev = flag.device
+    live = flag == 0
+    cont = torch.zeros((n,), dtype=torch.bool, device=dev)
+    cont[1:] = (skeys[1:] == skeys[:-1]) & live[1:] & live[:-1]
+    runstart = ~cont
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    first_pos = torch.cummax(torch.where(runstart, pos, -1), 0).values
+    nxt = torch.ones((n,), dtype=torch.bool, device=dev)
+    nxt[:-1] = runstart[1:]
+    last_pos = torch.cummin(torch.where(nxt, pos, n).flip(0), 0).values.flip(0)
+    return live, live & runstart, first_pos, last_pos
+
+
+# ---------------------------------------------------------------------------
 # probe — one walk per active element (batch version of the sequential walk)
 # ---------------------------------------------------------------------------
 
@@ -205,25 +255,27 @@ def probe_matches(tstatic, store, keys, words, active, count=None):
 # arbitrate — the virtual-fill fixpoint
 # ---------------------------------------------------------------------------
 
-def _rank_by_row(row, alive):
-    """Rank each alive claimer among same-row claimers by batch position.
+def _rank_by_row(row, alive, prio=None):
+    """Rank each alive claimer among same-row claimers by ``prio``
+    (distinct values in [0, 2^31); by default the position).
 
-    One int64 sort of the packed ``row * n + position`` word covers both
+    One int64 sort of the packed ``row << 31 | prio`` word covers both
     forms of the JAX engine (its u32 packing and its two-key overflow
-    sort).  Dead claimers get rank 0.
+    sort); the sort's permutation takes each rank back to its claimer.
+    Dead claimers get rank 0.
     """
     n = row.shape[0]
     pos = torch.arange(n, dtype=_I64, device=row.device)
+    prio = pos if prio is None else prio
     sent = torch.iinfo(_I64).max
-    sp = torch.sort(torch.where(alive, row * n + pos, sent)).values
-    srow = sp // n
-    tgt = torch.where(sp == sent, n, sp % n)
+    sp, order = torch.sort(torch.where(alive, (row << 31) | prio, sent))
+    srow = sp >> 31
     newrow = torch.ones((n,), dtype=torch.bool, device=row.device)
     newrow[1:] = srow[1:] != srow[:-1]
     rank_sorted = pos - torch.cummax(torch.where(newrow, pos, -1), 0).values
-    by_pos = torch.zeros((n + 1,), dtype=_I64, device=row.device)
-    by_pos[tgt] = rank_sorted                   # dead claimers land in [n]
-    return by_pos[:n]
+    rank = torch.empty((n,), dtype=_I64, device=row.device)
+    rank[order] = torch.where(sp == sent, 0, rank_sorted)
+    return rank
 
 
 def _popcount32(x):
@@ -252,11 +304,13 @@ def _nth_set_lane(mask32, rank, window):
     return lane
 
 
-def place_claims(tstatic, store, words, claim):
+def place_claims(tstatic, store, words, claim, prio=None):
     """Assign every claimer a slot — or FULL — via the virtual-fill fixpoint.
 
-    Priority is batch position (sequential insert order).  Returns
-    ``(placed, row, lane, full)``.
+    Claimers of a row are served in ``prio`` order: distinct int64 values
+    in [0, 2^31), by default the position in ``words`` (sequential insert
+    order).  A caller in a sorted domain passes each element's batch
+    position.  Returns ``(placed, row, lane, full)``.
     """
     ops, scheme, seed, max_probes = tstatic
     num_rows, w = ops.num_rows, ops.window
@@ -288,12 +342,12 @@ def place_claims(tstatic, store, words, claim):
 
     attempt = torch.ones((n,), dtype=_I64, device=words.device)
     full = torch.zeros((n,), dtype=torch.bool, device=words.device)
-    rank = _rank_by_row(row, claim)
+    rank = _rank_by_row(row, claim, prio)
     over = claim & (rank >= n_cand[row])
     while bool(over.any()):
         attempt, row, full = advance(attempt, row, over, full)
         alive = claim & ~full
-        rank = _rank_by_row(row, alive)
+        rank = _rank_by_row(row, alive, prio)
         over = alive & (rank >= n_cand[row])
     placed = claim & ~full
     # rank-th lowest free lane of the assigned row

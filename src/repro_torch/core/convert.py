@@ -5,15 +5,18 @@ state as numpy arrays (``np.asarray(t.store["keys"])``,
 ``np.asarray(t.store["values"])``, ``int(t.count)``) plus its static
 fields; ``table_from_numpy`` / ``multi_table_from_numpy`` build the port's
 table from exactly that, tombstones included, and ``table_to_numpy`` goes
-back from either.  Neither side imports the other: the
-bridge speaks numpy only.
+back from either.  A ``BucketListHashTable`` crosses the same way with
+its key store's planes (the values are the two handle words), its
+``pool``, ``alloc_top`` and schedule (``bucket_table_from_numpy`` /
+``bucket_table_to_numpy``).  Neither side imports the other: the bridge
+speaks numpy only.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core import multi_value, single_value
+from repro_torch.core import bucket_list, multi_value, single_value
 from repro_torch.core.common import to_numpy_u32, to_words
 
 
@@ -69,3 +72,39 @@ def table_to_numpy(table) -> dict:
     return {"keys": to_numpy_u32(table.store["keys"]),
             "values": to_numpy_u32(table.store["values"]),
             "count": int(table.count)}
+
+
+def bucket_table_from_numpy(keys_planes: np.ndarray, value_planes: np.ndarray,
+                            count: int, pool: np.ndarray, alloc_top: int, *,
+                            num_rows: int, window: int, scheme: str,
+                            seed: int, max_probes: int, s0: int,
+                            growth: float, sizes=None, cum=None,
+                            device=None) -> bucket_list.BucketListHashTable:
+    """The port's bucket list holding the given key-store planes ((1, p,
+    W) keys, (2, p, W) handle words), live key ``count``, (P,) u32
+    ``pool`` and ``alloc_top``.  ``sizes`` / ``cum``, where given, must be
+    the schedule that ``s0``, ``growth`` and the pool's size give."""
+    pool = np.asarray(pool)
+    key_store = _from_numpy(single_value.empty_table, keys_planes,
+                            value_planes, count, num_rows=num_rows,
+                            window=window, scheme=scheme, seed=seed,
+                            max_probes=max_probes, device=device)
+    if key_store.value_words != 2 or key_store.key_words != 1:
+        raise ValueError(f"a bucket list's key store holds 1-word keys and "
+                         f"2-word handles, got {key_store.key_words} and "
+                         f"{key_store.value_words}")
+    schedule = bucket_list.growth_schedule(s0, growth, pool.shape[0])
+    if sizes is not None and (tuple(sizes), tuple(cum)) != schedule:
+        raise ValueError(f"schedule {sizes} / {cum} is not growth_schedule("
+                         f"{s0}, {growth}, {pool.shape[0]})")
+    return bucket_list.BucketListHashTable(
+        key_store=key_store, pool=to_words(pool, key_store.device).clone(),
+        alloc_top=int(alloc_top), pool_capacity=pool.shape[0],
+        sizes=schedule[0], cum=schedule[1], s0=s0, growth=growth)
+
+
+def bucket_table_to_numpy(table: bucket_list.BucketListHashTable) -> dict:
+    """The inverse of ``bucket_table_from_numpy``: ``table_to_numpy`` of
+    the key store plus ``pool`` (u32) and ``alloc_top``."""
+    return {**table_to_numpy(table.key_store), "pool": to_numpy_u32(table.pool),
+            "alloc_top": int(table.alloc_top)}

@@ -135,13 +135,24 @@ def create(min_capacity: int, *, window: int = DEFAULT_WINDOW,
            ) -> SingleValueHashTable:
     """Create an empty table with capacity >= min_capacity rounded to p*W, p prime."""
     check_ported(key_words, value_words, scheme, layout)
+    return empty_table(min_capacity, window=window, scheme=scheme, seed=seed,
+                       max_probes=max_probes, device=device,
+                       key_words=key_words, value_words=value_words)
+
+
+def empty_table(min_capacity: int, *, window: int, scheme: str, seed: int,
+                max_probes: int | None, device, key_words: int,
+                value_words: int) -> SingleValueHashTable:
+    """``create`` without its checks, on the SOA store: also builds the
+    bucket list's key store, whose value is the two-word list handle
+    (``value_words=2``, which ``insert`` and ``retrieve`` refuse)."""
     device = resolve_device(device)
     num_rows, _ = table_geometry(min_capacity, window)
     ops = layouts.SoaOps(num_rows, window, key_words, value_words)
     return SingleValueHashTable(
         store=ops.create(device), count=0, num_rows=num_rows, window=window,
         key_words=key_words, value_words=value_words, scheme=scheme,
-        layout=layout, seed=seed, max_probes=int(max_probes or num_rows))
+        layout="soa", seed=seed, max_probes=int(max_probes or num_rows))
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +227,16 @@ def normalize_mask(mask, n: int, device):
 # operations
 # ---------------------------------------------------------------------------
 
+def _one_value_word(table: SingleValueHashTable) -> None:
+    """The kernels read and write one value plane: refuse the bucket
+    list's two-word key store."""
+    if table.value_words != 1:
+        _refuse("value_words", f"value_words={table.value_words}")
+
+
 def insert(table: SingleValueHashTable, keys, values, mask=None):
     """Batch upsert. Returns (table, status (n,) int32) — see STATUS_* codes."""
+    _one_value_word(table)
     keys = normalize_key_batch(keys, table.key_words, table.device)
     values = normalize_words(values, table.value_words, "values", table.device)
     if values.shape[0] != keys.shape[0]:
@@ -228,6 +247,7 @@ def insert(table: SingleValueHashTable, keys, values, mask=None):
 
 def retrieve(table: SingleValueHashTable, keys):
     """Batch lookup -> (values (n,) int32 u32 bits, 0 where absent; found (n,) bool)."""
+    _one_value_word(table)
     keys = normalize_key_batch(keys, table.key_words, table.device)
     return bulk_retrieve.retrieve_single(table, keys)
 

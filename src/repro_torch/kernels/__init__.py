@@ -4,10 +4,15 @@
   ``cops_insert`` (single-value upsert), ``cops_lookup``, ``cops_append``
   (multi-value append) and ``cops_retrieve`` (the multi-value walk), and
   their two-plane twins for two-word keys (``cops_insert64``,
-  ``cops_lookup64``, ``cops_append64``, ``cops_retrieve64``), with their
-  wrappers, plain tensor versions and launch counters in ``cops/ops.py``
-  and the contracts that hold them to the plain versions in
-  ``cops/contract.py``.
+  ``cops_lookup64``, ``cops_append64``, ``cops_retrieve64``), and
+  ``cops_bucket_walk`` (the bucket list's chain walk over its value pool),
+  with their wrappers, plain tensor versions and launch counters in
+  ``cops/ops.py`` and the contracts that hold them to the plain versions
+  in ``cops/contract.py``.
+- ``minhash`` — canonical k-mer hashing in CUDA C++
+  (``minhash/csrc/minhash.cu``: ``kmer_hash``), with its wrappers, launch
+  counter and the minhash sketch in ``minhash/ops.py`` and the plain
+  versions in ``minhash/ref.py``.
 
 ``build`` compiles the CUDA sources with nvcc at first use.
 """

@@ -33,6 +33,10 @@ The multi-value append (``check_append``):
 4. the plain collecting walk gives, per key, the same multiset of values
    on the kernel-built store as on the plain-built one (the caller holds
    the ``cops_retrieve`` kernel bit-exact to ``retrieve_walk_plain``).
+
+The bucket list's chain walk writes no shared state, so ``cops_bucket_walk``
+is held bit-exact to ``bucket_walk_plain``: both arenas identical, slot by
+slot (``run_bucket_case``).
 """
 
 from __future__ import annotations
@@ -408,4 +412,51 @@ def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
     batch2 = torch.cat([base[nk // 8: nk // 8 + half], new[:half]])
     append("batch2", batch2.repeat_interleave(r, dim=0), n)
     walks("batch2", torch.cat([base, new[:half]]))
+    return checks
+
+
+def run_bucket_case(n: int, *, r: int, growth: float, s0: int, device,
+                    window: int = 32) -> dict[str, bool]:
+    """Hold ``cops_bucket_walk`` (on the CPU, whatever the wrapper runs)
+    bit-exact against ``bucket_walk_plain`` on a bucket list built through
+    ``bucket_list.insert``, sized as Fig. 7's wc-bl cells (key capacity
+    keys / ``LOAD``, pool 2n + 64 slots, schedule (``growth``, ``s0``)).
+
+    Batch 1 holds ``n / r`` distinct keys (``distinct_keys``), each
+    repeated ``r`` times in a row, values ``0 .. n-1``; batch 2 adds n/8
+    pairs, half to present keys (their chains grow across batches), half
+    to new keys.  After each batch the walk runs for every present key, a
+    quarter of them twice (duplicate queries walk once) and absent keys;
+    the arenas must be identical and stamp each present key's values.
+    """
+    from repro_torch.core import bucket_list
+    nk = max(16, n // r)
+    pool = distinct_keys(0, nk + nk // 8 + nk // 8, device)
+    base, absent, new = pool[:nk], pool[nk:nk + nk // 8], pool[nk + nk // 8:]
+    table = bucket_list.create(int(nk / LOAD), 2 * n + 64, s0=s0,
+                               growth=growth, window=window, device=device)
+    schedule = bucket_list._schedule(table)
+    checks = {}
+
+    def batch(tag, keys, start):
+        nonlocal table
+        vals = torch.arange(start, start + keys.shape[0], dtype=torch.int32,
+                            device=device)
+        table, status = bucket_list.insert(table, keys, vals)
+        checks[f"{tag}_inserted"] = bool((status == STATUS_INSERTED).all())
+        present = torch.unique(keys)
+        queries = torch.cat([present, present[: present.shape[0] // 4],
+                             absent])
+        found, *handles = bucket_list._handle_probe(table, queries)[2:6]
+        args = (table.pool, *handles, found, *schedule)
+        got = ops.bucket_walk(*args)
+        checks[f"{tag}_walk_exact"] = _same(got, ops.bucket_walk_plain(*args))
+        checks[f"{tag}_stamps"] = (int((got[0] < queries.shape[0]).sum())
+                                   == int(handles[1][found].sum()))
+
+    batch("batch1", base.repeat_interleave(r), 0)
+    half = n // 16
+    batch2 = torch.cat([base[:half // r + 1].repeat_interleave(r)[:half],
+                        new.repeat_interleave(r)[:n // 8 - half]])
+    batch("batch2", batch2, n)
     return checks

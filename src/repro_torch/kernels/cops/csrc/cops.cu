@@ -15,6 +15,8 @@
 //   cops_lookup64    <- _lookup64_kernel (l.629, via lookup64_call l.672)
 //   cops_retrieve64  <- _retrieve64_kernel (l.694, via retrieve_multi64_call
 //                       l.756)
+//   cops_bucket_walk <- _bucket_walk_kernel (l.435, via bucket_walk_call
+//                       l.485): the bucket list's chain walk over its pool
 //
 // The store is the SOA layout: KW key planes and a value plane, each (p, W)
 // u32, row-major; one row is one probe window.  Two-plane keys (u64 and
@@ -100,6 +102,22 @@
 // lane's rank in walk order (__popc of the ballot's lower lanes); the walk
 // stops after the first window holding an EMPTY (tombstones do not stop
 // it) or at the budget.
+//
+// The bucket walk is the bucket list's retrieval (paper Fig. 4): a key's
+// values lie in a chain of buckets in a u32 value pool, and its handle
+// (pre-probed by the caller) gives the tail bucket's pool address, the
+// tail's index j and the key's value count.  Bucket j > 0 starts with a
+// link slot holding the previous bucket's address; its values follow.  One
+// warp walks one active query's chain from the tail down to bucket 0 and
+// stamps each value slot of the pool-sized arenas with qa = the query's
+// batch index and ra = the value's head-first rank cum[j] + lane, 32 slots
+// at a time (coalesced writes); only the valid slots of the tail are
+// written, so the arenas need no padding (the Pallas tile writes whole
+// 128-slot chunks).  Distinct queries own disjoint chains, so the stamps
+// never collide and the output is deterministic.  What bounds it: the
+// stamps (8 bytes per value) and one dependent 4-byte link read per bucket
+// after the tail, which serialises a walk; a key with a very long chain
+// keeps its one warp busy for all of it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -459,6 +477,31 @@ retrieve_kernel(const uint32_t* __restrict__ tk,
   if (g.lane == 0) counts[q] = seen;
 }
 
+// The chain walk of each active query (see the header); 32 lanes a query.
+__global__ void __launch_bounds__(kThreads)
+bucket_walk_kernel(const uint32_t* __restrict__ pool,
+                   const uint32_t* __restrict__ ptr,
+                   const int* __restrict__ cnt, const int* __restrict__ bidx,
+                   const bool* __restrict__ active,
+                   const int* __restrict__ sizes, const int* __restrict__ cum,
+                   int* __restrict__ qa, int* __restrict__ ra, long long n) {
+  const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  if (q >= n || !active[q]) return;  // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const int count = cnt[q];
+  uint32_t p = ptr[q];
+  for (int j = bidx[q]; j >= 0; --j) {
+    const int base = __ldg(cum + j);
+    const int valid = min(count - base, __ldg(sizes + j));  // tail: partial
+    const size_t start = (size_t)p + (j > 0);               // after the link
+    for (int i = lane; i < valid; i += 32) {
+      qa[start + i] = (int)q;
+      ra[start + i] = base + i;
+    }
+    if (j > 0) p = __ldg(pool + p);  // the previous bucket
+  }
+}
+
 Walk make_walk(unsigned num_rows, int window, unsigned seed, int linear,
                long long max_probes) {
   Walk w;
@@ -617,4 +660,22 @@ extern "C" int cops_retrieve64(const void* table_keys, const void* keys,
                                void* stream) {
   return retrieve<2>(table_keys, keys, active, counts, qarena, rank_arena, n,
                      num_rows, window, seed, linear, max_probes, stream);
+}
+
+// The bucket list's chain walk: `pool` (P,) u32; `ptr`, `cnt`, `bidx`,
+// `active` (n,) the pre-probed handles; `sizes`, `cum` the growth schedule
+// (cum[j] = values held in buckets 0 .. j-1); `qarena` / `rank_arena` (P,)
+// planes that the caller filled with n and 0.
+extern "C" int cops_bucket_walk(const void* pool, const void* ptr,
+                                const void* cnt, const void* bidx,
+                                const void* active, const void* sizes,
+                                const void* cum, void* qarena,
+                                void* rank_arena, long long n, void* stream) {
+  if (n <= 0) return 0;
+  bucket_walk_kernel<<<blocks_for(n, 32), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)pool, (const uint32_t*)ptr, (const int*)cnt,
+      (const int*)bidx, (const bool*)active, (const int*)sizes,
+      (const int*)cum, (int*)qarena, (int*)rank_arena, n);
+  return (int)cudaGetLastError();
 }

@@ -14,7 +14,9 @@ word, which holds the sentinels):
   claimer) -> ``cops_append`` / ``cops_append64``;
 - ``retrieve_walk`` / ``retrieve_walk64`` (the multi-value walk: per-query
   match counts and, with ``collect``, the (query, rank) slot arena) ->
-  ``cops_retrieve`` / ``cops_retrieve64``.
+  ``cops_retrieve`` / ``cops_retrieve64``;
+- ``bucket_walk`` (the bucket list's chain walk over its value pool: the
+  (query, rank) pool arena of pre-probed handles) -> ``cops_bucket_walk``.
 
 On **CUDA** tensors a wrapper checks dtype, shape, device and contiguity,
 launches its kernel (``csrc/cops.cu``, built by ``kernels.build``) on the
@@ -24,9 +26,10 @@ one for each pair of twins, over (p, W) or (kw, p, W) key planes:
 ``insert_plain`` (the bulk engine's lane: probe -> virtual-fill placement
 -> apply), ``lookup_plain`` (``bulk.probe_matches`` + a gather),
 ``append_plain`` (virtual-fill placement of every pair, as
-``repro.core.bulk.insert_multi``) and ``retrieve_walk_plain`` (the port of
-``repro.core.bulk_retrieve.fused_walk``), each bit-exact against the JAX
-engine.  A match holds on every key plane; the walk's row and step come
+``repro.core.bulk.insert_multi``), ``retrieve_walk_plain`` (the port of
+``repro.core.bulk_retrieve.fused_walk``) and ``bucket_walk_plain`` (the
+port of ``repro.core.bucket_list.chain_arena``), each bit-exact against
+the JAX engine.  A match holds on every key plane; the walk's row and step come
 from the key's probe word (``single_value.key_hash_word``).  On any other
 device a wrapper raises.  Nothing falls back: a CUDA tensor never reaches
 a plain version.
@@ -52,13 +55,14 @@ from repro_torch.core.common import (
     STATUS_INSERTED,
     STATUS_UPDATED,
     SUPPORTED_WINDOWS,
+    as_u32,
 )
 from repro_torch.core.single_value import key_hash_word
 
 #: launches of each kernel since the last ``reset_launches``
 LAUNCHES = {"cops_insert": 0, "cops_lookup": 0, "cops_append": 0,
             "cops_retrieve": 0, "cops_insert64": 0, "cops_lookup64": 0,
-            "cops_append64": 0, "cops_retrieve64": 0}
+            "cops_append64": 0, "cops_retrieve64": 0, "cops_bucket_walk": 0}
 
 #: keys per walk of the plain versions (bounds their (n, W) temporaries)
 PLAIN_CHUNK = 1 << 22
@@ -207,6 +211,43 @@ def retrieve_walk_plain(table_keys, keys, active, *, seed, scheme,
     return counts, qa, ra
 
 
+def bucket_walk_plain(pool, ptr, cnt, bidx, active, sizes, cum):
+    """``(qarena, rank_arena)`` of the bucket list's chain walk.
+
+    Each active query i walks its chain from its tail bucket ``bidx[i]``
+    (at pool address ``ptr[i]``) down to bucket 0, all walking queries one
+    bucket per round.  Bucket j's values start at ``ptr + (j > 0)`` (after
+    the link to the previous bucket) and hold ``min(cnt - cum[j],
+    sizes[j])`` of the key's ``cnt`` values.  Each value slot of the two
+    (P,) int32 arenas gets qa = i and ra = the value's head-first rank
+    ``cum[j] + lane``; every other slot keeps qa = n and ra = 0.  Active
+    queries must own distinct chains.
+    """
+    n, dev = ptr.shape[0], ptr.device
+    cap = pool.shape[0]
+    qa = torch.full((cap,), n, dtype=torch.int32, device=dev)
+    ra = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    sizes, cum = sizes.to(torch.int64), cum.to(torch.int64)
+    walking = torch.nonzero(active).squeeze(1)
+    for s in range(0, walking.shape[0], PLAIN_CHUNK):
+        q = walking[s:s + PLAIN_CHUNK]
+        j, p, c = bidx[q].to(torch.int64), as_u32(ptr[q]), cnt[q].to(torch.int64)
+        while q.numel():
+            link = j > 0
+            base = cum[j]
+            valid = torch.minimum(c - base, sizes[j]).clamp(min=0)
+            who = torch.repeat_interleave(
+                torch.arange(q.shape[0], device=dev), valid)
+            lane = (torch.arange(who.shape[0], device=dev)
+                    - (torch.cumsum(valid, 0) - valid)[who])
+            slot = p[who] + link[who] + lane
+            qa[slot] = q[who].to(torch.int32)
+            ra[slot] = (base[who] + lane).to(torch.int32)
+            q, j, c = q[link], j[link] - 1, c[link]
+            p = as_u32(pool[p[link]])
+    return qa, ra
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -228,6 +269,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args + [vp]     # ... and the stream
         fn.restype = ctypes.c_int
+    lib.cops_bucket_walk.argtypes = [vp] * 9 + [ll, vp]
+    lib.cops_bucket_walk.restype = ctypes.c_int
     return lib
 
 
@@ -430,3 +473,35 @@ def retrieve_walk64(table_keys, keys, active, *, seed, scheme, max_probes,
     return _retrieve_walk(2, table_keys, keys, active, seed=seed,
                           scheme=scheme, max_probes=max_probes,
                           collect=collect)
+
+
+def bucket_walk(pool, ptr, cnt, bidx, active, sizes, cum):
+    """``(qarena, rank_arena)`` of the bucket list's chain walk (see
+    ``bucket_walk_plain``): ``pool`` (P,) int32 words; ``ptr``, ``cnt``,
+    ``bidx`` (n,) int32 and ``active`` (n,) bool, the handles of the
+    queries; ``sizes`` (L,) and ``cum`` (L + 1,) int32, the growth
+    schedule."""
+    n = ptr.shape[0]
+    if pool.ndim != 1 or any(t.shape != (n,) for t in (cnt, bidx, active)):
+        raise ValueError(f"a (P,) pool and (n,) handles, got {tuple(pool.shape)}"
+                         f" and {[tuple(t.shape) for t in (ptr, cnt, bidx, active)]}")
+    if sizes.ndim != 1 or cum.shape != (sizes.shape[0] + 1,):
+        raise ValueError(f"a schedule of (L,) sizes and (L + 1,) cum, got "
+                         f"{tuple(sizes.shape)} and {tuple(cum.shape)}")
+    if n >= 2 ** 31 or pool.shape[0] >= 2 ** 31:
+        raise ValueError("the arenas hold int32 indices: n, P < 2^31")
+    if _on_cpu(pool, ptr, cnt, bidx, sizes, cum, masks=(active,)):
+        return bucket_walk_plain(pool, ptr, cnt, bidx, active, sizes, cum)
+    qa = torch.full(pool.shape, n, dtype=torch.int32, device=pool.device)
+    ra = torch.zeros(pool.shape, dtype=torch.int32, device=pool.device)
+    if n:
+        with torch.cuda.device(pool.device):
+            rc = _lib().cops_bucket_walk(
+                *(t.data_ptr() for t in (pool, ptr, cnt, bidx, active, sizes,
+                                         cum, qa, ra)),
+                n, torch.cuda.current_stream().cuda_stream)
+        LAUNCHES["cops_bucket_walk"] += 1
+        if rc != 0:
+            raise RuntimeError(f"cops_bucket_walk launch failed with CUDA "
+                               f"error {rc}")
+    return qa, ra

@@ -393,6 +393,23 @@ def test_rank_and_lane_blocks_match_reference():
         np.testing.assert_array_equal(np.asarray(want)[ok], got.numpy()[ok])
 
 
+def test_rank_by_row_with_priorities_matches_reference():
+    """The rank sort with a caller's priorities (the bucket list's batch
+    positions in its sorted domain), bit-exact against the JAX engine's."""
+    rng = np.random.default_rng(10)
+    n, p = 2000, 211
+    row = rng.integers(0, p, n).astype(np.uint32)
+    alive = rng.random(n) < 0.8
+    prio = rng.permutation(n).astype(np.uint32)
+    want = jbulk._rank_by_row(jnp.asarray(row), jnp.asarray(prio),
+                              jnp.asarray(alive), p, False)
+    got = tbulk._rank_by_row(torch.from_numpy(row.astype(np.int64)),
+                             torch.from_numpy(alive),
+                             torch.from_numpy(prio.astype(np.int64)))
+    np.testing.assert_array_equal(np.asarray(want)[alive], got.numpy()[alive])
+    assert not got.numpy()[~alive].any()
+
+
 def test_build_finds_sources_and_needs_nvcc():
     assert "cops" in build.sources()
     assert build.library_path("cops").parent == build.BUILD_DIR

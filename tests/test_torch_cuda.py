@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import bucket_list as bl
 from repro_torch.core import bulk
 from repro_torch.core import multi_value as mv
 from repro_torch.core import single_value as sv
@@ -25,6 +26,8 @@ from repro_torch.core.common import (
     to_numpy_u32,
 )
 from repro_torch.kernels.cops import contract, ops
+from repro_torch.kernels.minhash import ops as mh
+from repro_torch.kernels.minhash.ref import INVALID_WORD
 
 #: every launch counter at zero
 _NONE = dict.fromkeys(ops.LAUNCHES, 0)
@@ -276,3 +279,90 @@ def test_insert64_never_matches_a_half_published_key(window):
         assert all(parts.values()), (rnd, parts)
         assert not bool((ks == STATUS_FULL).any())
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the bucket list (cops_bucket_walk) and the k-mer front end (kmer_hash)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r, growth, s0", [(1, 1.1, 1), (8, 1.1, 1),
+                                           (32, 1.1, 1), (8, 1.0, 8),
+                                           (32, 1.0, 32)])
+@pytest.mark.parametrize("window", [8, 32])
+def test_bucket_walk_holds_to_plain(window, r, growth, s0):
+    """The chain walk bit-exact against its plain version on tables of
+    Fig. 7's wc-bl cells (wc-bl-1: growth 1.1, s0 1; wc-bl-2: growth 1.0,
+    s0 r), with chains grown across two batches, duplicate and absent
+    queries."""
+    _need_card()
+    checks = contract.run_bucket_case(1 << 14, r=r, growth=growth, s0=s0,
+                                      device="cuda", window=window)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 16, 20, 31, 64])
+@pytest.mark.parametrize("rows, length", [(1, 1337), (300, 150), (7, 300),
+                                          (2, 1000)])
+def test_kmer_hash_holds_to_plain(rows, length, k):
+    """``kmer_hash`` bit-exact against ``ref.kmer_hashes`` with N bases
+    (codes 4 and 255), over rows of one tile, of several tiles and of a
+    ragged last tile."""
+    _need_card()
+    rng = np.random.default_rng([rows, length, k])
+    bases = rng.integers(0, 4, (rows, length)).astype(np.uint8)
+    bases[rng.random((rows, length)) < 0.002] = 4
+    bases[rng.random((rows, length)) < 0.002] = 255
+    mh.reset_launches()
+    got = mh.kmer_hash(torch.from_numpy(bases).cuda(), k)
+    torch.cuda.synchronize()
+    assert mh.LAUNCHES == {"kmer_hash": 1}
+    want = mh.kmer_hash(torch.from_numpy(bases), k)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_bucket_list_and_sketches_on_card_go_through_kernels():
+    """The metagenomics front end and the bucket list on the card launch
+    ``kmer_hash``, ``cops_lookup`` and ``cops_bucket_walk`` and give the
+    same sketches, statuses and tables (the build is deterministic), counts
+    and retrievals as the same calls on the CPU."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    genomes = rng.integers(0, 4, (6, 3000)).astype(np.uint8)
+    reads = genomes[rng.integers(0, 6, 40), :][:, 500:650].copy()
+    reads[rng.random(reads.shape) < 0.01] = 4
+    out = {}
+    ops.reset_launches()
+    mh.reset_launches()
+    for dev in ("cuda", "cpu"):
+        sk = mh.sketch_reads(genomes, k=16, s=200, device=dev)
+        keys = torch.clamp(sk.long() & 0xFFFFFFFF, max=0xFFFFFFFD)
+        keys = torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).int()
+        gids = torch.arange(6, dtype=torch.int32, device=dev).repeat_interleave(200)
+        live = (sk != INVALID_WORD).reshape(-1)
+        t = bl.create(4096, 1 << 13, s0=1, growth=1.1, window=32, device=dev)
+        t, st1 = bl.insert(t, keys.reshape(-1)[:600], gids[:600], live[:600])
+        t, st2 = bl.insert(t, keys.reshape(-1)[600:], gids[600:], live[600:])
+        t, st3 = bl.insert(t, keys.reshape(-1)[:300], gids[:300])
+        q = mh.sketch_reads(reads, k=16, s=16, device=dev).reshape(-1)
+        q = torch.cat([q, keys.reshape(-1)[:100]])
+        c = bl.count_values(t, q)
+        got = bl.retrieve_all(t, q, int(c.sum()))
+        out[dev] = (sk.cpu(), st1.cpu(), st2.cpu(), st3.cpu(), c.cpu(),
+                    *(x.cpu() for x in got),
+                    *(x.cpu() for x in t.key_store.store.values()),
+                    t.pool.cpu(), t.alloc_top, t.num_keys(),
+                    t.storage_density())
+    torch.cuda.synchronize()
+    assert mh.LAUNCHES == {"kmer_hash": 2}
+    assert ops.LAUNCHES == {**_NONE, "cops_lookup": 4, "cops_bucket_walk": 1}
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert bool((gpu[1][live[:600].cpu()] == STATUS_INSERTED).all())
+    for a, b in zip(gpu, cpu):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert a == b

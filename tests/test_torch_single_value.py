@@ -260,9 +260,10 @@ def test_cpu_table_launches_no_kernel():
 
 
 def test_package_imports_neither_jax_nor_repro():
-    """Every module of repro_torch imports, and both tables run their u32
-    and two-word key paths (every key spelling) on the CPU, without
-    pulling in JAX or the JAX package."""
+    """Every module of repro_torch imports, both tables run their u32 and
+    two-word key paths (every key spelling), and the bucket list and the
+    minhash sketches run, on the CPU, without pulling in JAX or the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy as np\n"
@@ -284,6 +285,14 @@ def test_package_imports_neither_jax_nor_repro():
         "    m, _ = mv.insert(m, keys, cols[0])\n"
         "    mv.count_values(m, keys); mv.retrieve_all(m, keys, 64)\n"
         "    mv.erase(m, keys)\n"
+        "from repro_torch.core import bucket_list as bl\n"
+        "from repro_torch.kernels.minhash import ops as mh\n"
+        "reads = np.arange(120, dtype=np.uint8).reshape(3, 40) % 5\n"
+        "sk = mh.sketch_reads(reads, k=16, s=8, device='cpu')\n"
+        "b = bl.create(128, 256, device='cpu')\n"
+        "b, _ = bl.insert(b, cols[1], cols[0])\n"
+        "bl.count_values(b, cols[1]); bl.retrieve_all(b, cols[1], 64)\n"
+        "convert.bucket_table_to_numpy(b)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith"
         "('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
@@ -291,4 +300,4 @@ def test_package_imports_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[-1]) >= 12
+    assert int(res.stdout.split()[-1]) >= 20
