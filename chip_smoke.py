@@ -86,7 +86,29 @@ status line each:
     before it and read just after it;
 15. ``cops_bucket_walk`` at phase 13's shapes and ``kmer_hash`` at phase
     14's reads, each alone and its plain version, compared and timed,
-    with their bounds.
+    with their bounds;
+16. ``cops_update`` / ``cops_update64`` vs plain at 2^20 rows under the
+    update contract (``contract.run_update_case``): every group-by
+    aggregate at 64, 2^16 and 2^19 groups, the counting table's saturating
+    count (counters at 0xFFFFFFF0 take 32 more), W = 8 and 32, cops and
+    linear, tombstones, a table too small for its groups (FULL), and
+    two-word keys sharing plane-0 words; and the hash set's add, contains
+    and remove on 2^20 keys against a table-free reference;
+17. the relational path at the paper's scale (``benchmarks/
+    fig9_relational.py`` with n = paper_n_pairs / 2 = 2^27): the inner
+    hash join of 2^27 distinct build keys and 2^27 probe keys drawn from
+    a universe of 8n (about 1/8 match) at rho 0.5 and 0.95, the four
+    flavours at rho 0.5, the group-by (sum, count, mean) at 64, 1024 and
+    2^25 groups, and DISTINCT at duplication 8, each exact against a
+    table-free reference on the card and timed (median of 5 after a
+    warm-up), the sort-based group-by beside it.  The counters are zeroed
+    just before it and read just after it;
+18. the composite-key parity gate of ``fig9_relational.py:161-217`` at
+    n = 2^24 (the join, the group-by and DISTINCT on two columns, each
+    against the same columns packed into one word; counters zeroed just
+    before and read just after), then ``cops_update`` alone on phase 17's
+    2^25-group sum and ``cops_update64`` alone on the composite group-by,
+    against their plain versions, timed, with their byte bounds.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
@@ -126,6 +148,12 @@ N_ANCESTORS, N_STRAINS = 32, 8        # the reference: 256 genomes
 GENOME_LEN = 2 ** 22
 K_MER, SKETCH, WIN_LEN, WIN_STRIDE = 16, 16, 127, 112   # MetaCache defaults
 N_READS, READ_LEN = 2 ** 20, 150
+N_REL = 2 ** 27           # fig9_relational.py:57: n = paper_n_pairs // 2
+REL_RHOS = (0.5, 0.95)
+REL_GROUPS = (64, 1024, 2 ** 25)
+REL_AGGS = ("sum", "count", "mean")
+N_COMPOSITE = 2 ** 24
+UPDATE_GROUPS = (64, 2 ** 16, 2 ** 19)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper white paper; the guide's
 # table has no integer rate): 32-bit integer operations per second
@@ -145,6 +173,8 @@ REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
             "cops_append64": "src/repro/kernels/cops/kernel.py:547",
             "cops_retrieve64": "src/repro/kernels/cops/kernel.py:694",
             "cops_bucket_walk": "src/repro/kernels/cops/kernel.py:435",
+            "cops_update": "src/repro/kernels/cops/kernel.py:203",
+            "cops_update64": "src/repro/kernels/cops/kernel.py:203",
             "kmer_hash": "src/repro/kernels/minhash/kernel.py:33"}
 
 
@@ -1119,6 +1149,359 @@ def new_kernels(torch, card, check, phase, table, base, reads, bl_launches,
                           bound_ops=kmer_ops)]
 
 
+def update_cases(torch, check, phase):
+    """Phase 16: the update kernels vs plain at N_CHECK rows, and the hash
+    set against a table-free reference."""
+    from repro_torch.kernels.cops import contract
+    cases = [(what, g, 32, "cops", 0.9, 1) for what in
+             ("sum", "min", "max", "count", "mean") for g in UPDATE_GROUPS]
+    cases += [("counting", 2 ** 16, 32, "cops", 0.9, 1),
+              ("sum", 2 ** 16, 8, "cops", 0.9, 1),
+              ("sum", 2 ** 16, 8, "linear", 0.9, 1),
+              ("max", 2 ** 16, 32, "linear", 0.9, 1),
+              ("sum", 2 ** 16, 32, "cops", 1.2, 1),
+              ("sum", 2 ** 16, 32, "cops", 0.9, 2),
+              ("min", 2 ** 16, 8, "linear", 0.9, 2),
+              ("counting", 2 ** 16, 32, "cops", 0.9, 2)]
+    for what, groups, window, scheme, rho, key_words in cases:
+        t0 = time.perf_counter()
+        checks = contract.run_update_case(
+            N_CHECK, window=window, scheme=scheme, device="cuda", what=what,
+            groups=groups, rho=rho, key_words=key_words)
+        torch.cuda.synchronize()
+        tag = (f"phase{phase} {what} g={groups} W={window} {scheme} "
+               f"rho={rho} kw={key_words}")
+        bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
+        print(f"phase {phase} update{'64' if key_words == 2 else ''} kernel "
+              f"vs plain {what} n={N_CHECK} groups={groups} W={window} "
+              f"{scheme} rho={rho}"
+              f"{' (FULL reported)' if rho > 1 else ''}: "
+              f"{'ok' if not bad else 'FAILED ' + str(bad)} "
+              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    hashset_case(torch, check, phase)
+
+
+def first_occurrence(torch, keys):
+    """(unique keys in first-occurrence order, first-occurrence mask)."""
+    uk, inv = torch.unique(keys, return_inverse=True)
+    n = keys.shape[0]
+    first = torch.full(uk.shape, n, dtype=torch.int64, device=keys.device)
+    first.scatter_reduce_(0, inv, torch.arange(n, device=keys.device), "amin")
+    return (uk[torch.argsort(first)],
+            torch.arange(n, device=keys.device) == first[inv])
+
+
+def hashset_case(torch, check, phase):
+    """Phase 16: the hash set (no value plane) on the card: add of N_CHECK
+    keys with duplicates, contains of present and absent keys, remove and
+    re-add, against a table-free reference."""
+    from repro_torch.core import hashset
+    from repro_torch.kernels.cops import contract
+    t0 = time.perf_counter()
+    since = len(check.failed)
+    pool = contract.distinct_keys(0, N_CHECK, "cuda")
+    keys, absent = pool[: N_CHECK // 2], pool[N_CHECK // 2:]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    batch = keys[torch.randint(0, keys.shape[0], (N_CHECK,), generator=gen,
+                               device="cuda")]
+    present = torch.isin(keys, batch)
+    s = hashset.create(N_CHECK, device="cuda")
+    s, added = hashset.add(s, batch)
+    _, fresh = first_occurrence(torch, batch)
+    check("set add = first occurrences", torch.equal(added, fresh))
+    check("set size", hashset.size(s) == int(present.sum()))
+    check("set contains", torch.equal(hashset.contains(s, keys), present)
+          and not bool(hashset.contains(s, absent).any()))
+    gone = keys[: keys.shape[0] // 8]
+    s, erased = hashset.remove(s, gone)
+    check("set remove", torch.equal(erased, present[: gone.shape[0]]))
+    check("set removed not contained",
+          not bool(hashset.contains(s, gone).any()))
+    s, added = hashset.add(s, gone)
+    check("set re-add", bool(added.all())
+          and hashset.size(s) == int(present.sum()) + int((~present[
+              : gone.shape[0]]).sum()))
+    torch.cuda.synchronize()
+    print(f"phase {phase} hash set (no value plane) n={N_CHECK}: "
+          f"{check.status(since)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def join_rows(torch, probe_idx, build_idx):
+    """A join's (probe row, build row) pairs as sorted int64 words: the
+    per-probe-row multisets, whatever the order within a row."""
+    return torch.sort(probe_idx.long() * (1 << 32) + build_idx.long()).values
+
+
+def check_join(torch, check, tag, res, how, want, n):
+    """``res`` (a JoinResult) against ``pair_reference``'s (values,
+    offsets, counts) of the build (key, row) pairs for the probe keys."""
+    vals, _, counts = want
+    matched = counts > 0
+    rows = torch.arange(n, device="cuda")
+    if how in ("inner", "left"):
+        ref = join_rows(torch, torch.repeat_interleave(rows, counts.long()),
+                        vals)
+        if how == "left":
+            lone = rows[~matched]
+            ref = torch.sort(torch.cat([ref, join_rows(
+                torch, lone, torch.full_like(lone, -1))])).values
+        total = int((counts.clamp(min=1) if how == "left" else counts).sum())
+        v = res.valid
+        ok = torch.equal(join_rows(torch, res.probe_idx[v], res.build_idx[v]),
+                         ref)
+    else:
+        sel = matched if how == "semi" else ~matched
+        total = int(sel.sum())
+        v = res.valid
+        ok = (torch.equal(res.probe_idx[v].long(), rows[sel])
+              and not bool((res.build_idx != -1).any()))
+    check(f"{tag} rows", ok)
+    check(f"{tag} total", int(res.total) == total)
+    check(f"{tag} matched", torch.equal(res.matched, matched))
+
+
+def groupby_reference(torch, keys, vals, agg):
+    """(sorted unique keys, their aggregates) without a table."""
+    from repro_torch.core.common import as_word
+    uk, inv = torch.unique(keys, return_inverse=True)
+    acc = torch.zeros(uk.shape, dtype=torch.int64, device=keys.device)
+    acc.scatter_add_(0, inv, vals.long() & 0xFFFFFFFF)
+    cnt = torch.bincount(inv, minlength=uk.shape[0])
+    acc = acc & 0xFFFFFFFF
+    if agg == "mean":
+        return uk, acc.float() / cnt.clamp(min=1).float()
+    return uk, as_word(cnt if agg == "count" else acc)
+
+
+def relational_path(torch, card, check, phase):
+    """Phase 17: fig9's join, group-by and DISTINCT at n = N_REL through
+    the public relational entry points, each exact against a table-free
+    reference and timed.  The counters are zeroed just before and read just
+    after.  Returns ``(launches, the g = 2^25 sum's keys and values)``."""
+    from repro_torch.core import hashing
+    from repro_torch.core.common import as_u32, as_word
+    from repro_torch.kernels.cops import contract, ops
+    from repro_torch.relational import distinct, groupby, join
+    n = N_REL
+    since = len(check.failed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    build = contract.distinct_keys(0, n, "cuda")
+    probe = as_u32(hashing.mix_murmur3(torch.randint(
+        0, 8 * n, (n,), generator=gen, device="cuda")))
+    probe = as_word(torch.where(probe >= 0xFFFFFFFE, probe ^ 4, probe))
+    row_ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    want = pair_reference(torch, build, row_ids, probe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    lines = []
+    for rho in REL_RHOS:
+        hows = join.HOW if rho == REL_RHOS[0] else ("inner",)
+        for how in hows:
+            t, res = timed(torch, lambda: join.hash_join(
+                build, probe, 2 * n, how, capacity=int(n / rho),
+                device="cuda"))
+            check_join(torch, check, f"join {how} rho={rho}", res, how,
+                       want, n)
+            ms = statistics.median(t)
+            lines.append(f"join {how} rho={rho} {spread(t)} = "
+                         f"{2 * n / ms / 1e6:.3f} G rows/s (total "
+                         f"{int(res.total)})")
+            del res
+    del want, probe, row_ids
+    gb = None
+    for g in REL_GROUPS:
+        keys = torch.randint(1, g + 1, (n,), dtype=torch.int32,
+                             generator=gen, device="cuda")
+        vals = torch.randint(0, 2 ** 16, (n,), dtype=torch.int32,
+                             generator=gen, device="cuda")
+        cap = groupby.capacity_for(g)
+        for agg in REL_AGGS:
+            t, (gk, out, live, table) = timed(torch, lambda: groupby.aggregate(
+                keys, vals, cap, agg, device="cuda"))
+            ref_t, (uk, ref) = timed(torch, lambda: groupby_reference(
+                torch, keys, vals, agg))
+            lk, lo = gk[live], out[live]
+            order = torch.argsort(lk)
+            check(f"groupby {agg} g={g} keys", torch.equal(lk[order], uk))
+            check(f"groupby {agg} g={g} aggregates",
+                  torch.equal(lo[order], ref))
+            check(f"groupby {agg} g={g} count", table.count == uk.shape[0])
+            lines.append(f"groupby {agg} g={g} {spread(t)} = "
+                         f"{n / statistics.median(t) / 1e6:.3f} G rows/s "
+                         f"(sort-based reference {spread(ref_t)})")
+            del gk, out, live, table, uk, ref, lk, lo
+        if g == REL_GROUPS[-1]:
+            gb = (keys, vals)
+        else:
+            del keys, vals
+    dk = torch.randint(1, n // 8, (n,), dtype=torch.int32, generator=gen,
+                       device="cuda")
+    t, (u, n_u, fresh) = timed(torch, lambda: distinct.distinct(
+        dk, n, device="cuda"))
+    ref_u, ref_fresh = first_occurrence(torch, dk)
+    m = ref_u.shape[0]
+    check("distinct count", int(n_u) == m)
+    check("distinct keys in first-occurrence order",
+          torch.equal(u[:m], ref_u) and not bool(u[m:].any()))
+    check("distinct mask", torch.equal(fresh, ref_fresh))
+    lines.append(f"distinct dup8 {spread(t)} = "
+                 f"{n / statistics.median(t) / 1e6:.3f} G rows/s "
+                 f"(unique {m})")
+    del dk, u, fresh, ref_u, ref_fresh
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for name in ("cops_update", "cops_append", "cops_retrieve",
+                 "cops_insert"):
+        check(f"{name} launched on the relational path", launches[name] > 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase {phase} relational path (fig9) n={n}: "
+          f"{check.status(since)}; " + "; ".join(lines)
+          + f" (5 runs each after a warm-up, CUDA events, through "
+          f"join.hash_join / groupby.aggregate / distinct.distinct); peak "
+          f"{peak:.1f} GB; launches {launches}; card {card}", flush=True)
+    return launches, gb
+
+
+def composite_path(torch, card, check, phase):
+    """Phase 18, first part: fig9's composite parity gate at N_COMPOSITE
+    rows: each two-column run against the same columns packed into one
+    word (the high column shifted past the low one's bits: 16 for the
+    join's, as fig9 packs, and 17 for the group-by's low column below
+    n / 128 = 2^17).  The counters are zeroed just before and read just after.
+    Returns ``(launches, the composite group-by's columns and values)``."""
+    from repro_torch.kernels.cops import ops
+    from repro_torch.relational import distinct, groupby, join
+    n = N_COMPOSITE
+    since = len(check.failed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+
+    def cols(hi, lo_min, lo_max):
+        return (torch.randint(0, hi, (n,), dtype=torch.int32, generator=gen,
+                              device="cuda"),
+                torch.randint(lo_min, lo_max, (n,), dtype=torch.int32,
+                              generator=gen, device="cuda"))
+
+    def pack(c, bits=16):
+        return (c[0] << bits) | c[1]
+
+    bc, pc = cols(1 << 10, 1, 1 << 16), cols(1 << 10, 1, 1 << 16)
+    gc = cols(16, 1, n // 128)
+    # the group-by's low column needs log2(n / 128) bits (17 at 2^24)
+    gbits = max(16, (n // 128 - 1).bit_length())
+    gv = torch.randint(0, 1 << 16, (n,), dtype=torch.int32, generator=gen,
+                       device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    jt_c, rc = timed(torch, lambda: join.hash_join(bc, pc, 2 * n, "inner",
+                                                   device="cuda"))
+    rp = join.hash_join(pack(bc), pack(pc), 2 * n, "inner", device="cuda")
+    check("composite join rows", torch.equal(
+        join_rows(torch, rc.probe_idx[rc.valid], rc.build_idx[rc.valid]),
+        join_rows(torch, rp.probe_idx[rp.valid], rp.build_idx[rp.valid])))
+    check("composite join total, matched",
+          int(rc.total) == int(rp.total) and torch.equal(rc.matched,
+                                                         rp.matched))
+    cap = groupby.capacity_for(max(n // 8, 8))
+    gt_c, (_, _, _, tc) = timed(torch, lambda: groupby.aggregate(
+        gc, gv, cap, "sum", device="cuda"))
+    tp = groupby.aggregate(pack(gc, gbits), gv, cap, "sum",
+                           device="cuda")[3]
+    out_c, f_c = groupby.lookup(tc, "sum", gc)
+    out_p, f_p = groupby.lookup(tp, "sum", pack(gc, gbits))
+    check("composite groupby", torch.equal(out_c, out_p)
+          and torch.equal(f_c, f_p) and bool(f_c.all())
+          and tc.count == tp.count)
+    dt_c, ((uh, ul), n_c, fr_c) = timed(torch, lambda: distinct.distinct(
+        gc, n, device="cuda"))
+    up, n_p, fr_p = distinct.distinct(pack(gc, gbits), n, device="cuda")
+    check("composite distinct", int(n_c) == int(n_p)
+          and torch.equal(fr_c, fr_p)
+          and torch.equal(pack((uh, ul), gbits), up))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for name in ("cops_update64", "cops_append64", "cops_retrieve64",
+                 "cops_insert64"):
+        check(f"{name} launched on the composite path", launches[name] > 0)
+    print(f"phase {phase} composite keys (fig9 parity gate) n={n}: "
+          f"{check.status(since)}; join {spread(jt_c)} "
+          f"({int(rc.total)} rows), groupby sum {spread(gt_c)} "
+          f"({tc.count} groups), distinct {spread(dt_c)} ({int(n_c)} "
+          f"unique), each equal to its packed one-word run; launches "
+          f"{launches}; card {card}", flush=True)
+    return launches, (gc, gv)
+
+
+def update_kernel(torch, card, check, phase, keys, vals, groups, launches,
+                  name):
+    """Phase 18: ``name`` (``cops_update`` or ``cops_update64``) alone on
+    the representatives of a sum group-by of ``keys`` ((n,) words or
+    (n, 2) planes) and ``vals`` into an empty table for ``groups``
+    groups, and its plain version, compared under the update contract and
+    timed, with its byte bound.  Returns its kernel record."""
+    from repro_torch.core import bulk
+    from repro_torch.kernels.cops import contract, ops
+    from repro_torch.relational import groupby
+    since = len(check.failed)
+    key_words = 1 if keys.ndim == 1 else 2
+    fold = ("add", "add")
+    ones = torch.ones_like(vals)
+    payload = torch.stack([vals, ones], dim=1)
+    rkeys, agg, claim, _ = bulk.update_front(keys, payload, payload, None,
+                                             fold, fold)
+    del payload, ones
+    cap = groupby.capacity_for(groups)
+
+    def fresh():
+        t = groupby.create(cap, key_words=key_words, device="cuda")
+        return (contract.table_planes(t)[0], t.store["values"]), t
+
+    kw = None
+
+    def run(planes, t, fn):
+        nonlocal kw
+        kw = dict(seed=t.seed, scheme=t.scheme,
+                  max_probes=bulk._tstatic(t)[3])
+        return planes, fn(*planes, rkeys, agg, claim, ops=fold, count=0,
+                          **kw)
+
+    kernel = getattr(ops, "update" if key_words == 1 else "update64")
+    k_t, (kplanes, kst) = timed(torch, lambda pl, t: run(pl, t, kernel),
+                                fresh)
+    p_t, (pplanes, pst) = timed(torch, lambda pl, t: run(
+        pl, t, ops.update_plain), fresh, reps=1, warmup=0)
+    for part, ok in contract.check_update(kplanes, pplanes, rkeys, claim,
+                                          kst, pst, **kw).items():
+        check(f"phase{phase} {name} {part}", ok)
+    check(f"phase{phase} {name} all INSERTED",
+          bool((kst == contract.STATUS_INSERTED).all()))
+    _, kv, _ = contract.live_map(*kplanes)
+    _, pv, _ = contract.live_map(*pplanes)
+    err = (int((kv - pv).abs().max()) if kv.shape == pv.shape
+           else float("inf"))
+    reps = rkeys.shape[0]
+    windows, p1 = walk_windows(torch, kplanes[0], rkeys, kw["seed"],
+                               kw["scheme"], kw["max_probes"])
+    # the windows to each key's slot (128-byte lines of plane 0) and the
+    # plane-1 sectors they read; per representative a written 32-byte
+    # sector of each key plane, a read and a written 32-byte sector of each
+    # of the two value planes, and the streams (key, operand and claim
+    # value, status)
+    nbytes = (windows * 4 * WINDOW + p1 * 32
+              + reps * (32 * key_words + 2 * 32 * 2 + 4 * key_words + 16 + 4))
+    print(f"phase {phase} {name} alone on {keys.shape[0]} rows -> {reps} "
+          f"groups (sum, capacity {cap}, W={WINDOW}): {check.status(since)}; "
+          f"mean windows per walk {windows / reps:.4f}; {spread(k_t)}, plain "
+          f"{p_t[0]:.3f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"by bytes; card {card}", flush=True)
+    return kernel_record(name, launches, err, k_t, p_t, nbytes)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1191,6 +1574,22 @@ def main() -> int:
     mg_launches, reads = metagenomics_path(torch, card, check, 14)
     records += new_kernels(torch, card, check, 15, table, pool[:n_keys],
                            reads, bl_launches, mg_launches)
+    del table, pool, reads
+    torch.cuda.empty_cache()
+
+    # -- phases 16-18: the relational layer (fig9) -------------------------
+    update_cases(torch, check, 16)
+    rel_launches, (gb_keys, gb_vals) = relational_path(torch, card, check, 17)
+    torch.cuda.empty_cache()
+    cmp_launches, (gc, gv) = composite_path(torch, card, check, 18)
+    records.append(update_kernel(torch, card, check, 18, gb_keys, gb_vals,
+                                 REL_GROUPS[-1], rel_launches, "cops_update"))
+    del gb_keys, gb_vals
+    torch.cuda.empty_cache()
+    from repro_torch.core.hashing import pack_columns
+    records.append(update_kernel(torch, card, check, 18, pack_columns(gc), gv,
+                                 N_COMPOSITE // 8, cmp_launches,
+                                 "cops_update64"))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

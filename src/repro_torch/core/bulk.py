@@ -35,6 +35,21 @@
 3. **Statuses** (``_finish_fast``) fan out from the representatives to
    every element in batch order.
 
+``update_single`` is the read-modify-write upsert behind
+``single_value.update_values`` (the counting table and the group-by):
+the same dedup, with the group's operands folded per value word by a
+combiner spec (``COMBINE_OPS``: ``add``, ``min``, ``max``) through
+``_scatter_combine``; each representative carries ``agg_all``, the fold
+of every live operand of its group, and the claim value ``fold(init,
+agg_tail)``, the fold of all but the first folded into the first
+element's ``init``.  ``kernels.cops.ops.update`` / ``update64`` (the
+``cops_update`` / ``cops_update64`` kernel, or on a CPU table
+``update_plain``: probe -> placement -> fold) folds ``agg_all`` into a
+matched slot's values per word (``fold_words``: ``add``, ``min``, ``max``,
+``sat_add``) or writes the claim value into a claimed slot.  Two-word keys
+take the same lane (their groups and claim priority are those of the JAX
+engine's ``_update_general``, and the folds commute).
+
 ``insert_multi`` is the multi-value append: no dedup, every live element
 is a claimer and duplicates of a key take slots of their own
 (``kernels.cops.ops.append`` / ``append64``: the ``cops_append`` /
@@ -55,9 +70,9 @@ domain: ``_sort_batch`` and ``_group_structure`` (1-word keys) give it
 the per-key runs in batch order, and it places its new keys through
 ``place_claims`` with each claimer's batch position as ``prio``.
 
-Not ported yet: keys wider than two words and multi-word values,
-combiner callables (``_update_general``, with ``update_values``), the
-telemetry and quotient stores.
+Not ported yet: keys wider than two words, the bitwise combiner specs
+(``or``, ``and``, ``xor``) and combiner callables, the telemetry and
+quotient stores.
 """
 
 from __future__ import annotations
@@ -75,9 +90,22 @@ from repro_torch.core.common import (
     STATUS_UPDATED,
     TOMBSTONE_WORD,
     as_u32,
+    as_word,
 )
 
 _I64 = torch.int64
+
+#: per-word combiner specs of ``update_single``: name -> (identity as u32,
+#: ``scatter_reduce`` reduction); the JAX package's ``or`` / ``and`` /
+#: ``xor`` wait for ROADMAP.md queue 1 item 1c
+COMBINE_OPS = {"add": (0, "sum"), "min": (0xFFFFFFFF, "amin"),
+               "max": (0, "amax")}
+
+#: per-word folds of a stored value with an operand, in the order of the
+#: kernels' op codes (``csrc/cops.cu``: kAdd .. kSatAdd), all on u32
+FOLD_OPS = ("add", "min", "max", "sat_add")
+
+_BITWISE = ("or", "and", "xor")
 
 
 def _tstatic(table):
@@ -96,6 +124,46 @@ def _cops(table, name):
     if table.key_words == 1:
         return getattr(cops_ops, name), table.store["keys"][0]
     return getattr(cops_ops, name + "64"), table.store["keys"]
+
+
+def check_spec(spec, allowed, what):
+    """Raise unless ``spec`` is a tuple of op names from ``allowed``:
+    NotImplementedError naming the ROADMAP.md item for the JAX package's
+    bitwise specs and for callables, ValueError otherwise."""
+    if callable(spec):
+        raise NotImplementedError(
+            f"a {what} callable is not ported to repro_torch yet: see "
+            f"ROADMAP.md queue 1 item 1b (the rest of the single-value "
+            f"table); pass a per-word spec of {tuple(allowed)}")
+    for name in spec:
+        if name in _BITWISE:
+            raise NotImplementedError(
+                f"the {what} op {name!r} is not ported to repro_torch yet: "
+                f"see ROADMAP.md queue 1 item 1c (bitwise combiners)")
+        if name not in allowed:
+            raise ValueError(f"{what} op {name!r} not in {tuple(allowed)}")
+
+
+def fold_words(spec, old, x):
+    """``spec[w](old[:, w], x[:, w])`` for each word w of the (m, V) int32
+    word tensors ``old`` and ``x``: the plain version of the kernels' fold
+    (``FOLD_OPS``), on u32 values; add wraps mod 2^32, sat_add stops at
+    0xFFFFFFFF."""
+    a, b = as_u32(old), as_u32(x)
+    out = []
+    for w, name in enumerate(spec):
+        aw, bw = a[:, w], b[:, w]
+        if name == "add":
+            out.append(aw + bw)
+        elif name == "min":
+            out.append(torch.minimum(aw, bw))
+        elif name == "max":
+            out.append(torch.maximum(aw, bw))
+        elif name == "sat_add":
+            out.append((aw + bw).clamp(max=0xFFFFFFFF))
+        else:
+            raise ValueError(f"fold op {name!r} not in {FOLD_OPS}")
+    return as_word(torch.stack(out, dim=1)) if out else old
 
 
 def _key_cols(keys):
@@ -133,10 +201,11 @@ def _group_fast(keys, live):
     Each element sorts as one word: a 1-word key as itself (the cheaper
     int32 sort), a two-word key as its ``pack_keys`` word.  Masked elements
     sort as a word whose plane 0 is EMPTY, which no user key holds, so they
-    never join a live group.  Returns ``(is_rep, rep_of, lww_of,
+    never join a live group.  Returns ``(is_rep, rep_of, lww_of, gid,
     has_dups)`` in batch order; ``rep_of`` / ``lww_of`` map every element
     to its group's first / last live element (``n`` / 0 for a group with
-    no live element), itself when the batch is duplicate-free.
+    no live element), and ``gid`` to a group id in [0, n); each is the
+    element itself when the batch is duplicate-free.
     """
     n = keys.shape[0]
     idx = torch.arange(n, dtype=_I64, device=keys.device)
@@ -155,9 +224,25 @@ def _group_fast(keys, live):
         lww.scatter_reduce_(0, gid, torch.where(live, idx, 0), "amax")
         rep_of, lww_of = rep[gid], lww[gid]
     else:
-        rep_of = lww_of = idx
+        gid = rep_of = lww_of = idx
     is_rep = live & (rep_of == idx)
-    return is_rep, rep_of, lww_of, has_dups
+    return is_rep, rep_of, lww_of, gid, has_dups
+
+
+def _scatter_combine(spec, gid, vals, contrib, at):
+    """The fold of ``vals[contrib]`` ((n, V) int32 words) per group of
+    ``gid`` and value word, by the combiner ``spec``, for the elements
+    ``at`` -> (len(at), V) int32 words.  A group with no contributor folds
+    to the op's identity; ``add`` wraps mod 2^32 (summed in int64)."""
+    n = gid.shape[0]
+    out = []
+    for w, name in enumerate(spec):
+        ident, reduce = COMBINE_OPS[name]
+        v = torch.where(contrib, as_u32(vals[:, w]), ident)
+        arena = torch.full((n,), ident, dtype=_I64, device=gid.device)
+        arena.scatter_reduce_(0, gid, v, reduce)
+        out.append(arena[gid[at]])
+    return as_word(torch.stack(out, dim=1))
 
 
 # ---------------------------------------------------------------------------
@@ -365,15 +450,18 @@ def place_claims(tstatic, store, words, claim, prio=None):
 # apply, statuses and the entry point
 # ---------------------------------------------------------------------------
 
-def _apply(ops, store, keys, matched, mrow, mlane, placed, crow, clane, vals):
-    """One write phase, in place: values of matches and claims, every key
-    plane of claims.  Returns the number of claimed slots."""
+def _apply(ops, store, keys, matched, mrow, mlane, placed, crow, clane,
+           matched_vals, claim_vals):
+    """One write phase, in place: ``matched_vals`` into matched slots,
+    ``claim_vals`` and every key plane into claimed ones (values (m, V)
+    words).  Returns the number of claimed slots."""
     write = matched | placed
     row = torch.where(matched, mrow, crow)
     lane = torch.where(matched, mlane, clane)
     slots = (row * ops.window + lane)[write]
-    ops.scatter_batch(store, slots, _key_cols(keys)[write],
-                      vals[write][:, None], placed[write])
+    vals = torch.where(matched[:, None], matched_vals, claim_vals)
+    ops.scatter_batch(store, slots, _key_cols(keys)[write], vals[write],
+                      placed[write])
     return int(placed.sum())
 
 
@@ -388,12 +476,43 @@ def dedup(keys, values, mask=None):
     n = keys.shape[0]
     live = (torch.ones((n,), dtype=torch.bool, device=keys.device)
             if mask is None else mask)
-    is_rep, rep_of, lww_of, has_dups = _group_fast(keys, live)
+    is_rep, rep_of, lww_of, _, has_dups = _group_fast(keys, live)
     if mask is None and not has_dups:
         return keys, values, None
     rep_idx = torch.nonzero(is_rep).squeeze(1)
     return (keys[rep_idx], values[lww_of[rep_idx]],
             (live, is_rep, rep_of, rep_idx))
+
+
+def update_front(keys, values, init, mask, combine, fold):
+    """The read-modify-write's dedup front end: ``(rep_keys, agg_all,
+    claim, groups)``.
+
+    One representative per distinct live key, in batch order.
+    ``agg_all`` ((m, V) words) is the ``combine`` fold of every live
+    operand of its group (``values``, (n, V)); ``claim`` is the value a
+    claim writes: the representative's ``init`` ((n, V)), with the fold of
+    the group's other live operands folded in by ``fold`` when it has any.
+    ``groups`` as in ``dedup``.
+    """
+    n = keys.shape[0]
+    live = (torch.ones((n,), dtype=torch.bool, device=keys.device)
+            if mask is None else mask)
+    is_rep, rep_of, lww_of, gid, has_dups = _group_fast(keys, live)
+    if not has_dups:
+        if mask is None:
+            return keys, values, init, None
+        rep_idx = torch.nonzero(is_rep).squeeze(1)
+        return (keys[rep_idx], values[rep_idx], init[rep_idx],
+                (live, is_rep, rep_of, rep_idx))
+    rep_idx = torch.nonzero(is_rep).squeeze(1)
+    agg_all = _scatter_combine(combine, gid, values, live, rep_idx)
+    agg_tail = _scatter_combine(combine, gid, values, live & ~is_rep, rep_idx)
+    has_tail = (lww_of != rep_of)[rep_idx]
+    first = init[rep_idx]
+    claim = torch.where(has_tail[:, None], fold_words(fold, first, agg_tail),
+                        first)
+    return (keys[rep_idx], agg_all, claim, (live, is_rep, rep_of, rep_idx))
 
 
 def _finish_fast(groups, rep_status):
@@ -427,12 +546,46 @@ def insert_single(table, keys, values, mask=None):
     rkeys, rvals, groups = dedup(keys, values, mask)
     _, scheme, seed, max_probes = _tstatic(table)
     insert, table_keys = _cops(table, "insert")
+    plane = value_plane(table)
     rep_status = insert(
-        table_keys, table.store["values"][0], rkeys, rvals,
+        table_keys, plane, rkeys, None if plane is None else rvals,
         seed=seed, scheme=scheme, max_probes=max_probes, count=table.count)
     inserted = int((rep_status == STATUS_INSERTED).sum())
     return (dataclasses.replace(table, count=table.count + inserted),
             _finish_fast(groups, rep_status))
+
+
+def update_single(table, keys, fold, combine, init, values, mask=None):
+    """Bulk path for ``single_value.update_values`` (RMW upsert).
+
+    ``keys`` ((n,) or (n, 2) planes), ``init`` and ``values`` ((n, V) int32
+    words) and ``mask`` (bool or None) lie on the table's device; ``fold``
+    (``FOLD_OPS``) and ``combine`` (``COMBINE_OPS``) are per-word specs,
+    and ``combine`` must pre-aggregate the operand stream of ``fold``:
+    ``fold(fold(x, a), b) == fold(x, combine(a, b))``.  A present key
+    folds its group's ``agg_all`` in; an absent key claims a slot holding
+    ``fold(init_first, agg_tail)`` (or ``init_first`` alone), as the
+    sequential chain would.  The store is updated in place.
+    """
+    if keys.shape[0] == 0:
+        return table, torch.zeros((0,), dtype=torch.int32, device=keys.device)
+    rkeys, agg_all, claim, groups = update_front(keys, values, init, mask,
+                                                 combine, fold)
+    _, scheme, seed, max_probes = _tstatic(table)
+    update, table_keys = _cops(table, "update")
+    rep_status = update(
+        table_keys, table.store["values"], rkeys, agg_all.contiguous(),
+        claim.contiguous(), ops=fold, seed=seed, scheme=scheme,
+        max_probes=max_probes, count=table.count)
+    inserted = int((rep_status == STATUS_INSERTED).sum())
+    return (dataclasses.replace(table, count=table.count + inserted),
+            _finish_fast(groups, rep_status))
+
+
+def value_plane(table):
+    """The table's one value plane ((p, W)) for the kernels that store a
+    value, or None for a table with no value plane (a hash set)."""
+    return table.store["values"][0] if table.value_words else None
 
 
 def insert_multi(table, keys, values, mask=None):

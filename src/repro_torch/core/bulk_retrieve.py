@@ -8,6 +8,9 @@ end sorts one int64 word per key (``bulk._group_fast``).
 **Single-value.**  Every entry point is one walk per query through
 ``kernels.cops.ops.lookup``: the ``cops_lookup`` kernel on a CUDA table,
 its plain version (``bulk.probe_matches`` + a gather) on a CPU table.
+The kernel reads the value of a table with one value word; a table with
+two (the group-by's accumulator and count) or none (a hash set) walks
+with no value plane, and its values are gathered at the slots found.
 The walk is read-only, so ``retrieve_single`` and ``contains_single``
 walk every query as it comes — the output is bit-exact against the JAX
 engine, which walks one representative per distinct key and fans the
@@ -50,10 +53,13 @@ from repro_torch.core import bulk
 
 
 def _lookup(table, keys, slots=False):
+    """The lookup walk of every key; reads the value plane of a table with
+    one (else the values come back None: read them at the slots)."""
     _, scheme, seed, max_probes = bulk._tstatic(table)
     lookup, table_keys = bulk._cops(table, "lookup")
-    return lookup(table_keys, table.store["values"][0], keys, seed=seed,
-                  scheme=scheme, max_probes=max_probes, slots=slots)
+    plane = table.store["values"][0] if table.value_words == 1 else None
+    return lookup(table_keys, plane, keys, seed=seed, scheme=scheme,
+                  max_probes=max_probes, slots=slots)
 
 
 def group_queries(keys, live):
@@ -61,7 +67,7 @@ def group_queries(keys, live):
     ``(is_rep, rep_of)`` in batch order (``rep_of`` is ``n`` for elements
     whose key has no live occurrence).  Keys that differ in any plane,
     the high one included, never share a group."""
-    is_rep, rep_of, _, _ = bulk._group_fast(keys, live)
+    is_rep, rep_of, _, _, _ = bulk._group_fast(keys, live)
     return is_rep, rep_of
 
 
@@ -81,9 +87,15 @@ def _locate_reps(table, keys, live):
 
 
 def retrieve_single(table, keys):
-    """``(values, found)``: int32 value words (0 where absent) and bools."""
-    values, found, _ = _lookup(table, keys)
-    return values, found
+    """``(values, found)``: int32 value words (0 where absent) and bools;
+    values (n,) for one value word, else (n, value_words), read at each
+    found key's slot."""
+    if table.value_words == 1:
+        values, found, _ = _lookup(table, keys)
+        return values, found
+    _, found, slot = _lookup(table, keys, slots=True)
+    values = table.ops.arena_values(table.store, slot.clamp(min=0))
+    return torch.where(found[:, None], values, 0), found
 
 
 def contains_single(table, keys):

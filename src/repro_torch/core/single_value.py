@@ -2,7 +2,10 @@
 
 The port of ``repro.core.single_value`` on the SOA store, for 1-word u32
 keys and for two-word keys (u64 keys and two-column composite keys), with
-1-word values.  A table lives on one device, chosen at ``create``:
+0, 1 or 2 value words: one for the plain table and the counting table
+(``core.counting``), none for the hash set (``core.hashset``), two for the
+group-by (``relational.groupby``: accumulator and count).  A table lives
+on one device, chosen at ``create``:
 ``device=None`` means the CUDA card, and there is no fallback to the CPU
 (pass ``device="cpu"`` to run the plain tensor versions of the kernels, as
 the tests do).  Every operation runs on the device of the table's tensors.
@@ -14,6 +17,11 @@ Semantics are the JAX package's (paper §IV-B.3-5):
   slot of its walk, which runs on to a match or a window holding an EMPTY
   first, so every live key stays at or before the first EMPTY window of
   its walk.  Duplicates within a batch behave as consecutive upserts.
+- ``update_values`` is the read-modify-write upsert: a present key folds
+  the batch's operands into its value words, an absent key claims a slot
+  holding ``init`` (with the rest of its duplicates' operands folded in).
+  The fold and its pre-aggregation are per-word specs (``bulk.FOLD_OPS``,
+  ``bulk.COMBINE_OPS``), not callables.
 - ``retrieve`` / ``contains`` stop a walk at a match or an EMPTY window.
 - ``erase`` writes TOMBSTONEs into every key plane (§IV-B.5).
 
@@ -53,8 +61,13 @@ _NOT_PORTED = {
     "key_words": "queue 1 item 2b (keys wider than two words, "
                  "multi-word values)",
     "value_words": "queue 1 item 2b (keys wider than two words, "
-                   "multi-word values)",
+                   "values wider than two words)",
+    "insert_words": "queue 1 item 2b (keys wider than two words, "
+                    "values wider than two words): the insert kernels "
+                    "store one value word",
     "quadratic": "queue 1 item 1b (the rest of the single-value table)",
+    "update": "queue 1 item 1b (the rest of the single-value table): "
+              "the sequential update_values without a combiner",
     "layout": "queue 1 item 1b (the rest of the single-value table)",
     "bucketed": "queue 1 item 4 (high-load lane: bucketed, quotient)",
 }
@@ -62,7 +75,7 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass
 class SingleValueHashTable:
-    store: dict                 # {"keys": (kw, p, W), "values": (1, p, W)} int32
+    store: dict                 # {"keys": (kw, p, W), "values": (vw, p, W)} int32
     count: int                  # live keys
     num_rows: int
     window: int
@@ -107,15 +120,18 @@ def resolve_device(device) -> torch.device:
 
 
 def check_ported(key_words: int, value_words: int, scheme: str,
-                 layout: str) -> None:
+                 layout: str, value_words_ported=(1,)) -> None:
     """Raise for a configuration the port does not carry: ValueError if
     the JAX package has no such option, NotImplementedError naming the
-    ROADMAP.md item that brings it otherwise."""
+    ROADMAP.md item that brings it otherwise.  ``value_words_ported`` are
+    the value widths the caller's table carries."""
     if key_words < 1:
         raise ValueError(f"key_words={key_words} must be positive")
     if key_words > 2:
         _refuse("key_words", f"key_words={key_words}")
-    if value_words != 1:
+    if value_words < 0:
+        raise ValueError(f"value_words={value_words} must not be negative")
+    if value_words not in value_words_ported:
         _refuse("value_words", f"value_words={value_words}")
     if scheme not in probing.SCHEMES:
         raise ValueError(f"scheme {scheme!r} not in {probing.SCHEMES}")
@@ -133,8 +149,9 @@ def create(min_capacity: int, *, window: int = DEFAULT_WINDOW,
            max_probes: int | None = None, device=None, key_words: int = 1,
            value_words: int = 1, layout: str = "soa",
            ) -> SingleValueHashTable:
-    """Create an empty table with capacity >= min_capacity rounded to p*W, p prime."""
-    check_ported(key_words, value_words, scheme, layout)
+    """Create an empty table with capacity >= min_capacity rounded to p*W,
+    p prime; 0, 1 or 2 value words."""
+    check_ported(key_words, value_words, scheme, layout, (0, 1, 2))
     return empty_table(min_capacity, window=window, scheme=scheme, seed=seed,
                        max_probes=max_probes, device=device,
                        key_words=key_words, value_words=value_words)
@@ -145,7 +162,7 @@ def empty_table(min_capacity: int, *, window: int, scheme: str, seed: int,
                 value_words: int) -> SingleValueHashTable:
     """``create`` without its checks, on the SOA store: also builds the
     bucket list's key store, whose value is the two-word list handle
-    (``value_words=2``, which ``insert`` and ``retrieve`` refuse)."""
+    (``value_words=2``, which ``insert`` refuses)."""
     device = resolve_device(device)
     num_rows, _ = table_geometry(min_capacity, window)
     ops = layouts.SoaOps(num_rows, window, key_words, value_words)
@@ -200,6 +217,19 @@ def normalize_key_batch(x, words: int, device, name: str = "keys") -> torch.Tens
     return normalize_words(as_key_planes(x), words, name, device)
 
 
+def normalize_keys(x, words: int | None, device, name: str = "keys",
+                   ) -> tuple[torch.Tensor, int]:
+    """``normalize_key_batch`` that infers the word count when ``words``
+    is None, for the entry points that build their own table (the
+    relational operators): a tuple of N columns gives N, an (n, kw) plane
+    batch kw, numpy / torch uint64 2, a flat (n,) batch 1.  Returns
+    ``(keys, key_words)``."""
+    x = as_key_planes(x)
+    if words is None:
+        words = x.shape[-1] if np.ndim(x) == 2 else 1
+    return normalize_words(x, words, name, device), words
+
+
 def key_hash_word(keys: torch.Tensor) -> torch.Tensor:
     """The u32 probe word (int64) a walk derives its rows from: the key
     itself for (n,) 1-word keys, the ``hashing.combine_planes`` fold of
@@ -227,16 +257,12 @@ def normalize_mask(mask, n: int, device):
 # operations
 # ---------------------------------------------------------------------------
 
-def _one_value_word(table: SingleValueHashTable) -> None:
-    """The kernels read and write one value plane: refuse the bucket
-    list's two-word key store."""
-    if table.value_words != 1:
-        _refuse("value_words", f"value_words={table.value_words}")
-
-
 def insert(table: SingleValueHashTable, keys, values, mask=None):
-    """Batch upsert. Returns (table, status (n,) int32) — see STATUS_* codes."""
-    _one_value_word(table)
+    """Batch upsert. Returns (table, status (n,) int32) — see STATUS_* codes.
+    ``values`` are (n, 0) for a table with no value word (a hash set)."""
+    if table.value_words > 1:
+        # the insert kernels store one value word, or none
+        _refuse("insert_words", f"insert into value_words={table.value_words}")
     keys = normalize_key_batch(keys, table.key_words, table.device)
     values = normalize_words(values, table.value_words, "values", table.device)
     if values.shape[0] != keys.shape[0]:
@@ -246,8 +272,8 @@ def insert(table: SingleValueHashTable, keys, values, mask=None):
 
 
 def retrieve(table: SingleValueHashTable, keys):
-    """Batch lookup -> (values (n,) int32 u32 bits, 0 where absent; found (n,) bool)."""
-    _one_value_word(table)
+    """Batch lookup -> (values, found (n,) bool): int32 u32 bits, 0 where
+    absent, (n,) for one value word and (n, value_words) otherwise."""
     keys = normalize_key_batch(keys, table.key_words, table.device)
     return bulk_retrieve.retrieve_single(table, keys)
 
@@ -262,3 +288,46 @@ def erase(table: SingleValueHashTable, keys, mask=None):
     keys = normalize_key_batch(keys, table.key_words, table.device)
     mask = normalize_mask(mask, keys.shape[0], table.device)
     return bulk_retrieve.erase_single(table, keys, mask)
+
+
+def update_values(table: SingleValueHashTable, keys, update, init, mask=None,
+                  values=None, combine=None):
+    """Read-modify-write upsert: a present key's value becomes
+    ``update(old, new)``, an absent key inserts ``init``.  The substrate of
+    the counting table and the group-by.
+
+    ``update`` and ``combine`` are per-value-word specs: ``update`` of
+    ``bulk.FOLD_OPS`` (``add``, ``min``, ``max``, ``sat_add``, all on u32)
+    and ``combine`` of ``bulk.COMBINE_OPS``, the associative pre-aggregation
+    of the operand stream (``update(update(x, a), b) == update(x,
+    combine(a, b))``), with which the bulk engine merges duplicates before
+    the one RMW per distinct key.  ``values`` carries a per-element operand
+    (default: ``init``, broadcast to the batch).  Returns (table, status
+    (n,) int32).  Callables, the bitwise specs and ``combine=None`` (the
+    JAX package's sequential reference) are not ported.
+    """
+    if combine is None:
+        _refuse("update", "update_values without a combiner")
+    bulk.check_spec(update, bulk.FOLD_OPS, "update")
+    bulk.check_spec(combine, bulk.COMBINE_OPS, "combine")
+    update, combine = tuple(update), tuple(combine)
+    vw = table.value_words
+    if not 1 <= vw <= 2 or len(update) != vw or len(combine) != vw:
+        raise ValueError(f"update_values needs one op per value word of a "
+                         f"table with 1 or 2, got {update} / {combine} for "
+                         f"value_words={vw}")
+    keys = normalize_key_batch(keys, table.key_words, table.device)
+    n = keys.shape[0]
+    mask = normalize_mask(mask, n, table.device)
+    if not isinstance(init, torch.Tensor):
+        init = np.asarray(init, dtype=np.uint32)       # a scalar, or words
+    init = normalize_words(torch.broadcast_to(
+        to_words(init, table.device), (n,) if vw == 1 else (n, vw)),
+        vw, "init", table.device)
+    values = init if values is None else normalize_words(
+        values, vw, "values", table.device)
+    if values.shape[0] != n:
+        raise ValueError(f"{values.shape[0]} values for {n} keys")
+    two = (lambda x: x[:, None]) if vw == 1 else (lambda x: x)
+    return bulk.update_single(table, keys, update, combine, two(init),
+                              two(values), mask)

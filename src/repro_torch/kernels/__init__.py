@@ -6,7 +6,8 @@
   their two-plane twins for two-word keys (``cops_insert64``,
   ``cops_lookup64``, ``cops_append64``, ``cops_retrieve64``), and
   ``cops_bucket_walk`` (the bucket list's chain walk over its value pool),
-  with their wrappers, plain tensor versions and launch counters in
+  and ``cops_update`` / ``cops_update64`` (the group-by's and the counting
+  table's read-modify-write upsert), with their wrappers, plain tensor versions and launch counters in
   ``cops/ops.py`` and the contracts that hold them to the plain versions
   in ``cops/contract.py``.
 - ``minhash`` — canonical k-mer hashing in CUDA C++

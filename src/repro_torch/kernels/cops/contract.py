@@ -37,6 +37,23 @@ The multi-value append (``check_append``):
 The bucket list's chain walk writes no shared state, so ``cops_bucket_walk``
 is held bit-exact to ``bucket_walk_plain``: both arenas identical, slot by
 slot (``run_bucket_case``).
+
+The read-modify-write (``check_update``: ``cops_update`` and
+``cops_update64``, the group-by's and the counting table's):
+
+1. the same live key -> value words map (accumulator and count) when no
+   representative reports FULL; otherwise which new keys win a slot
+   follows the race, and the maps agree on the keys both hold, a key only
+   the kernel holds is one it reports INSERTED, holding its claim value,
+   and a key only the plain version holds is one the kernel reports FULL;
+2. the same statuses whenever no representative reports FULL; otherwise
+   every representative the kernel reports FULL is absent and finds no
+   EMPTY / TOMBSTONE lane in any window of its walk within the budget, in
+   the store the kernel built;
+3. every live key at or before the first EMPTY window of its walk, as for
+   the insert;
+4. lookup parity on the store it built (``run_update_case`` holds the
+   lookup kernel bit-exact to ``lookup_plain`` there).
 """
 
 from __future__ import annotations
@@ -96,33 +113,91 @@ def _lexsort(keys, values):
     return keys[order], values[order]
 
 
+def _slot_values(table_values, slots):
+    """u32 values (int64) at flat ``slots``: (m,) of a (p, W) plane,
+    (m, V) of (V, p, W) planes."""
+    if table_values.ndim == 2:
+        return as_u32(table_values.reshape(-1)[slots])
+    return as_u32(table_values.reshape(table_values.shape[0], -1)[:, slots].T)
+
+
 def live_map(table_keys, table_values):
     """(keys, values, slots) of the live slots, sorted by key; keys as
-    ``bulk.pack_keys`` words, values as u32 (both int64)."""
+    ``bulk.pack_keys`` words, values as u32 (both int64): (m,) for a
+    (p, W) value plane, (m, V) for (V, p, W) planes."""
     slots = _live_slots(table_keys)
     keys = bulk.pack_keys(_slot_keys(table_keys, slots))
     order = torch.argsort(keys)
-    return (keys[order], as_u32(table_values.reshape(-1)[slots][order]),
-            slots[order])
+    return keys[order], _slot_values(table_values, slots[order]), slots[order]
+
+
+def _same_map(kernel_planes, plain_planes):
+    """(part 1, the kernel store's live slots)."""
+    kk, kv, kslots = live_map(*kernel_planes)
+    pk, pv, _ = live_map(*plain_planes)
+    return (bool(kk.shape == pk.shape and torch.equal(kk, pk)
+                 and torch.equal(kv, pv)), kslots)
+
+
+def _before_first_empty(kernel_keys, kslots, kw):
+    """Part 3: a plain lookup of every live key finds it at its own slot."""
+    _, found, slot = ops.lookup_plain(kernel_keys, None,
+                                      _slot_keys(kernel_keys, kslots),
+                                      slots=True, **kw)
+    return bool(found.all() and torch.equal(slot, kslots))
 
 
 def check_insert(kernel_planes, plain_planes, kernel_status, plain_status, *,
                  seed, scheme, max_probes) -> dict[str, bool]:
     """Parts 1-3 for one batch; ``*_planes`` are (keys, values) pairs of
     (p, W) int32 tensors after the batch.  Returns ``{part: holds}``."""
-    kk, kv, kslots = live_map(*kernel_planes)
-    pk, pv, _ = live_map(*plain_planes)
-    same_map = bool(kk.shape == pk.shape and torch.equal(kk, pk)
-                    and torch.equal(kv, pv))
+    kw = dict(seed=seed, scheme=scheme, max_probes=max_probes)
+    same_map, kslots = _same_map(kernel_planes, plain_planes)
     full = bool((kernel_status == STATUS_FULL).any()
                 or (plain_status == STATUS_FULL).any())
     same_status = full or bool(torch.equal(kernel_status, plain_status))
-    _, found, slot = ops.lookup_plain(
-        *kernel_planes, _slot_keys(kernel_planes[0], kslots), seed=seed,
-        scheme=scheme, max_probes=max_probes, slots=True)
-    frontier = bool(found.all() and torch.equal(slot, kslots))
     return {"same_map": same_map, "same_status": same_status,
-            "before_first_empty": frontier}
+            "before_first_empty": _before_first_empty(kernel_planes[0],
+                                                      kslots, kw)}
+
+
+def check_update(kernel_planes, plain_planes, keys, claim, kernel_status,
+                 plain_status, *, seed, scheme, max_probes) -> dict[str, bool]:
+    """Parts 1-3 of the read-modify-write for one batch of distinct
+    representatives ``keys`` with claim values ``claim`` ((m, V) words);
+    ``*_planes`` are (key planes, (V, p, W) value planes) after it.
+    Returns ``{part: holds}``."""
+    kw = dict(seed=seed, scheme=scheme, max_probes=max_probes)
+    full = kernel_status == STATUS_FULL
+    if not bool(full.any() or (plain_status == STATUS_FULL).any()):
+        same_map, kslots = _same_map(kernel_planes, plain_planes)
+        same_status = bool(torch.equal(kernel_status, plain_status))
+    else:
+        kk, kv, kslots = live_map(*kernel_planes)
+        pk, pv, _ = live_map(*plain_planes)
+        in_p, in_k = torch.isin(kk, pk), torch.isin(pk, kk)
+        rk = bulk.pack_keys(keys)
+        order = torch.argsort(rk)
+
+        def rep(words):
+            at = order[torch.searchsorted(rk[order], words).clamp(
+                max=max(rk.shape[0] - 1, 0))]
+            return at, bool(torch.equal(rk[at], words))
+
+        only_k, ok_k = rep(kk[~in_p])
+        only_p, ok_p = rep(pk[~in_k])
+        same_map = (ok_k and ok_p and torch.equal(kv[in_p], pv[in_k])
+                    and bool((kernel_status[only_k] == STATUS_INSERTED).all())
+                    and torch.equal(kv[~in_p], as_u32(claim[only_k]))
+                    and bool((kernel_status[only_p] == STATUS_FULL).all()))
+        gone = keys[full]
+        absent = not bool(ops.lookup_plain(kernel_planes[0], None, gone,
+                                           **kw)[1].any())
+        same_status = absent and not bool(
+            walk_has_free(kernel_planes[0], gone, **kw).any())
+    return {"same_map": bool(same_map), "same_status": same_status,
+            "before_first_empty": _before_first_empty(kernel_planes[0],
+                                                      kslots, kw)}
 
 
 def live_pairs(table_keys, table_values):
@@ -334,6 +409,128 @@ def run_case(n: int, *, window: int, scheme: str, device, rho: float = 0.9,
     live = torch.arange(batch.shape[0], device=device) % 16 != 5
     rkeys, rvals, _ = bulk.dedup(batch, values_for(batch, 2), live)
     upsert(rkeys, rvals, count, "batch2")
+    return checks
+
+
+#: the read-modify-writes the cases drive: name -> (fold, combine, operand
+#: of plane 0: the element's value or 1); the group-by's aggregates carry
+#: (operand, 1) per element, the counting table 1
+UPDATES = {"sum": (("add", "add"), ("add", "add"), "value"),
+           "mean": (("add", "add"), ("add", "add"), "value"),
+           "count": (("add", "add"), ("add", "add"), "one"),
+           "min": (("min", "add"), ("min", "add"), "value"),
+           "max": (("max", "add"), ("max", "add"), "value"),
+           "counting": (("sat_add",), ("add",), "one")}
+
+
+def update_batch(keys, salt, what):
+    """(n, V) operands of ``UPDATES[what]`` for the batch ``keys``: a
+    value word per element (``values_for``) or 1 in plane 0, 1 in plane
+    1."""
+    fold, _, operand = UPDATES[what]
+    n, dev = keys.shape[0], keys.device
+    ones = torch.ones((n,), dtype=torch.int32, device=dev)
+    first = values_for(keys, salt) if operand == "value" else ones
+    return torch.stack([first, ones][:len(fold)], dim=1)
+
+
+def run_update_case(n: int, *, window: int, scheme: str, device,
+                    what: str = "sum", groups: int | None = None,
+                    rho: float = 0.9, key_words: int = 1,
+                    seed: int = 0x9E3779B9) -> dict[str, bool]:
+    """Hold ``cops_update`` (two-word keys: ``cops_update64``; on the CPU,
+    whatever the wrapper runs) against ``update_plain``, and
+    ``cops_lookup`` / ``cops_lookup64`` against ``lookup_plain`` on the
+    store it builds, for the read-modify-write ``what`` of ``UPDATES``.
+
+    Batch 1: ``n`` elements over ``groups`` distinct keys (``case_keys``,
+    default n / 4; groups / ``rho`` slots, so ``rho`` > 1 fills the table
+    and reports FULL), 1/16 masked, through the torch front end
+    (``bulk.update_front``: one representative per key).  Then 1/8 of the
+    groups are erased (tombstones); for ``"counting"`` 64 counters are set
+    to 0xFFFFFFF0.  Batch 2: n/4 elements, half of present groups, half
+    drawn from groups / 8 new keys (and for ``"counting"`` each of those
+    64 keys 32 times, so they saturate).
+    After each batch: contract parts 1-3 (``check_update``), the live count
+    and the lookup of the representatives and of absent keys, bit-exact;
+    after a batch that reported FULL the plain store restarts from the
+    kernel's;
+    for ``"counting"``, the present ones of the 64 saturated.
+    """
+    from repro_torch.core import single_value
+    fold, combine, _ = UPDATES[what]
+    vw = len(fold)
+    groups = groups or max(16, n // 4)
+    table = single_value.create(int(groups / rho), window=window,
+                                scheme=scheme, seed=seed, device=device,
+                                key_words=key_words, value_words=vw)
+    kw = dict(seed=seed, scheme=scheme, max_probes=bulk._tstatic(table)[3])
+    kernel = (table_planes(table)[0], table.store["values"])
+    plain = tuple(t.clone() for t in kernel)
+    update, lookup = twin(ops.update, kernel[0]), twin(ops.lookup, kernel[0])
+    eighth = max(1, groups // 8)
+    pool = case_keys(key_words, groups + 2 * eighth, device)
+    keys, absent = pool[:groups], pool[groups:groups + eighth]
+    new = pool[groups + eighth:]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    checks = {}
+    count = 0
+
+    def rmw(tag, batch, live):
+        nonlocal count
+        vals = update_batch(batch, len(checks), what)
+        rkeys, agg, claim, _ = bulk.update_front(batch, vals, vals, live,
+                                                 combine, fold)
+        ks = update(*kernel, rkeys, agg, claim, ops=fold, count=count, **kw)
+        ps = ops.update_plain(*plain, rkeys, agg, claim, ops=fold,
+                              count=count, **kw)
+        for part, ok in check_update(kernel, plain, rkeys, claim, ks, ps,
+                                     **kw).items():
+            checks[f"{tag}_{part}"] = ok
+        count += int((ks == STATUS_INSERTED).sum())
+        checks[f"{tag}_count"] = count == _live_slots(kernel[0]).shape[0]
+        if bool((ks == STATUS_FULL).any()):
+            # which keys won a slot followed the race: the next batch
+            # starts both from the kernel's store
+            for a, b in zip(plain, kernel):
+                a.copy_(b)
+        queries = torch.cat([rkeys, absent])
+        plane = kernel[1][0] if vw == 1 else None
+        got = lookup(kernel[0], plane, queries, slots=True, **kw)
+        want = ops.lookup_plain(kernel[0], plane, queries, slots=True, **kw)
+        checks[f"{tag}_lookup_exact"] = all(
+            (a is None and b is None) or torch.equal(a, b)
+            for a, b in zip(got, want))
+
+    pick = torch.randint(0, groups, (n,), generator=gen, device=device)
+    live = torch.arange(n, device=device) % 16 != 5
+    rmw("batch1", keys[pick], live)
+    gone = keys[: groups // 8]
+    hot = keys[groups // 8: groups // 8 + 64]
+    hot = hot[ops.lookup_plain(kernel[0], None, hot, **kw)[1]]   # present
+    for planes in (kernel, plain):
+        _, found, slot = ops.lookup_plain(planes[0], None, gone, slots=True,
+                                          **kw)
+        kps = ops._planes(planes[0])
+        kps.view(kps.shape[0], -1)[:, slot[found]] = TOMBSTONE_WORD
+        if what == "counting":
+            slot = ops.lookup_plain(planes[0], None, hot, slots=True, **kw)[2]
+            planes[1].view(-1)[slot] = as_word(
+                torch.tensor(0xFFFFFFF0, device=device))
+    count = _live_slots(kernel[0]).shape[0]
+    m = max(2, n // 8)
+    pick = torch.randint(groups // 8, groups, (m,), generator=gen,
+                         device=device)
+    fresh = torch.randint(0, eighth, (m,), generator=gen, device=device)
+    batch = torch.cat([keys[pick], new[fresh]])
+    if what == "counting":
+        batch = torch.cat([hot.repeat_interleave(32, dim=0), batch])
+    rmw("batch2", batch, None)
+    if what == "counting":
+        got, found, _ = ops.lookup_plain(kernel[0], kernel[1][0], hot, **kw)
+        checks["saturated"] = bool(found.all() and hot.shape[0] > 0 and (
+            as_u32(got) == 0xFFFFFFFF).all())
     return checks
 
 

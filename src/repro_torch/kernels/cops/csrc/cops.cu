@@ -17,6 +17,12 @@
 //                       l.756)
 //   cops_bucket_walk <- _bucket_walk_kernel (l.435, via bucket_walk_call
 //                       l.485): the bucket list's chain walk over its pool
+//   cops_update      <- _update_kernel (l.203, via update_call l.289): the
+//                       group-by read-modify-write (and the counting table's
+//                       saturating count), 1-word keys
+//   cops_update64    <- the same for two-plane keys (the Pallas package runs
+//                       those on its vectorized engine, kernel.py has no
+//                       two-plane update tile)
 //
 // The store is the SOA layout: KW key planes and a value plane, each (p, W)
 // u32, row-major; one row is one probe window.  Two-plane keys (u64 and
@@ -87,6 +93,25 @@
 // window, so pass 2 lands where the one-pass walk would.  On an empty store
 // the wrapper skips pass 1.
 //
+// The read-modify-write (cops_update, cops_update64) is the upsert with
+// other value writes: on a match each value plane p of the slot becomes
+// fold_p(old, operand_p) (add, min, max or the counting table's saturating
+// add, all on u32), on a claim it takes the key's claim value.  The torch
+// front end hands it one representative per distinct key (the group's
+// first live element) with the fold of every operand of its group and the
+// claim value fold(init, the fold of the rest); the statuses fan out to the
+// batch in torch.  The keys are distinct, so one group writes each slot's
+// values and the fold is a plain read-modify-write, no atomics: atomics on
+// the value planes would take the batch undeduplicated, but then which
+// duplicate reports INSERTED would follow the race, not the batch order.
+// The value planes, and what a kernel writes into them, are a `Values`
+// descriptor, a template over the plane count and store-or-fold: the
+// upsert and the append store (one plane, or none for a hash set), the
+// update folds into one or two planes.  The two-plane
+// update runs the two-plane insert's two passes (the match pass folds).
+// What bounds it is the walk, as for the insert, plus one 32-byte sector
+// per value plane read and written per representative.
+//
 // The append has no dedup front end: every pair is its own claimer, and
 // the consecutive duplicates of a multi-value batch start on the same row
 // and race for its lanes.  It walks to the first window that holds an
@@ -130,6 +155,11 @@ constexpr int kInserted = 0;
 constexpr int kUpdated = 1;
 constexpr int kFull = 2;
 constexpr int kThreads = 256;
+// value ops, 4 bits per value plane in Values::ops (ops.py: FOLD_OPS)
+constexpr int kAdd = 0;
+constexpr int kMin = 1;
+constexpr int kMax = 2;
+constexpr int kSatAdd = 3;
 
 struct Walk {
   uint32_t num_rows;
@@ -209,6 +239,66 @@ __device__ __forceinline__ uint32_t next_row(const Walk& w, uint32_t row,
                                              uint32_t step) {
   return (row + step) % w.num_rows;
 }
+
+__device__ __forceinline__ uint32_t fold(int op, uint32_t a, uint32_t b) {
+  switch (op) {
+    case kAdd: return a + b;
+    case kMin: return a < b ? a : b;
+    case kMax: return a > b ? a : b;
+    case kSatAdd: {
+      const uint32_t s = a + b;
+      return s < a ? 0xFFFFFFFFu : s;
+    }
+    default: return b;
+  }
+}
+
+// A batch element's value words: the operands folded in on a match, the
+// words written on a claim.
+template <int V>
+struct Row {
+  uint32_t operand[V > 0 ? V : 1];
+  uint32_t claimv[V > 0 ? V : 1];
+};
+
+// The V value planes of a store (V = 0, 1 or 2) and what a kernel writes
+// into them for a batch element at flat slot `at`: on a match plane p
+// becomes fold(op_p, old, operand[p]) (FOLD) or operand[p] (a store), on a
+// claim it takes claimv[p].  V and FOLD are compile-time, so the upsert and
+// the append compile as they would with one value plane written in place.
+// Written by the group's lane 0 only.  A kernel loads a Row where it needs
+// it (after the match, or just before the CAS, whose latency hides the
+// load): a Row held across the walk costs registers the walk needs.
+template <int V, bool FOLD>
+struct Values {
+  uint32_t* tv;              // plane 0 of V (p, W) planes
+  size_t plane;              // words per plane: num_rows * window
+  int ops;                   // op of plane p in bits 4p .. 4p + 3 (FOLD)
+  const uint32_t* operand;   // (n, V)
+  const uint32_t* claimv;    // (n, V)
+
+  __device__ Row<V> load(long long q) const {
+    Row<V> r;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      r.operand[p] = operand[q * V + p];
+      r.claimv[p] = FOLD ? claimv[q * V + p] : r.operand[p];
+    }
+    return r;
+  }
+  __device__ void matched(const Row<V>& r, size_t at) const {
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      uint32_t* v = tv + p * plane + at;
+      *v = FOLD ? fold((ops >> (4 * p)) & 15, *v, r.operand[p])
+                : r.operand[p];
+    }
+  }
+  __device__ void claimed(const Row<V>& r, size_t at) const {
+#pragma unroll
+    for (int p = 0; p < V; ++p) tv[p * plane + at] = r.claimv[p];
+  }
+};
 
 // The G lanes of a warp that walk one key together.
 struct Group {
@@ -296,14 +386,14 @@ __device__ int next_free(const uint32_t* tk, const Walk& w, const Group& g,
 }
 
 // Claim `lane` of `row` for k with atomicCAS(plane-0 slot, observed
-// sentinel, k0), then write plane 1 (KW == 2) and v beside it.  A lost CAS
+// sentinel, k0), then write plane 1 (KW == 2) beside it.  A lost CAS
 // re-reads the same window first, then the following rows of the walk.
-// False when the budget runs out.
+// Returns the flat slot claimed (the same in every lane of the group), or
+// -1 when the budget runs out; the caller writes the values.
 template <int KW>
-__device__ bool claim(uint32_t* tk, uint32_t* tv, const Walk& w,
-                      const Group& g, uint32_t row, int lane,
-                      long long attempt, uint32_t step, const Key& k,
-                      uint32_t v) {
+__device__ long long claim(uint32_t* tk, const Walk& w, const Group& g,
+                           uint32_t row, int lane, long long attempt,
+                           uint32_t step, const Key& k) {
   while (lane >= 0) {
     const size_t at = (size_t)row * w.window + lane;
     int won = 0;
@@ -313,22 +403,21 @@ __device__ bool claim(uint32_t* tk, uint32_t* tv, const Walk& w,
         won = atomicCAS(tk + at, seen, k.k0) == seen;
     }
     if (g.broadcast(won)) {
-      if (g.lane == 0) {
-        if (KW == 2) tk[w.plane + at] = k.k1;
-        tv[at] = v;
-      }
-      return true;
+      if (KW == 2 && g.lane == 0) tk[w.plane + at] = k.k1;
+      return (long long)at;
     }
     lane = next_free(tk, w, g, row, attempt, step);
   }
-  return false;
+  return -1;
 }
 
-// The u32 single-value upsert in one walk (see the header).
+// The u32 single-value upsert in one walk (see the header), and the
+// read-modify-write: a match folds into the slot's values, a claim writes
+// the claim value.
+template <int V, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
-insert_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
-              const uint32_t* __restrict__ keys,
-              const uint32_t* __restrict__ vals, int* __restrict__ status,
+upsert_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
+              const uint32_t* __restrict__ keys, int* __restrict__ status,
               long long n, Walk w) {
   const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
@@ -356,7 +445,8 @@ insert_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
       any_empty |= eb != 0;
     }
     if (mlane >= 0) {
-      if (g.lane == 0) tv[(size_t)row * w.window + mlane] = vals[q];
+      if (g.lane == 0)
+        vals.matched(vals.load(q), (size_t)row * w.window + mlane);
       st = kUpdated;
       break;
     }
@@ -369,20 +459,25 @@ insert_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
     row = next_row(w, row, step);
   }
 
-  if (st != kUpdated && cand_lane >= 0 &&
-      claim<1>(tk, tv, w, g, cand_row, cand_lane, cand_attempt, step, k,
-               vals[q]))
-    st = kInserted;
+  if (st != kUpdated && cand_lane >= 0) {
+    const Row<V> r = vals.load(q);
+    const long long at = claim<1>(tk, w, g, cand_row, cand_lane,
+                                  cand_attempt, step, k);
+    if (at >= 0) {
+      if (g.lane == 0) vals.claimed(r, (size_t)at);
+      st = kInserted;
+    }
+  }
   if (g.lane == 0) status[q] = st;
 }
 
-// Pass 1 of the two-plane upsert: write the value of every key found and
-// mark it UPDATED (FULL, for now, where not found).
-template <int KW>
+// Pass 1 of the two-plane upsert and update: write (or fold into) the
+// values of every key found and mark it UPDATED (FULL, for now, where not
+// found).
+template <int KW, int V, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
-match_kernel(const uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
-             const uint32_t* __restrict__ keys,
-             const uint32_t* __restrict__ vals, int* __restrict__ status,
+match_kernel(const uint32_t* __restrict__ tk, Values<V, FOLD> vals,
+             const uint32_t* __restrict__ keys, int* __restrict__ status,
              long long n, Walk w) {
   const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
@@ -390,18 +485,17 @@ match_kernel(const uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
   const Group g = make_group(G);
   const long long hit = find<KW>(tk, w, g, load_key<KW>(keys, q));
   if (g.lane == 0) {
-    if (hit >= 0) tv[hit] = vals[q];
+    if (hit >= 0) vals.matched(vals.load(q), (size_t)hit);
     status[q] = hit >= 0 ? kUpdated : kFull;
   }
 }
 
-// The append, and pass 2 of the two-plane upsert (`after_match`: skip the
-// keys that pass 1 marked UPDATED).
-template <int KW>
+// The append, and pass 2 of the two-plane upsert and update (`after_match`:
+// skip the keys that pass 1 marked UPDATED).
+template <int KW, int V, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
-append_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
-              const uint32_t* __restrict__ keys,
-              const uint32_t* __restrict__ vals, int* __restrict__ status,
+append_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
+              const uint32_t* __restrict__ keys, int* __restrict__ status,
               long long n, Walk w, int after_match) {
   const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
@@ -412,12 +506,17 @@ append_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
   uint32_t row = first_row(w, k.word);
   long long attempt = 0;
   const int lane = next_free(tk, w, g, row, attempt, step);
-  const bool ok = claim<KW>(tk, tv, w, g, row, lane, attempt, step, k,
-                            vals[q]);
-  if (g.lane == 0) status[q] = ok ? kInserted : kFull;
+  const Row<V> r = vals.load(q);
+  const long long at = claim<KW>(tk, w, g, row, lane, attempt, step, k);
+  if (g.lane == 0) {
+    if (at >= 0) vals.claimed(r, (size_t)at);
+    status[q] = at >= 0 ? kInserted : kFull;
+  }
 }
 
-template <int KW>
+// VALUES: read the value of each key found (false: a hash set, no value
+// plane; `tv` and `out` are null).
+template <int KW, bool VALUES>
 __global__ void __launch_bounds__(kThreads)
 lookup_kernel(const uint32_t* __restrict__ tk, const uint32_t* __restrict__ tv,
               const uint32_t* __restrict__ keys, uint32_t* __restrict__ out,
@@ -429,7 +528,7 @@ lookup_kernel(const uint32_t* __restrict__ tk, const uint32_t* __restrict__ tv,
   const Group g = make_group(G);
   const long long hit = find<KW>(tk, w, g, load_key<KW>(keys, q));
   if (g.lane == 0) {
-    out[q] = hit >= 0 ? __ldg(tv + hit) : 0u;
+    if (VALUES) out[q] = hit >= 0 ? __ldg(tv + hit) : 0u;
     found[q] = hit >= 0;
     if (slot_out) slot_out[q] = hit;
   }
@@ -520,33 +619,119 @@ unsigned blocks_for(long long n, int window) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
+template <int V, bool FOLD>
+Values<V, FOLD> make_values(void* table_values, unsigned num_rows, int window,
+                            int ops, const void* operand,
+                            const void* claimv) {
+  Values<V, FOLD> v;
+  v.tv = (uint32_t*)table_values;
+  v.plane = (size_t)num_rows * (size_t)window;
+  v.ops = ops;
+  v.operand = (const uint32_t*)operand;
+  v.claimv = (const uint32_t*)claimv;
+  return v;
+}
+
 template <int KW>
 int lookup(const void* table_keys, const void* table_values, const void* keys,
            void* values, void* found, void* slots, long long n,
            unsigned num_rows, int window, unsigned seed, int linear,
            long long max_probes, void* stream) {
   if (n <= 0) return 0;
-  lookup_kernel<KW><<<blocks_for(n, window), kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      (const uint32_t*)table_keys, (const uint32_t*)table_values,
-      (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
-      (long long*)slots, n,
+  const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
+  if (table_values)
+    lookup_kernel<KW, true><<<blocks_for(n, window), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+        (const uint32_t*)table_keys, (const uint32_t*)table_values,
+        (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
+        (long long*)slots, n, w);
+  else
+    lookup_kernel<KW, false><<<blocks_for(n, window), kThreads, 0,
+                               (cudaStream_t)stream>>>(
+        (const uint32_t*)table_keys, nullptr, (const uint32_t*)keys,
+        nullptr, (bool*)found, (long long*)slots, n, w);
+  return (int)cudaGetLastError();
+}
+
+// The write-back of a launch: the V value planes at `table_values`, folded
+// into (FOLD) or stored, from the (n, V) `operand` and `claimv` batches.
+struct Writes {
+  void* table_values;
+  int ops;
+  const void* operand;
+  const void* claimv;
+};
+
+// One walk per 1-word key: the upsert (a store) or the update (FOLD).
+template <int V, bool FOLD>
+int upsert(void* table_keys, const Writes& wr, const void* keys,
+           void* status, long long n, unsigned num_rows, int window,
+           unsigned seed, int linear, long long max_probes, void* stream) {
+  upsert_kernel<V, FOLD><<<blocks_for(n, window), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      (uint32_t*)table_keys,
+      make_values<V, FOLD>(wr.table_values, num_rows, window, wr.ops,
+                           wr.operand, wr.claimv),
+      (const uint32_t*)keys, (int*)status, n,
       make_walk(num_rows, window, seed, linear, max_probes));
   return (int)cudaGetLastError();
 }
 
-template <int KW>
-int append(void* table_keys, void* table_values, const void* keys,
-           const void* values, void* status, long long n, unsigned num_rows,
-           int window, unsigned seed, int linear, long long max_probes,
-           int after_match, void* stream) {
-  if (n <= 0) return 0;
-  append_kernel<KW><<<blocks_for(n, window), kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      (uint32_t*)table_keys, (uint32_t*)table_values, (const uint32_t*)keys,
-      (const uint32_t*)values, (int*)status, n,
-      make_walk(num_rows, window, seed, linear, max_probes), after_match);
+// The append; with `match_pass` = 1 the two passes of the two-plane upsert
+// or update (the two-plane wrappers pass 0 on an empty store, which holds
+// no key to find).
+template <int KW, int V, bool FOLD>
+int append(void* table_keys, const Writes& wr, const void* keys,
+           void* status, long long n, unsigned num_rows, int window,
+           unsigned seed, int linear, long long max_probes, int match_pass,
+           void* stream) {
+  const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
+  const Values<V, FOLD> vals = make_values<V, FOLD>(
+      wr.table_values, num_rows, window, wr.ops, wr.operand, wr.claimv);
+  if (match_pass) {
+    match_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+        (const uint32_t*)table_keys, vals, (const uint32_t*)keys,
+        (int*)status, n, w);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  append_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (uint32_t*)table_keys, vals, (const uint32_t*)keys, (int*)status, n, w,
+      match_pass);
   return (int)cudaGetLastError();
+}
+
+// The instantiation for `value_words` planes (0 only with a null
+// `table_values`: a hash set) and FOLD: a walk of 1-word keys (KW = 1,
+// `upsert`) or the append's / the two-plane passes (`append`).
+template <int KW, bool FOLD>
+int launch(void* table_keys, const Writes& wr, int value_words,
+           const void* keys, void* status, long long n, unsigned num_rows,
+           int window, unsigned seed, int linear, long long max_probes,
+           int match_pass, void* stream) {
+  if (n <= 0) return 0;
+  const int v = wr.table_values ? value_words : 0;
+  if (KW == 1 && match_pass < 0) {
+    if (v == 0) return upsert<0, FOLD>(table_keys, wr, keys, status, n,
+                                       num_rows, window, seed, linear,
+                                       max_probes, stream);
+    if (v == 1) return upsert<1, FOLD>(table_keys, wr, keys, status, n,
+                                       num_rows, window, seed, linear,
+                                       max_probes, stream);
+    return upsert<2, FOLD>(table_keys, wr, keys, status, n, num_rows, window,
+                           seed, linear, max_probes, stream);
+  }
+  const int pass = match_pass > 0;
+  if (v == 0) return append<KW, 0, FOLD>(table_keys, wr, keys, status, n,
+                                         num_rows, window, seed, linear,
+                                         max_probes, pass, stream);
+  if (v == 1) return append<KW, 1, FOLD>(table_keys, wr, keys, status, n,
+                                         num_rows, window, seed, linear,
+                                         max_probes, pass, stream);
+  return append<KW, 2, FOLD>(table_keys, wr, keys, status, n, num_rows,
+                             window, seed, linear, max_probes, pass, stream);
 }
 
 template <int KW>
@@ -569,17 +754,16 @@ int retrieve(const void* table_keys, const void* keys, const void* active,
 // synchronise, and returns cudaGetLastError() of its launches (0 =
 // success).  `table_keys` is the (KW, p, W) key planes, `keys` the (n, KW)
 // key batch; the other planes are (p, W) and the other batches (n,).
+// `table_values` of the insert and the lookup may be null (a hash set: no
+// value plane; then `values` is null too).
 extern "C" int cops_insert(void* table_keys, void* table_values,
                            const void* keys, const void* values, void* status,
                            long long n, unsigned num_rows, int window,
                            unsigned seed, int linear, long long max_probes,
                            void* stream) {
-  if (n <= 0) return 0;
-  insert_kernel<<<blocks_for(n, window), kThreads, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)table_keys, (uint32_t*)table_values, (const uint32_t*)keys,
-      (const uint32_t*)values, (int*)status, n,
-      make_walk(num_rows, window, seed, linear, max_probes));
-  return (int)cudaGetLastError();
+  return launch<1, false>(table_keys, {table_values, 0, values, values}, 1,
+                          keys, status, n, num_rows, window, seed, linear,
+                          max_probes, -1, stream);
 }
 
 // The two passes of the header; `match_pass` = 0 skips pass 1 (an empty
@@ -590,19 +774,37 @@ extern "C" int cops_insert64(void* table_keys, void* table_values,
                              int window, unsigned seed, int linear,
                              long long max_probes, int match_pass,
                              void* stream) {
-  if (n <= 0) return 0;
-  if (match_pass) {
-    match_kernel<2><<<blocks_for(n, window), kThreads, 0,
-                      (cudaStream_t)stream>>>(
-        (const uint32_t*)table_keys, (uint32_t*)table_values,
-        (const uint32_t*)keys, (const uint32_t*)values, (int*)status, n,
-        make_walk(num_rows, window, seed, linear, max_probes));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return append<2>(table_keys, table_values, keys, values, status, n,
-                   num_rows, window, seed, linear, max_probes, match_pass,
-                   stream);
+  return launch<2, false>(table_keys, {table_values, 0, values, values}, 1,
+                          keys, status, n, num_rows, window, seed, linear,
+                          max_probes, match_pass, stream);
+}
+
+// The read-modify-write of DISTINCT keys: `table_values` is `value_words`
+// (1 or 2) (p, W) planes, `operand` and `claimv` (n, value_words); `ops`
+// holds the fold of value plane p in bits 4p .. 4p + 3 (0 add, 1 min, 2
+// max, 3 saturating add, all u32).
+extern "C" int cops_update(void* table_keys, void* table_values,
+                           const void* keys, const void* operand,
+                           const void* claimv, void* status, long long n,
+                           unsigned num_rows, int window, unsigned seed,
+                           int linear, long long max_probes, int value_words,
+                           int ops, void* stream) {
+  return launch<1, true>(table_keys, {table_values, ops, operand, claimv},
+                         value_words, keys, status, n, num_rows, window,
+                         seed, linear, max_probes, -1, stream);
+}
+
+// cops_update for two-plane keys, in the two passes of cops_insert64.
+extern "C" int cops_update64(void* table_keys, void* table_values,
+                             const void* keys, const void* operand,
+                             const void* claimv, void* status, long long n,
+                             unsigned num_rows, int window, unsigned seed,
+                             int linear, long long max_probes,
+                             int value_words, int ops, int match_pass,
+                             void* stream) {
+  return launch<2, true>(table_keys, {table_values, ops, operand, claimv},
+                         value_words, keys, status, n, num_rows, window,
+                         seed, linear, max_probes, match_pass, stream);
 }
 
 extern "C" int cops_lookup(const void* table_keys, const void* table_values,
@@ -628,8 +830,9 @@ extern "C" int cops_append(void* table_keys, void* table_values,
                            long long n, unsigned num_rows, int window,
                            unsigned seed, int linear, long long max_probes,
                            void* stream) {
-  return append<1>(table_keys, table_values, keys, values, status, n,
-                   num_rows, window, seed, linear, max_probes, 0, stream);
+  return launch<1, false>(table_keys, {table_values, 0, values, values}, 1,
+                          keys, status, n, num_rows, window, seed, linear,
+                          max_probes, 0, stream);
 }
 
 extern "C" int cops_append64(void* table_keys, void* table_values,
@@ -637,8 +840,9 @@ extern "C" int cops_append64(void* table_keys, void* table_values,
                              void* status, long long n, unsigned num_rows,
                              int window, unsigned seed, int linear,
                              long long max_probes, void* stream) {
-  return append<2>(table_keys, table_values, keys, values, status, n,
-                   num_rows, window, seed, linear, max_probes, 0, stream);
+  return launch<2, false>(table_keys, {table_values, 0, values, values}, 1,
+                          keys, status, n, num_rows, window, seed, linear,
+                          max_probes, 0, stream);
 }
 
 // `qarena` / `rank_arena` are both null (counts only) or both (p * W,)

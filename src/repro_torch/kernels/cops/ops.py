@@ -16,7 +16,15 @@ word, which holds the sentinels):
   match counts and, with ``collect``, the (query, rank) slot arena) ->
   ``cops_retrieve`` / ``cops_retrieve64``;
 - ``bucket_walk`` (the bucket list's chain walk over its value pool: the
-  (query, rank) pool arena of pre-probed handles) -> ``cops_bucket_walk``.
+  (query, rank) pool arena of pre-probed handles) -> ``cops_bucket_walk``;
+- ``update`` / ``update64`` (the read-modify-write upsert of distinct
+  keys behind the counting table and the group-by: fold an operand into a
+  present key's value planes, or claim a slot holding the claim value) ->
+  ``cops_update`` / ``cops_update64``.
+
+``insert`` and ``lookup`` (and their twins) also take a table with no
+value plane (``table_values=None``, a hash set): the insert then takes no
+values, and the lookup returns None for them.
 
 On **CUDA** tensors a wrapper checks dtype, shape, device and contiguity,
 launches its kernel (``csrc/cops.cu``, built by ``kernels.build``) on the
@@ -27,9 +35,11 @@ one for each pair of twins, over (p, W) or (kw, p, W) key planes:
 -> apply), ``lookup_plain`` (``bulk.probe_matches`` + a gather),
 ``append_plain`` (virtual-fill placement of every pair, as
 ``repro.core.bulk.insert_multi``), ``retrieve_walk_plain`` (the port of
-``repro.core.bulk_retrieve.fused_walk``) and ``bucket_walk_plain`` (the
-port of ``repro.core.bucket_list.chain_arena``), each bit-exact against
-the JAX engine.  A match holds on every key plane; the walk's row and step come
+``repro.core.bulk_retrieve.fused_walk``), ``bucket_walk_plain`` (the
+port of ``repro.core.bucket_list.chain_arena``) and ``update_plain``
+(probe -> placement -> ``bulk.fold_words``, as
+``repro.core.bulk.update_single``), each bit-exact against the JAX
+engine.  A match holds on every key plane; the walk's row and step come
 from the key's probe word (``single_value.key_hash_word``).  On any other
 device a wrapper raises.  Nothing falls back: a CUDA tensor never reaches
 a plain version.
@@ -62,7 +72,8 @@ from repro_torch.core.single_value import key_hash_word
 #: launches of each kernel since the last ``reset_launches``
 LAUNCHES = {"cops_insert": 0, "cops_lookup": 0, "cops_append": 0,
             "cops_retrieve": 0, "cops_insert64": 0, "cops_lookup64": 0,
-            "cops_append64": 0, "cops_retrieve64": 0, "cops_bucket_walk": 0}
+            "cops_append64": 0, "cops_retrieve64": 0, "cops_bucket_walk": 0,
+            "cops_update": 0, "cops_update64": 0}
 
 #: keys per walk of the plain versions (bounds their (n, W) temporaries)
 PLAIN_CHUNK = 1 << 22
@@ -84,48 +95,87 @@ def _planes(table_keys):
     return table_keys if table_keys.ndim == 3 else table_keys[None]
 
 
-def _tstatic(planes, scheme, seed, max_probes):
+def _tstatic(planes, scheme, seed, max_probes, value_words=1):
     key_words, num_rows, window = planes.shape
-    return (layouts.SoaOps(num_rows, window, key_words, 1), scheme, seed,
-            max_probes)
+    return (layouts.SoaOps(num_rows, window, key_words, value_words), scheme,
+            seed, max_probes)
 
 
-def insert_plain(table_keys, table_values, keys, values, *, seed, scheme,
-                 max_probes, count):
-    """Upsert DISTINCT keys into the planes, in place; status (m,) int32
-    (INSERTED / UPDATED / FULL).  ``count`` is the store's live count
-    before the batch (0 skips the match walk)."""
+def _value_planes(table_values, table_keys):
+    """(V, p, W) value planes: a (p, W) plane, (V, p, W) planes, or None
+    (no value plane: (0, p, W))."""
+    if table_values is None:
+        return table_keys.new_empty((0, *table_keys.shape[-2:]))
+    return table_values if table_values.ndim == 3 else table_values[None]
+
+
+def _upsert_plain(table_keys, table_values, keys, operand, claimv, fold, *,
+                  seed, scheme, max_probes, count):
+    """The bulk engine's lane over DISTINCT keys, in place: a matched key's
+    value words become ``fold(old, operand)`` (``fold`` None: the
+    operand), a placed claimer writes ``claimv``; (m, V) words each.
+    Status (m,) int32 (INSERTED / UPDATED / FULL)."""
     kps = _planes(table_keys)
-    tstat = _tstatic(kps, scheme, seed, max_probes)
+    vps = _value_planes(table_values, kps)
+    tstat = _tstatic(kps, scheme, seed, max_probes, vps.shape[0])
     ops = tstat[0]
-    store = {"keys": kps, "values": table_values[None]}
+    store = {"keys": kps, "values": vps}
     status = torch.empty(keys.shape[:1], dtype=torch.int32, device=keys.device)
     for s in range(0, keys.shape[0], PLAIN_CHUNK):
-        k, v = keys[s:s + PLAIN_CHUNK], values[s:s + PLAIN_CHUNK]
+        k = keys[s:s + PLAIN_CHUNK]
+        x, c = operand[s:s + PLAIN_CHUNK], claimv[s:s + PLAIN_CHUNK]
         words = key_hash_word(k)
-        every = torch.ones(v.shape, dtype=torch.bool, device=k.device)
+        every = torch.ones(k.shape[:1], dtype=torch.bool, device=k.device)
         matched, mrow, mlane = bulk.probe_matches(tstat, store, k, words,
                                                   every, count)
         placed, crow, clane, _ = bulk.place_claims(tstat, store, words,
                                                    ~matched)
+        if fold is not None:
+            x = bulk.fold_words(fold, ops.arena_values(
+                store, mrow * ops.window + mlane), x)
         count += bulk._apply(ops, store, k, matched, mrow, mlane, placed,
-                             crow, clane, v)
+                             crow, clane, x, c)
         status[s:s + PLAIN_CHUNK] = torch.where(
             matched, STATUS_UPDATED,
             torch.where(placed, STATUS_INSERTED, STATUS_FULL))
     return status
 
 
+def insert_plain(table_keys, table_values, keys, values, *, seed, scheme,
+                 max_probes, count):
+    """Upsert DISTINCT keys into the planes, in place; status (m,) int32
+    (INSERTED / UPDATED / FULL).  ``count`` is the store's live count
+    before the batch (0 skips the match walk).  With no value plane
+    (``table_values`` None) ``values`` is None."""
+    v = (keys.new_empty((keys.shape[0], 0)) if values is None
+         else values[:, None])
+    return _upsert_plain(table_keys, table_values, keys, v, v, None,
+                         seed=seed, scheme=scheme, max_probes=max_probes,
+                         count=count)
+
+
+def update_plain(table_keys, table_values, keys, operand, claimv, *, ops,
+                 seed, scheme, max_probes, count):
+    """The read-modify-write of DISTINCT keys over the (V, p, W) value
+    planes, in place: a present key's value word w becomes ``ops[w](old,
+    operand[:, w])`` (``bulk.FOLD_OPS``), an absent key claims a slot
+    holding ``claimv``; status (m,) int32 (INSERTED / UPDATED / FULL)."""
+    return _upsert_plain(table_keys, table_values, keys, operand, claimv,
+                         tuple(ops), seed=seed, scheme=scheme,
+                         max_probes=max_probes, count=count)
+
+
 def lookup_plain(table_keys, table_values, keys, *, seed, scheme, max_probes,
                  slots=False):
     """``(values int32, found bool, slot int64 or None)``: each key's value
-    (0 if absent) and flat slot ``row * W + lane`` (-1 if absent)."""
+    (0 if absent; None with no value plane) and flat slot ``row * W +
+    lane`` (-1 if absent)."""
     kps = _planes(table_keys)
     tstat = _tstatic(kps, scheme, seed, max_probes)
     window = kps.shape[2]
-    flat_v = table_values.reshape(-1)
     n, dev = keys.shape[0], keys.device
-    values = torch.empty((n,), dtype=torch.int32, device=dev)
+    values = (None if table_values is None
+              else torch.empty((n,), dtype=torch.int32, device=dev))
     found = torch.empty((n,), dtype=torch.bool, device=dev)
     slot = torch.empty((n,), dtype=torch.int64, device=dev)
     for s in range(0, n, PLAIN_CHUNK):
@@ -134,8 +184,9 @@ def lookup_plain(table_keys, table_values, keys, *, seed, scheme, max_probes,
         matched, mrow, mlane = bulk.probe_matches(
             tstat, {"keys": kps}, k, key_hash_word(k), every)
         at = torch.where(matched, mrow * window + mlane, -1)
-        values[s:s + PLAIN_CHUNK] = torch.where(matched,
-                                                flat_v[at.clamp(min=0)], 0)
+        if values is not None:
+            values[s:s + PLAIN_CHUNK] = torch.where(
+                matched, table_values.reshape(-1)[at.clamp(min=0)], 0)
         found[s:s + PLAIN_CHUNK] = matched
         slot[s:s + PLAIN_CHUNK] = at
     return values, found, (slot if slots else None)
@@ -269,6 +320,11 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args + [vp]     # ... and the stream
         fn.restype = ctypes.c_int
+    for name, args in (("cops_update", [vp] * 6 + walk + [i, i]),
+                       ("cops_update64", [vp] * 6 + walk + [i, i, i])):
+        fn = getattr(lib, name)
+        fn.argtypes = args + [vp]
+        fn.restype = ctypes.c_int
     lib.cops_bucket_walk.argtypes = [vp] * 9 + [ll, vp]
     lib.cops_bucket_walk.restype = ctypes.c_int
     return lib
@@ -276,7 +332,9 @@ def _lib() -> ctypes.CDLL:
 
 def _on_cpu(*tensors, masks=()) -> bool:
     """True for CPU tensors; validates CUDA tensors (int32 words, bool
-    ``masks``) for a launch; raises on anything else."""
+    ``masks``; None for a null one) for a launch; raises on anything
+    else."""
+    tensors = [t for t in tensors if t is not None]
     devices = {t.device for t in (*tensors, *masks)}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
@@ -340,10 +398,16 @@ def _launch(name, table_keys, n, seed, scheme, max_probes, *args,
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
+def _present(*tensors):
+    return [t for t in tensors if t is not None]
+
+
 def _insert(key_words, table_keys, table_values, keys, values, *, seed,
             scheme, max_probes, count):
-    _check_geometry(key_words, table_keys, keys, [table_values], [values],
-                    scheme)
+    if (table_values is None) != (values is None):
+        raise ValueError("values go with a value plane, None with none")
+    _check_geometry(key_words, table_keys, keys, _present(table_values),
+                    _present(values), scheme)
     if _on_cpu(table_keys, table_values, keys, values):
         return insert_plain(table_keys, table_values, keys, values, seed=seed,
                             scheme=scheme, max_probes=max_probes, count=count)
@@ -375,12 +439,14 @@ def insert64(table_keys, table_values, keys, values, *, seed, scheme,
 
 def _lookup(key_words, table_keys, table_values, keys, *, seed, scheme,
             max_probes, slots):
-    _check_geometry(key_words, table_keys, keys, [table_values], [], scheme)
+    _check_geometry(key_words, table_keys, keys, _present(table_values), [],
+                    scheme)
     if _on_cpu(table_keys, table_values, keys):
         return lookup_plain(table_keys, table_values, keys, seed=seed,
                             scheme=scheme, max_probes=max_probes, slots=slots)
     n, dev = keys.shape[0], keys.device
-    values = torch.empty((n,), dtype=torch.int32, device=dev)
+    values = (None if table_values is None
+              else torch.empty((n,), dtype=torch.int32, device=dev))
     found = torch.empty((n,), dtype=torch.bool, device=dev)
     slot = torch.empty((n,), dtype=torch.int64, device=dev) if slots else None
     if n:
@@ -392,7 +458,8 @@ def _lookup(key_words, table_keys, table_values, keys, *, seed, scheme,
 
 def lookup(table_keys, table_values, keys, *, seed, scheme, max_probes,
            slots=False):
-    """``(values int32, found bool, slot int64 or None)`` for each key."""
+    """``(values int32 or None, found bool, slot int64 or None)`` for each
+    key (values None for ``table_values`` None)."""
     return _lookup(1, table_keys, table_values, keys, seed=seed,
                    scheme=scheme, max_probes=max_probes, slots=slots)
 
@@ -473,6 +540,54 @@ def retrieve_walk64(table_keys, keys, active, *, seed, scheme, max_probes,
     return _retrieve_walk(2, table_keys, keys, active, seed=seed,
                           scheme=scheme, max_probes=max_probes,
                           collect=collect)
+
+
+def _update(key_words, table_keys, table_values, keys, operand, claimv, *,
+            ops, seed, scheme, max_probes, count):
+    ops = tuple(ops)
+    if table_values.ndim != 3 or table_values.shape[0] not in (1, 2):
+        raise ValueError(f"(V, p, W) value planes with V in (1, 2), got "
+                         f"{tuple(table_values.shape)}")
+    vw = table_values.shape[0]
+    if len(ops) != vw or any(op not in bulk.FOLD_OPS for op in ops):
+        raise ValueError(f"one op of {bulk.FOLD_OPS} per value plane, got "
+                         f"{ops} for {vw}")
+    if any(t.shape != (keys.shape[0], vw) for t in (operand, claimv)):
+        raise ValueError(f"(n, {vw}) operands and claim values, got "
+                         f"{tuple(operand.shape)} and {tuple(claimv.shape)}")
+    _check_geometry(key_words, table_keys, keys, list(table_values), [],
+                    scheme)
+    if _on_cpu(table_keys, table_values, keys, operand, claimv):
+        return update_plain(table_keys, table_values, keys, operand, claimv,
+                            ops=ops, seed=seed, scheme=scheme,
+                            max_probes=max_probes, count=count)
+    n = keys.shape[0]
+    status = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    if n:
+        codes = sum(bulk.FOLD_OPS.index(op) << 4 * w for w, op in enumerate(ops))
+        # the two-plane update's first pass, as the insert's
+        extra = (vw, codes) + (() if key_words == 1 else (int(count > 0),))
+        _launch("cops_update" if key_words == 1 else "cops_update64",
+                table_keys, n, seed, scheme, max_probes, table_keys,
+                table_values, keys, operand, claimv, status, extra=extra)
+    return status
+
+
+def update(table_keys, table_values, keys, operand, claimv, *, ops, seed,
+           scheme, max_probes, count):
+    """The read-modify-write of DISTINCT keys into the (V, p, W) value
+    planes in place (see ``update_plain``) -> status (m,) int32."""
+    return _update(1, table_keys, table_values, keys, operand, claimv,
+                   ops=ops, seed=seed, scheme=scheme, max_probes=max_probes,
+                   count=count)
+
+
+def update64(table_keys, table_values, keys, operand, claimv, *, ops, seed,
+             scheme, max_probes, count):
+    """``update`` of DISTINCT (m, 2) keys into the (2, p, W) key planes."""
+    return _update(2, table_keys, table_values, keys, operand, claimv,
+                   ops=ops, seed=seed, scheme=scheme, max_probes=max_probes,
+                   count=count)
 
 
 def bucket_walk(pool, ptr, cnt, bidx, active, sizes, cum):

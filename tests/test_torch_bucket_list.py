@@ -338,14 +338,14 @@ def test_unported_configurations_refuse():
 
 def test_key_store_refuses_single_value_calls():
     """The key store's values are two-word handles: the single-value
-    entry points, whose kernels read one value plane, refuse it, as
-    ``single_value.create`` refuses ``value_words=2``."""
+    insert, whose kernels store one value word, refuses it, whatever the
+    values' width, as ``single_value.create`` refuses ``value_words=3``."""
     from repro_torch.core import single_value as tsv
     ks = tbl.create(64, 64, device="cpu").key_store
     keys = np.arange(1, 5, dtype=np.uint32)
     for call in (lambda: tsv.insert(ks, keys, keys),
-                 lambda: tsv.retrieve(ks, keys),
-                 lambda: tsv.create(64, value_words=2, device="cpu")):
+                 lambda: tsv.insert(ks, keys, np.stack([keys, keys], 1)),
+                 lambda: tsv.create(64, value_words=3, device="cpu")):
         with pytest.raises(NotImplementedError, match="item 2b"):
             call()
 

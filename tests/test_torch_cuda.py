@@ -366,3 +366,159 @@ def test_bucket_list_and_sketches_on_card_go_through_kernels():
             assert torch.equal(a, b)
         else:
             assert a == b
+
+
+# ---------------------------------------------------------------------------
+# the read-modify-write (cops_update, cops_update64) and the relational layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", SUPPORTED_WINDOWS)
+def test_update_kernels_hold_to_plain(window, scheme, key_words):
+    """``cops_update`` / ``cops_update64`` under the update contract for
+    every aggregate of the group-by and the counting table's saturating
+    count at rho 0.9, and for sum on a table too small for the groups
+    (FULL), with tombstones and in-batch duplicates; two-word keys share
+    plane-0 words (some with plane 1 at 0xFFFFFFFF / 0xFFFFFFFE)."""
+    _need_card()
+    for what, rho in [(w, 0.9) for w in contract.UPDATES] + [("sum", 1.2)]:
+        checks = contract.run_update_case(
+            1 << 14, window=window, scheme=scheme, device="cuda", what=what,
+            rho=rho, key_words=key_words)
+        torch.cuda.synchronize()
+        assert all(checks.values()), (what, rho, checks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("window", [1, 4, 32])
+def test_update_claims_race_beside_a_present_key(window, key_words):
+    """Every key of the batch starts its walk on one row: the claims of
+    new keys race for its lanes (and the rows after it) while the
+    representatives of present keys fold into slots of the same row.  60
+    rounds, each on a fresh store and on one holding tombstones; the
+    update contract must hold every time."""
+    _need_card()
+    p = 13
+    t = sv.create(p * window, window=window, device="cuda",
+                  key_words=key_words, value_words=2)
+    pool = contract.case_keys(key_words, 1 << 16, "cuda")
+    from repro_torch.core.single_value import key_hash_word
+    from repro_torch.core import probing
+    rows = probing.initial_row(key_hash_word(pool), t.num_rows, t.seed)
+    same = pool[rows == 0][: p * window // 2]
+    kw = dict(seed=t.seed, scheme=t.scheme, max_probes=bulk._tstatic(t)[3])
+    fold = combine = ("add", "add")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(window)
+    for rnd in range(60):
+        t = sv.create(p * window, window=window, device="cuda",
+                      key_words=key_words, value_words=2)
+        kernel = (contract.table_planes(t)[0], t.store["values"])
+        plain = tuple(x.clone() for x in kernel)
+        update = contract.twin(ops.update, kernel[0])
+        order = torch.randperm(same.shape[0], generator=gen, device="cuda")
+        keys = same[order]
+        count = 0
+        for step, batch in enumerate((keys[: keys.shape[0] // 2],
+                                      keys[keys.shape[0] // 4:])):
+            batch = torch.cat([batch, batch[:8]])          # duplicates
+            vals = contract.update_batch(batch, rnd + step, "sum")
+            rk, agg, claim, _ = bulk.update_front(batch, vals, vals, None,
+                                                  combine, fold)
+            ks = update(*kernel, rk, agg, claim, ops=fold, count=count, **kw)
+            ps = ops.update_plain(*plain, rk, agg, claim, ops=fold,
+                                  count=count, **kw)
+            parts = contract.check_update(kernel, plain, rk, claim, ks, ps,
+                                          **kw)
+            assert all(parts.values()), (rnd, step, parts)
+            count += int((ks == STATUS_INSERTED).sum())
+            if step == 0 and rnd % 2:
+                gone = batch[: batch.shape[0] // 4]        # tombstones
+                for planes in (kernel, plain):
+                    _, f, slot = ops.lookup_plain(planes[0], None, gone,
+                                                  slots=True, **kw)
+                    kps = ops._planes(planes[0])
+                    kps.view(kps.shape[0], -1)[:, slot[f]] = TOMBSTONE_WORD
+                count = contract._live_slots(kernel[0]).shape[0]
+    torch.cuda.synchronize()
+
+
+def _same_rows(a, b):
+    """A join's output rows as (probe_idx, build_idx) pairs, sorted: the
+    card's append may place a key's pairs in another order."""
+    def pairs(r):
+        v = r.valid.cpu()
+        p, q = r.probe_idx.cpu()[v].long(), r.build_idx.cpu()[v].long()
+        return torch.sort(p * (1 << 32) + q).values
+    return torch.equal(pairs(a), pairs(b))
+
+
+@pytest.mark.cuda
+def test_relational_layer_on_card_goes_through_kernels():
+    """The group-by (every aggregate, 1- and two-word keys), the counting
+    table, the hash set, DISTINCT and the four joins on CUDA tables launch
+    ``cops_update`` / ``cops_update64`` (and the walks they rest on) and
+    agree with the same calls on CPU tables: group-by and counts as maps,
+    DISTINCT exactly, joins per probe row as multisets."""
+    _need_card()
+    from repro_torch.core import counting, hashset
+    from repro_torch.relational import distinct, groupby, join
+    rng = np.random.default_rng(4)
+    keys = rng.integers(1, 700, 5000).astype(np.uint32)
+    cols = (rng.integers(0, 3, 5000).astype(np.uint32), keys)
+    vals = rng.integers(0, 2 ** 32, 5000, dtype=np.uint32)
+    mask = rng.random(5000) < 0.9
+    probe = rng.integers(1, 1400, 3000).astype(np.uint32)
+    ops.reset_launches()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res = {}
+        for kw, k in ((1, keys), (2, cols)):
+            for agg in groupby.AGGS:
+                t = groupby.create(4096, key_words=kw, device=dev)
+                t, st = groupby.update(t, agg, k, vals, mask=mask)
+                t, st2 = groupby.update(t, agg, k[:1000] if kw == 1 else
+                                        (cols[0][:1000], keys[:1000]),
+                                        vals[:1000])
+                gk, got, live = groupby.finalize(t, agg)
+                order = torch.argsort(contract.bulk.pack_keys(gk[live]))
+                res[f"gb {kw} {agg}"] = (st.cpu(), st2.cpu(),
+                                         gk[live][order].cpu(),
+                                         got[live][order].cpu(), t.count)
+        c = counting.create(2048, device=dev)
+        c, st = counting.insert(c, keys, mask)
+        res["counting"] = (st.cpu(), counting.counts(c, probe).cpu())
+        s = hashset.create(2048, device=dev)
+        s, added = hashset.add(s, keys)
+        s, removed = hashset.remove(s, probe[:500])
+        res["set"] = (added.cpu(), removed.cpu(),
+                      hashset.contains(s, probe).cpu(), hashset.size(s))
+        u, n_u, fresh = distinct.distinct(cols, 1000, device=dev)
+        res["distinct"] = (tuple(x.cpu() for x in u), int(n_u), fresh.cpu())
+        for how in join.HOW:
+            r = join.hash_join(keys, probe, 20000, how, device=dev)
+            res[f"join {how}"] = r
+        out[dev] = res
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cops_update"] == 11 and ops.LAUNCHES["cops_update64"] == 10
+    assert ops.LAUNCHES["cops_append"] == 4 and ops.LAUNCHES["cops_insert"] == 1
+    assert ops.LAUNCHES["cops_insert64"] == 1
+    gpu, cpu = out["cuda"], out["cpu"]
+    for name, a in gpu.items():
+        b = cpu[name]
+        if name.startswith("join"):
+            assert _same_rows(a, b), name
+            for field in ("matched", "total"):
+                assert torch.equal(getattr(a, field).cpu(),
+                                   getattr(b, field)), (name, field)
+            continue
+        for x, y in zip(a, b):
+            if isinstance(x, tuple):
+                assert all(torch.equal(p, q) for p, q in zip(x, y)), name
+            elif isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), name
+            else:
+                assert x == y, name

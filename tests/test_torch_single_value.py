@@ -222,7 +222,7 @@ def test_torch_key_spellings_agree():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"key_words": 3}, {"value_words": 2}, {"scheme": "quadratic"},
+    {"key_words": 3}, {"value_words": 3}, {"scheme": "quadratic"},
     {"scheme": "bucketed"}, {"layout": "aos"}, {"layout": "packed"},
     {"layout": "bucketedq"},
 ])
@@ -255,15 +255,17 @@ def test_cpu_table_launches_no_kernel():
     tt, _ = tsv.insert(tt, keys, keys)
     tsv.retrieve(tt, keys)
     tsv.erase(tt, keys[:10])
-    assert set(ops.LAUNCHES) >= {"cops_insert", "cops_lookup"}
+    tt, _ = tsv.update_values(tt, keys, ("add",), 1, combine=("add",))
+    assert set(ops.LAUNCHES) >= {"cops_insert", "cops_lookup", "cops_update"}
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 def test_package_imports_neither_jax_nor_repro():
     """Every module of repro_torch imports, both tables run their u32 and
-    two-word key paths (every key spelling), and the bucket list and the
-    minhash sketches run, on the CPU, without pulling in JAX or the JAX
-    package."""
+    two-word key paths (every key spelling), and the bucket list, the
+    minhash sketches, the counting table, the hash set and the relational
+    operators (group-by, DISTINCT, the four joins) run, on the CPU,
+    without pulling in JAX or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy as np\n"
@@ -293,6 +295,23 @@ def test_package_imports_neither_jax_nor_repro():
         "b, _ = bl.insert(b, cols[1], cols[0])\n"
         "bl.count_values(b, cols[1]); bl.retrieve_all(b, cols[1], 64)\n"
         "convert.bucket_table_to_numpy(b)\n"
+        "from repro_torch.core import counting, hashset\n"
+        "from repro_torch.relational import distinct, groupby, join\n"
+        "for kw, keys in ((1, cols[1]), (2, k64), (2, cols)):\n"
+        "    c = counting.create(128, key_words=kw, device='cpu')\n"
+        "    c, _ = counting.insert(c, keys); counting.counts(c, keys)\n"
+        "    s = hashset.create(128, key_words=kw, device='cpu')\n"
+        "    s, _ = hashset.add(s, keys); hashset.contains(s, keys)\n"
+        "    s, _ = hashset.remove(s, keys)\n"
+        "    for agg in groupby.AGGS:\n"
+        "        g = groupby.create(128, key_words=kw, device='cpu')\n"
+        "        g, _ = groupby.update(g, agg, keys, cols[0])\n"
+        "        groupby.lookup(g, agg, keys); groupby.finalize(g, agg)\n"
+        "    convert.table_to_numpy(g)\n"
+        "    distinct.distinct(keys, 64, device='cpu')\n"
+        "    for how in join.HOW:\n"
+        "        r = join.hash_join(keys, keys, 64, how, device='cpu')\n"
+        "        join.gather_payload(r, cols[0], cols[0])\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith"
         "('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
@@ -300,4 +319,4 @@ def test_package_imports_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    assert int(res.stdout.split()[-1]) >= 27

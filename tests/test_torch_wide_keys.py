@@ -441,8 +441,8 @@ def test_distinct_keys64():
 
 
 @pytest.mark.parametrize("create", [tsv.create, tmv.create])
-@pytest.mark.parametrize("kwargs", [{"key_words": 3}, {"value_words": 2},
-                                    {"key_words": 2, "value_words": 2}])
+@pytest.mark.parametrize("kwargs", [{"key_words": 3}, {"value_words": 3},
+                                    {"key_words": 2, "value_words": 3}])
 def test_wider_configurations_refuse_naming_item_2b(create, kwargs):
     with pytest.raises(NotImplementedError, match="item 2b"):
         create(64, device="cpu", **kwargs)
