@@ -107,8 +107,10 @@ status line each:
     n = 2^24 (the join, the group-by and DISTINCT on two columns, each
     against the same columns packed into one word; counters zeroed just
     before and read just after), then ``cops_update`` alone on phase 17's
-    2^25-group sum and ``cops_update64`` alone on the composite group-by,
-    against their plain versions, timed, with their byte bounds.
+    2^25- and 64-group sums and ``cops_update64`` alone on the composite
+    group-by, each into an empty table (every group claims) and again into
+    the table it filled (every group folds), against their plain versions,
+    timed, with byte bounds from each run's own statuses.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
@@ -1280,7 +1282,8 @@ def relational_path(torch, card, check, phase):
     """Phase 17: fig9's join, group-by and DISTINCT at n = N_REL through
     the public relational entry points, each exact against a table-free
     reference and timed.  The counters are zeroed just before and read just
-    after.  Returns ``(launches, the g = 2^25 sum's keys and values)``."""
+    after.  Returns ``(launches, {g: keys and values} of the fewest and the
+    most groups)``."""
     from repro_torch.core import hashing
     from repro_torch.core.common import as_u32, as_word
     from repro_torch.kernels.cops import contract, ops
@@ -1313,7 +1316,7 @@ def relational_path(torch, card, check, phase):
                          f"{int(res.total)})")
             del res
     del want, probe, row_ids
-    gb = None
+    batches = {}
     for g in REL_GROUPS:
         keys = torch.randint(1, g + 1, (n,), dtype=torch.int32,
                              generator=gen, device="cuda")
@@ -1335,8 +1338,8 @@ def relational_path(torch, card, check, phase):
                          f"{n / statistics.median(t) / 1e6:.3f} G rows/s "
                          f"(sort-based reference {spread(ref_t)})")
             del gk, out, live, table, uk, ref, lk, lo
-        if g == REL_GROUPS[-1]:
-            gb = (keys, vals)
+        if g in (REL_GROUPS[0], REL_GROUPS[-1]):
+            batches[g] = (keys, vals)
         else:
             del keys, vals
     dk = torch.randint(1, n // 8, (n,), dtype=torch.int32, generator=gen,
@@ -1364,7 +1367,7 @@ def relational_path(torch, card, check, phase):
           + f" (5 runs each after a warm-up, CUDA events, through "
           f"join.hash_join / groupby.aggregate / distinct.distinct); peak "
           f"{peak:.1f} GB; launches {launches}; card {card}", flush=True)
-    return launches, gb
+    return launches, batches
 
 
 def composite_path(torch, card, check, phase):
@@ -1437,69 +1440,103 @@ def composite_path(torch, card, check, phase):
     return launches, (gc, gv)
 
 
-def update_kernel(torch, card, check, phase, keys, vals, groups, launches,
-                  name):
-    """Phase 18: ``name`` (``cops_update`` or ``cops_update64``) alone on
-    the representatives of a sum group-by of ``keys`` ((n,) words or
-    (n, 2) planes) and ``vals`` into an empty table for ``groups``
-    groups, and its plain version, compared under the update contract and
-    timed, with its byte bound.  Returns its kernel record."""
+def update_bytes(torch, table_keys, rkeys, status, n, seed, scheme, budget):
+    """The bytes an update of ``n`` rows must move, from its own outcome:
+    the windows its representatives ``rkeys`` walk on the store it left
+    (128-byte lines of plane 0, and the plane-1 sectors a two-plane walk
+    reads); per representative a written 32-byte sector of each key plane
+    where it claimed, and of each of the two value planes a written sector
+    where it claimed or a read and a written one where it matched; the
+    representatives' streams (key, operand, status), and the rows' (the
+    representative of each row, and the operand of every other one)."""
+    from repro_torch.core.common import STATUS_INSERTED, STATUS_UPDATED
+    key_words = 1 if rkeys.ndim == 1 else 2
+    reps = rkeys.shape[0]
+    claimed = int((status == STATUS_INSERTED).sum())
+    matched = int((status == STATUS_UPDATED).sum())
+    windows, p1 = walk_windows(torch, table_keys, rkeys, seed, scheme, budget)
+    nbytes = (windows * 4 * WINDOW + p1 * 32 + claimed * 32 * key_words
+              + 2 * (claimed * 32 + matched * 64)
+              + reps * (4 * key_words + 8 + 4) + n * 4 + (n - reps) * 8)
+    return nbytes, windows / reps
+
+
+def update_kernel(torch, card, check, phase, cases, launches, name):
+    """Phase 18: ``name`` (``cops_update`` or ``cops_update64``) alone, on
+    each case ``(label, keys, vals, groups)`` of ``cases`` (keys (n,) words
+    or (n, 2) planes): a sum group-by of the rows through the torch front
+    end, first into an empty table for ``groups`` groups (every
+    representative claims, as on the main path), then the same rows again
+    into the table it filled (every representative matches and folds).
+    Each run against its plain version under the update contract, timed
+    (a fresh copy of the table per run, outside the timing), with its byte
+    bound from its own statuses.  Returns the kernel record of the first
+    case's first run."""
     from repro_torch.core import bulk
+    from repro_torch.core.common import STATUS_INSERTED, STATUS_UPDATED
     from repro_torch.kernels.cops import contract, ops
     from repro_torch.relational import groupby
-    since = len(check.failed)
-    key_words = 1 if keys.ndim == 1 else 2
     fold = ("add", "add")
-    ones = torch.ones_like(vals)
-    payload = torch.stack([vals, ones], dim=1)
-    rkeys, agg, claim, _ = bulk.update_front(keys, payload, payload, None,
-                                             fold, fold)
-    del payload, ones
-    cap = groupby.capacity_for(groups)
-
-    def fresh():
-        t = groupby.create(cap, key_words=key_words, device="cuda")
-        return (contract.table_planes(t)[0], t.store["values"]), t
-
-    kw = None
-
-    def run(planes, t, fn):
-        nonlocal kw
-        kw = dict(seed=t.seed, scheme=t.scheme,
-                  max_probes=bulk._tstatic(t)[3])
-        return planes, fn(*planes, rkeys, agg, claim, ops=fold, count=0,
-                          **kw)
-
-    kernel = getattr(ops, "update" if key_words == 1 else "update64")
-    k_t, (kplanes, kst) = timed(torch, lambda pl, t: run(pl, t, kernel),
-                                fresh)
-    p_t, (pplanes, pst) = timed(torch, lambda pl, t: run(
-        pl, t, ops.update_plain), fresh, reps=1, warmup=0)
-    for part, ok in contract.check_update(kplanes, pplanes, rkeys, claim,
-                                          kst, pst, **kw).items():
-        check(f"phase{phase} {name} {part}", ok)
-    check(f"phase{phase} {name} all INSERTED",
-          bool((kst == contract.STATUS_INSERTED).all()))
-    _, kv, _ = contract.live_map(*kplanes)
-    _, pv, _ = contract.live_map(*pplanes)
-    err = (int((kv - pv).abs().max()) if kv.shape == pv.shape
-           else float("inf"))
-    reps = rkeys.shape[0]
-    windows, p1 = walk_windows(torch, kplanes[0], rkeys, kw["seed"],
-                               kw["scheme"], kw["max_probes"])
-    # the windows to each key's slot (128-byte lines of plane 0) and the
-    # plane-1 sectors they read; per representative a written 32-byte
-    # sector of each key plane, a read and a written 32-byte sector of each
-    # of the two value planes, and the streams (key, operand and claim
-    # value, status)
-    nbytes = (windows * 4 * WINDOW + p1 * 32
-              + reps * (32 * key_words + 2 * 32 * 2 + 4 * key_words + 16 + 4))
-    print(f"phase {phase} {name} alone on {keys.shape[0]} rows -> {reps} "
-          f"groups (sum, capacity {cap}, W={WINDOW}): {check.status(since)}; "
-          f"mean windows per walk {windows / reps:.4f}; {spread(k_t)}, plain "
-          f"{p_t[0]:.3f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
-          f"by bytes; card {card}", flush=True)
-    return kernel_record(name, launches, err, k_t, p_t, nbytes)
+    kernel = getattr(ops, "update" if name == "cops_update" else "update64")
+    record = None
+    for label, keys, vals, groups in cases:
+        since = len(check.failed)
+        key_words = 1 if keys.ndim == 1 else 2
+        payload = torch.stack([vals, torch.ones_like(vals)], dim=1)
+        rkeys, x, claim, rest, _ = bulk.update_front(keys, payload, payload)
+        n, reps = keys.shape[0], rkeys.shape[0]
+        table = groupby.create(groupby.capacity_for(groups),
+                               key_words=key_words, device="cuda")
+        kw = dict(seed=table.seed, scheme=table.scheme,
+                  max_probes=bulk._tstatic(table)[3])
+        empty = (contract.table_planes(table)[0], table.store["values"])
+        # a group's value after one batch, and after two
+        gain = bulk.fold_rest(fold, rest, payload, reps)
+        once = bulk.fold_words(fold, claim, gain)
+        twice = bulk.fold_words(fold, once, bulk.fold_words(fold, x, gain))
+        del gain
+        lines, err = [], 0
+        start = {"kernel": empty, "plain": empty}
+        for run, count, want in (("empty", 0, once), ("filled", reps, twice)):
+            outs = {}
+            for who, fn in (("kernel", kernel), ("plain", ops.update_plain)):
+                base = start[who]
+                t, out = timed(
+                    torch, lambda pl: (pl, fn(*pl, rkeys, x, claim, rest,
+                                              payload, ops=fold, count=count,
+                                              **kw)),
+                    lambda: (tuple(p.clone() for p in base),),
+                    **({} if who == "kernel" else dict(reps=1, warmup=0)))
+                outs[who] = (t, *out)
+            (k_t, kpl, kst), (p_t, ppl, pst) = outs["kernel"], outs["plain"]
+            for part, ok in contract.check_update(kpl, ppl, rkeys, want, kst,
+                                                  pst, **kw).items():
+                check(f"phase{phase} {name} {label} {run} {part}", ok)
+            expect = STATUS_INSERTED if run == "empty" else STATUS_UPDATED
+            check(f"phase{phase} {name} {label} {run} all "
+                  f"{'INSERTED' if run == 'empty' else 'UPDATED'}",
+                  bool((kst == expect).all()))
+            _, kv, _ = contract.live_map(*kpl)
+            _, pv, _ = contract.live_map(*ppl)
+            err = max(err, int((kv - pv).abs().max()) if kv.shape == pv.shape
+                      else float("inf"))
+            nbytes, per_walk = update_bytes(torch, kpl[0], rkeys, kst, n,
+                                            kw["seed"], kw["scheme"],
+                                            kw["max_probes"])
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            lines.append(f"into the {run} table {spread(k_t)}, plain "
+                         f"{p_t[0]:.3f} ms, bound {bound:.3f} ms by bytes "
+                         f"({nbytes} B; {per_walk:.4f} windows per walk)")
+            if record is None:
+                record = kernel_record(name, launches, None, k_t, p_t, nbytes)
+            start = {"kernel": kpl, "plain": ppl}
+        print(f"phase {phase} {name} alone, {label}: {n} rows -> {reps} "
+              f"groups (sum, capacity {table.capacity}, W={WINDOW}): "
+              f"{check.status(since)}; " + "; ".join(lines)
+              + f"; card {card}", flush=True)
+        record["max_abs_err"] = max(record["max_abs_err"] or 0, err)
+        del payload, rkeys, x, claim, rest, once, twice, start, kpl, ppl
+    return record
 
 
 def main() -> int:
@@ -1579,17 +1616,20 @@ def main() -> int:
 
     # -- phases 16-18: the relational layer (fig9) -------------------------
     update_cases(torch, check, 16)
-    rel_launches, (gb_keys, gb_vals) = relational_path(torch, card, check, 17)
+    rel_launches, batches = relational_path(torch, card, check, 17)
     torch.cuda.empty_cache()
     cmp_launches, (gc, gv) = composite_path(torch, card, check, 18)
-    records.append(update_kernel(torch, card, check, 18, gb_keys, gb_vals,
-                                 REL_GROUPS[-1], rel_launches, "cops_update"))
-    del gb_keys, gb_vals
+    records.append(update_kernel(
+        torch, card, check, 18,
+        [(f"g={g}", *batches.pop(g), g) for g in (REL_GROUPS[-1],
+                                                   REL_GROUPS[0])],
+        rel_launches, "cops_update"))
     torch.cuda.empty_cache()
     from repro_torch.core.hashing import pack_columns
-    records.append(update_kernel(torch, card, check, 18, pack_columns(gc), gv,
-                                 N_COMPOSITE // 8, cmp_launches,
-                                 "cops_update64"))
+    records.append(update_kernel(
+        torch, card, check, 18,
+        [("composite", pack_columns(gc), gv, N_COMPOSITE // 8)],
+        cmp_launches, "cops_update64"))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -36,19 +36,21 @@
    every element in batch order.
 
 ``update_single`` is the read-modify-write upsert behind
-``single_value.update_values`` (the counting table and the group-by):
-the same dedup, with the group's operands folded per value word by a
-combiner spec (``COMBINE_OPS``: ``add``, ``min``, ``max``) through
-``_scatter_combine``; each representative carries ``agg_all``, the fold
-of every live operand of its group, and the claim value ``fold(init,
-agg_tail)``, the fold of all but the first folded into the first
-element's ``init``.  ``kernels.cops.ops.update`` / ``update64`` (the
-``cops_update`` / ``cops_update64`` kernel, or on a CPU table
-``update_plain``: probe -> placement -> fold) folds ``agg_all`` into a
-matched slot's values per word (``fold_words``: ``add``, ``min``, ``max``,
-``sat_add``) or writes the claim value into a claimed slot.  Two-word keys
-take the same lane (their groups and claim priority are those of the JAX
-engine's ``_update_general``, and the folds commute).
+``single_value.update_values`` (the counting table and the group-by): the
+same dedup (``update_front``) picks one representative per distinct live
+key, the group's first live element, and maps every other live element to
+its representative (``rest_rep``).  ``kernels.cops.ops.update`` /
+``update64`` (the ``cops_update`` / ``cops_update64`` kernel, or on a CPU
+table ``update_plain``) then walks the representatives: a present key's
+value words take the representative's operand through the fold
+(``fold_words``: ``add``, ``min``, ``max``, ``sat_add`` per word), an
+absent key claims a slot holding the representative's ``init``; and every
+other live element folds its own operand into its representative's slot.
+The folds commute on u32, so the result is the sequential chain's, and
+equals the JAX engine's pre-aggregated ``fold(old, combine(operands))``
+wherever its combiner meets its contract.  Two-word keys take the same
+lane (their groups and claim priority are those of the JAX engine's
+``_update_general``).
 
 ``insert_multi`` is the multi-value append: no dedup, every live element
 is a claimer and duplicates of a key take slots of their own
@@ -95,17 +97,21 @@ from repro_torch.core.common import (
 
 _I64 = torch.int64
 
-#: per-word combiner specs of ``update_single``: name -> (identity as u32,
-#: ``scatter_reduce`` reduction); the JAX package's ``or`` / ``and`` /
+#: per-word combiner specs that ``single_value.update_values`` accepts (its
+#: duplicates are then reorderable); the JAX package's ``or`` / ``and`` /
 #: ``xor`` wait for ROADMAP.md queue 1 item 1c
-COMBINE_OPS = {"add": (0, "sum"), "min": (0xFFFFFFFF, "amin"),
-               "max": (0, "amax")}
+COMBINE_OPS = ("add", "min", "max")
 
 #: per-word folds of a stored value with an operand, in the order of the
 #: kernels' op codes (``csrc/cops.cu``: kAdd .. kSatAdd), all on u32
 FOLD_OPS = ("add", "min", "max", "sat_add")
 
 _BITWISE = ("or", "and", "xor")
+
+#: fold op -> (identity as u32, ``scatter_reduce`` reduction of a run of
+#: operands in int64) for ``fold_rest``
+_FOLD_REDUCE = {"add": (0, "sum"), "min": (0xFFFFFFFF, "amin"),
+                "max": (0, "amax"), "sat_add": (0, "sum")}
 
 
 def _tstatic(table):
@@ -166,6 +172,25 @@ def fold_words(spec, old, x):
     return as_word(torch.stack(out, dim=1)) if out else old
 
 
+def fold_rest(spec, rest_rep, operand, m):
+    """Per representative, the ``spec`` fold of the operands of the
+    elements that ``rest_rep`` maps to it -> (m, V) int32 words, the op's
+    identity where none: ``operand`` (n, V) int32 words, ``rest_rep`` (n,)
+    int32 positions in [0, m) or -1 (not folded).  Folding the result into
+    a value gives what folding each operand in one by one gives: add wraps
+    mod 2^32, sat_add sums exactly and stops at 0xFFFFFFFF."""
+    live = rest_rep >= 0
+    at = torch.where(live, rest_rep.to(_I64), m)
+    out = []
+    for w, name in enumerate(spec):
+        ident, reduce = _FOLD_REDUCE[name]
+        arena = torch.full((m + 1,), ident, dtype=_I64, device=operand.device)
+        arena.scatter_reduce_(0, at, as_u32(operand[:, w]), reduce)
+        red = arena[:m]
+        out.append(red.clamp(max=0xFFFFFFFF) if name == "sat_add" else red)
+    return as_word(torch.stack(out, dim=1))
+
+
 def _key_cols(keys):
     """(n, kw) view of a key batch: (n,) 1-word keys or (n, kw) planes."""
     return keys[:, None] if keys.ndim == 1 else keys
@@ -195,17 +220,17 @@ def pack_keys(keys):
     return (keys[:, 0].to(_I64) << 32) | as_u32(keys[:, 1])
 
 
-def _group_fast(keys, live):
+def _group_fast(keys, live, last=True):
     """Group structure for 1- or 2-word keys without any payload sort.
 
     Each element sorts as one word: a 1-word key as itself (the cheaper
     int32 sort), a two-word key as its ``pack_keys`` word.  Masked elements
     sort as a word whose plane 0 is EMPTY, which no user key holds, so they
-    never join a live group.  Returns ``(is_rep, rep_of, lww_of, gid,
+    never join a live group.  Returns ``(is_rep, rep_of, lww_of,
     has_dups)`` in batch order; ``rep_of`` / ``lww_of`` map every element
     to its group's first / last live element (``n`` / 0 for a group with
-    no live element), and ``gid`` to a group id in [0, n); each is the
-    element itself when the batch is duplicate-free.
+    no live element), itself when the batch is duplicate-free.  With
+    ``last`` False ``lww_of`` is None (one scatter less).
     """
     n = keys.shape[0]
     idx = torch.arange(n, dtype=_I64, device=keys.device)
@@ -220,29 +245,15 @@ def _group_fast(keys, live):
         gid = torch.searchsorted(sk, k)
         rep = torch.full((n,), n, dtype=_I64, device=keys.device)
         rep.scatter_reduce_(0, gid, torch.where(live, idx, n), "amin")
-        lww = torch.zeros((n,), dtype=_I64, device=keys.device)
-        lww.scatter_reduce_(0, gid, torch.where(live, idx, 0), "amax")
-        rep_of, lww_of = rep[gid], lww[gid]
+        rep_of, lww_of = rep[gid], None
+        if last:
+            lww = torch.zeros((n,), dtype=_I64, device=keys.device)
+            lww.scatter_reduce_(0, gid, torch.where(live, idx, 0), "amax")
+            lww_of = lww[gid]
     else:
-        gid = rep_of = lww_of = idx
+        rep_of = lww_of = idx
     is_rep = live & (rep_of == idx)
-    return is_rep, rep_of, lww_of, gid, has_dups
-
-
-def _scatter_combine(spec, gid, vals, contrib, at):
-    """The fold of ``vals[contrib]`` ((n, V) int32 words) per group of
-    ``gid`` and value word, by the combiner ``spec``, for the elements
-    ``at`` -> (len(at), V) int32 words.  A group with no contributor folds
-    to the op's identity; ``add`` wraps mod 2^32 (summed in int64)."""
-    n = gid.shape[0]
-    out = []
-    for w, name in enumerate(spec):
-        ident, reduce = COMBINE_OPS[name]
-        v = torch.where(contrib, as_u32(vals[:, w]), ident)
-        arena = torch.full((n,), ident, dtype=_I64, device=gid.device)
-        arena.scatter_reduce_(0, gid, v, reduce)
-        out.append(arena[gid[at]])
-    return as_word(torch.stack(out, dim=1))
+    return is_rep, rep_of, lww_of, has_dups
 
 
 # ---------------------------------------------------------------------------
@@ -476,7 +487,7 @@ def dedup(keys, values, mask=None):
     n = keys.shape[0]
     live = (torch.ones((n,), dtype=torch.bool, device=keys.device)
             if mask is None else mask)
-    is_rep, rep_of, lww_of, _, has_dups = _group_fast(keys, live)
+    is_rep, rep_of, lww_of, has_dups = _group_fast(keys, live)
     if mask is None and not has_dups:
         return keys, values, None
     rep_idx = torch.nonzero(is_rep).squeeze(1)
@@ -484,35 +495,34 @@ def dedup(keys, values, mask=None):
             (live, is_rep, rep_of, rep_idx))
 
 
-def update_front(keys, values, init, mask, combine, fold):
-    """The read-modify-write's dedup front end: ``(rep_keys, agg_all,
-    claim, groups)``.
+def update_front(keys, values, init, mask=None):
+    """The read-modify-write's dedup front end: ``(rep_keys, operand,
+    claim, rest_rep, groups)``.
 
-    One representative per distinct live key, in batch order.
-    ``agg_all`` ((m, V) words) is the ``combine`` fold of every live
-    operand of its group (``values``, (n, V)); ``claim`` is the value a
-    claim writes: the representative's ``init`` ((n, V)), with the fold of
-    the group's other live operands folded in by ``fold`` when it has any.
-    ``groups`` as in ``dedup``.
+    One representative per distinct live key, in batch order (the group's
+    first live element), with its own operand (``values``, (n, V) words)
+    and its ``init`` ((n, V)), the value it claims a slot with.
+    ``rest_rep`` ((n,) int32, or None when the batch holds no duplicate)
+    maps every other live element to its representative's position, and
+    the representatives and masked elements to -1: their operands fold
+    into the representative's slot after the walk.  ``groups`` as in
+    ``dedup``.
     """
     n = keys.shape[0]
     live = (torch.ones((n,), dtype=torch.bool, device=keys.device)
             if mask is None else mask)
-    is_rep, rep_of, lww_of, gid, has_dups = _group_fast(keys, live)
-    if not has_dups:
-        if mask is None:
-            return keys, values, init, None
-        rep_idx = torch.nonzero(is_rep).squeeze(1)
-        return (keys[rep_idx], values[rep_idx], init[rep_idx],
-                (live, is_rep, rep_of, rep_idx))
+    is_rep, rep_of, _, has_dups = _group_fast(keys, live, last=False)
+    if mask is None and not has_dups:
+        return keys, values, init, None, None
     rep_idx = torch.nonzero(is_rep).squeeze(1)
-    agg_all = _scatter_combine(combine, gid, values, live, rep_idx)
-    agg_tail = _scatter_combine(combine, gid, values, live & ~is_rep, rep_idx)
-    has_tail = (lww_of != rep_of)[rep_idx]
-    first = init[rep_idx]
-    claim = torch.where(has_tail[:, None], fold_words(fold, first, agg_tail),
-                        first)
-    return (keys[rep_idx], agg_all, claim, (live, is_rep, rep_of, rep_idx))
+    operand = values[rep_idx]
+    claim = operand if init is values else init[rep_idx]
+    groups = (live, is_rep, rep_of, rep_idx)
+    if not has_dups:
+        return keys[rep_idx], operand, claim, None, groups
+    pos = torch.cumsum(is_rep, 0, dtype=torch.int32) - 1
+    rest_rep = torch.where(live & ~is_rep, pos[rep_of.clamp(max=n - 1)], -1)
+    return keys[rep_idx], operand, claim, rest_rep, groups
 
 
 def _finish_fast(groups, rep_status):
@@ -555,28 +565,28 @@ def insert_single(table, keys, values, mask=None):
             _finish_fast(groups, rep_status))
 
 
-def update_single(table, keys, fold, combine, init, values, mask=None):
+def update_single(table, keys, fold, init, values, mask=None):
     """Bulk path for ``single_value.update_values`` (RMW upsert).
 
     ``keys`` ((n,) or (n, 2) planes), ``init`` and ``values`` ((n, V) int32
     words) and ``mask`` (bool or None) lie on the table's device; ``fold``
-    (``FOLD_OPS``) and ``combine`` (``COMBINE_OPS``) are per-word specs,
-    and ``combine`` must pre-aggregate the operand stream of ``fold``:
-    ``fold(fold(x, a), b) == fold(x, combine(a, b))``.  A present key
-    folds its group's ``agg_all`` in; an absent key claims a slot holding
-    ``fold(init_first, agg_tail)`` (or ``init_first`` alone), as the
-    sequential chain would.  The store is updated in place.
+    (``FOLD_OPS``) is a per-word spec whose folds commute.  A present key
+    folds every live operand of its group in; an absent key claims a slot
+    holding its first live element's ``init``, and the group's other live
+    operands fold into it, as the sequential chain would.  The store is
+    updated in place.
     """
     if keys.shape[0] == 0:
         return table, torch.zeros((0,), dtype=torch.int32, device=keys.device)
-    rkeys, agg_all, claim, groups = update_front(keys, values, init, mask,
-                                                 combine, fold)
+    rkeys, operand, claim, rest_rep, groups = update_front(keys, values,
+                                                           init, mask)
     _, scheme, seed, max_probes = _tstatic(table)
     update, table_keys = _cops(table, "update")
     rep_status = update(
-        table_keys, table.store["values"], rkeys, agg_all.contiguous(),
-        claim.contiguous(), ops=fold, seed=seed, scheme=scheme,
-        max_probes=max_probes, count=table.count)
+        table_keys, table.store["values"], rkeys, operand.contiguous(),
+        claim.contiguous(), rest_rep,
+        None if rest_rep is None else values.contiguous(), ops=fold,
+        seed=seed, scheme=scheme, max_probes=max_probes, count=table.count)
     inserted = int((rep_status == STATUS_INSERTED).sum())
     return (dataclasses.replace(table, count=table.count + inserted),
             _finish_fast(groups, rep_status))

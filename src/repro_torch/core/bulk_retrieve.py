@@ -67,7 +67,7 @@ def group_queries(keys, live):
     ``(is_rep, rep_of)`` in batch order (``rep_of`` is ``n`` for elements
     whose key has no live occurrence).  Keys that differ in any plane,
     the high one included, never share a group."""
-    is_rep, rep_of, _, _, _ = bulk._group_fast(keys, live)
+    is_rep, rep_of, _, _ = bulk._group_fast(keys, live, last=False)
     return is_rep, rep_of
 
 

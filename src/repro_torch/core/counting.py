@@ -3,10 +3,10 @@
 A ``SingleValueHashTable`` whose value is a saturating u32 counter:
 inserting a key adds one to its counter, and an absent key starts at 1.
 Built on ``single_value.update_values`` with the fold ``("sat_add",)`` and
-the combiner ``("add",)``: the bulk engine sums each key's occurrences in
-the batch (n operands of 1 cannot wrap u32) and the kernel
-(``cops_update``) adds the sum to the stored counter, stopping at
-0xFFFFFFFF, where stepwise and combined increments agree.
+the combiner ``("add",)``: the kernel (``cops_update``) adds each
+occurrence to its key's counter, stopping at 0xFFFFFFFF.  The JAX engine
+sums a batch's occurrences first (n operands of 1 cannot wrap u32) and
+adds the sum; stepwise and combined increments agree.
 
 Tables live on the CUDA card unless ``device="cpu"`` (see
 ``single_value``).  Not ported: ``insert_or_grow`` and the ``stats=True``

@@ -300,10 +300,13 @@ def update_values(table: SingleValueHashTable, keys, update, init, mask=None,
     ``bulk.FOLD_OPS`` (``add``, ``min``, ``max``, ``sat_add``, all on u32)
     and ``combine`` of ``bulk.COMBINE_OPS``, the associative pre-aggregation
     of the operand stream (``update(update(x, a), b) == update(x,
-    combine(a, b))``), with which the bulk engine merges duplicates before
-    the one RMW per distinct key.  ``values`` carries a per-element operand
-    (default: ``init``, broadcast to the batch).  Returns (table, status
-    (n,) int32).  Callables, the bitwise specs and ``combine=None`` (the
+    combine(a, b))``), which says the duplicates of a key may fold in any
+    order: the bulk engine walks one representative per distinct key and
+    folds every other operand of its group into the representative's slot
+    (the JAX engine folds ``combine`` of them in once; the two agree
+    wherever ``combine`` meets that contract).  ``values`` carries a
+    per-element operand (default: ``init``, broadcast to the batch).
+    Returns (table, status (n,) int32).  Callables, the bitwise specs and ``combine=None`` (the
     JAX package's sequential reference) are not ported.
     """
     if combine is None:
@@ -329,5 +332,5 @@ def update_values(table: SingleValueHashTable, keys, update, init, mask=None,
     if values.shape[0] != n:
         raise ValueError(f"{values.shape[0]} values for {n} keys")
     two = (lambda x: x[:, None]) if vw == 1 else (lambda x: x)
-    return bulk.update_single(table, keys, update, combine, two(init),
+    return bulk.update_single(table, keys, update, two(init),
                               two(values), mask)

@@ -164,7 +164,8 @@ def check_insert(kernel_planes, plain_planes, kernel_status, plain_status, *,
 def check_update(kernel_planes, plain_planes, keys, claim, kernel_status,
                  plain_status, *, seed, scheme, max_probes) -> dict[str, bool]:
     """Parts 1-3 of the read-modify-write for one batch of distinct
-    representatives ``keys`` with claim values ``claim`` ((m, V) words);
+    representatives ``keys`` with the values ``claim`` ((m, V) words) that
+    each holds after the batch when it claims a slot;
     ``*_planes`` are (key planes, (V, p, W) value planes) after it.
     Returns ``{part: holds}``."""
     kw = dict(seed=seed, scheme=scheme, max_probes=max_probes)
@@ -412,22 +413,22 @@ def run_case(n: int, *, window: int, scheme: str, device, rho: float = 0.9,
     return checks
 
 
-#: the read-modify-writes the cases drive: name -> (fold, combine, operand
-#: of plane 0: the element's value or 1); the group-by's aggregates carry
-#: (operand, 1) per element, the counting table 1
-UPDATES = {"sum": (("add", "add"), ("add", "add"), "value"),
-           "mean": (("add", "add"), ("add", "add"), "value"),
-           "count": (("add", "add"), ("add", "add"), "one"),
-           "min": (("min", "add"), ("min", "add"), "value"),
-           "max": (("max", "add"), ("max", "add"), "value"),
-           "counting": (("sat_add",), ("add",), "one")}
+#: the read-modify-writes the cases drive: name -> (fold, operand of plane
+#: 0: the element's value or 1); the group-by's aggregates carry (operand,
+#: 1) per element, the counting table 1
+UPDATES = {"sum": (("add", "add"), "value"),
+           "mean": (("add", "add"), "value"),
+           "count": (("add", "add"), "one"),
+           "min": (("min", "add"), "value"),
+           "max": (("max", "add"), "value"),
+           "counting": (("sat_add",), "one")}
 
 
 def update_batch(keys, salt, what):
     """(n, V) operands of ``UPDATES[what]`` for the batch ``keys``: a
     value word per element (``values_for``) or 1 in plane 0, 1 in plane
     1."""
-    fold, _, operand = UPDATES[what]
+    fold, operand = UPDATES[what]
     n, dev = keys.shape[0], keys.device
     ones = torch.ones((n,), dtype=torch.int32, device=dev)
     first = values_for(keys, salt) if operand == "value" else ones
@@ -446,7 +447,8 @@ def run_update_case(n: int, *, window: int, scheme: str, device,
     Batch 1: ``n`` elements over ``groups`` distinct keys (``case_keys``,
     default n / 4; groups / ``rho`` slots, so ``rho`` > 1 fills the table
     and reports FULL), 1/16 masked, through the torch front end
-    (``bulk.update_front``: one representative per key).  Then 1/8 of the
+    (``bulk.update_front``: one representative per key, the other rows
+    folded into its slot).  Then 1/8 of the
     groups are erased (tombstones); for ``"counting"`` 64 counters are set
     to 0xFFFFFFF0.  Batch 2: n/4 elements, half of present groups, half
     drawn from groups / 8 new keys (and for ``"counting"`` each of those
@@ -458,7 +460,7 @@ def run_update_case(n: int, *, window: int, scheme: str, device,
     for ``"counting"``, the present ones of the 64 saturated.
     """
     from repro_torch.core import single_value
-    fold, combine, _ = UPDATES[what]
+    fold = UPDATES[what][0]
     vw = len(fold)
     groups = groups or max(16, n // 4)
     table = single_value.create(int(groups / rho), window=window,
@@ -480,11 +482,15 @@ def run_update_case(n: int, *, window: int, scheme: str, device,
     def rmw(tag, batch, live):
         nonlocal count
         vals = update_batch(batch, len(checks), what)
-        rkeys, agg, claim, _ = bulk.update_front(batch, vals, vals, live,
-                                                 combine, fold)
-        ks = update(*kernel, rkeys, agg, claim, ops=fold, count=count, **kw)
-        ps = ops.update_plain(*plain, rkeys, agg, claim, ops=fold,
+        rkeys, x, claim, rest, _ = bulk.update_front(batch, vals, vals, live)
+        more = () if rest is None else (rest, vals)
+        ks = update(*kernel, rkeys, x, claim, *more, ops=fold, count=count,
+                    **kw)
+        ps = ops.update_plain(*plain, rkeys, x, claim, *more, ops=fold,
                               count=count, **kw)
+        if rest is not None:    # what a new key holds after its group
+            claim = bulk.fold_words(fold, claim, bulk.fold_rest(
+                fold, rest, vals, rkeys.shape[0]))
         for part, ok in check_update(kernel, plain, rkeys, claim, ks, ps,
                                      **kw).items():
             checks[f"{tag}_{part}"] = ok

@@ -93,24 +93,34 @@
 // window, so pass 2 lands where the one-pass walk would.  On an empty store
 // the wrapper skips pass 1.
 //
-// The read-modify-write (cops_update, cops_update64) is the upsert with
-// other value writes: on a match each value plane p of the slot becomes
-// fold_p(old, operand_p) (add, min, max or the counting table's saturating
-// add, all on u32), on a claim it takes the key's claim value.  The torch
-// front end hands it one representative per distinct key (the group's
-// first live element) with the fold of every operand of its group and the
-// claim value fold(init, the fold of the rest); the statuses fan out to the
-// batch in torch.  The keys are distinct, so one group writes each slot's
-// values and the fold is a plain read-modify-write, no atomics: atomics on
-// the value planes would take the batch undeduplicated, but then which
-// duplicate reports INSERTED would follow the race, not the batch order.
-// The value planes, and what a kernel writes into them, are a `Values`
-// descriptor, a template over the plane count and store-or-fold: the
-// upsert and the append store (one plane, or none for a hash set), the
-// update folds into one or two planes.  The two-plane
-// update runs the two-plane insert's two passes (the match pass folds).
-// What bounds it is the walk, as for the insert, plus one 32-byte sector
-// per value plane read and written per representative.
+// The read-modify-write (cops_update, cops_update64) folds every live row
+// of a batch into the value planes: fold_p(old, operand_p) per value plane
+// p (add, min, max or the counting table's saturating add, all on u32).
+// The torch front end picks one representative per distinct key (the
+// group's first live element) and maps every other live row to it.  The
+// update then runs two launches:
+//   1. the walk, over the representatives: the upsert's walk (the
+//      two-plane insert's two passes for two-plane keys), where a match
+//      folds the representative's own operand into the slot and a claim
+//      writes its init value; each records its slot (-1 when FULL);
+//   2. the fold, one thread per row of the batch: every other live row
+//      folds its operand into its representative's slot with an atomic
+//      (atomicAdd, atomicMin, atomicMax on unsigned words; an atomicCAS
+//      loop for the saturating add).  Rows of a FULL representative fold
+//      nowhere.
+// The folds commute on u32, so the order of the atomics cannot change the
+// result, and the walk's keys are distinct, so one group writes each slot
+// in launch 1.  Walking the batch undeduplicated would save the front end,
+// but then which duplicate reports INSERTED would follow the race, not the
+// batch order; the statuses fan out to the batch in torch.  The value
+// planes, and what a walk writes into them, are a `Values` descriptor, a
+// template over the plane count and store-or-fold: the upsert and the
+// append store (one plane, or none for a hash set), the update folds into
+// one or two planes.  What bounds the update is the walk, as for the
+// insert, one 32-byte sector per value plane per representative, written
+// on a claim and read and written on a match, and the rows' streams; the
+// atomics of a group's rows hit the sectors its representative already
+// holds in L2.
 //
 // The append has no dedup front end: every pair is its own claimer, and
 // the consecutive duplicates of a multi-value batch start on the same row
@@ -253,6 +263,10 @@ __device__ __forceinline__ uint32_t fold(int op, uint32_t a, uint32_t b) {
   }
 }
 
+__device__ __forceinline__ uint32_t load_volatile(const uint32_t* p) {
+  return *reinterpret_cast<const volatile uint32_t*>(p);
+}
+
 // A batch element's value words: the operands folded in on a match, the
 // words written on a claim.
 template <int V>
@@ -276,6 +290,7 @@ struct Values {
   int ops;                   // op of plane p in bits 4p .. 4p + 3 (FOLD)
   const uint32_t* operand;   // (n, V)
   const uint32_t* claimv;    // (n, V)
+  long long* slot;           // (n,) slot of each key, -1 FULL (FOLD; or null)
 
   __device__ Row<V> load(long long q) const {
     Row<V> r;
@@ -298,7 +313,26 @@ struct Values {
 #pragma unroll
     for (int p = 0; p < V; ++p) tv[p * plane + at] = r.claimv[p];
   }
+  // the slot key q landed in (matched or claimed), -1 when FULL
+  __device__ void record(long long q, long long at) const {
+    if (FOLD && slot) slot[q] = at;
+  }
 };
+
+// fold(op, *at, x) as one atomic read-modify-write
+__device__ __forceinline__ void atomic_fold(int op, uint32_t* at, uint32_t x) {
+  switch (op) {
+    case kAdd: atomicAdd(at, x); break;
+    case kMin: atomicMin(at, x); break;
+    case kMax: atomicMax(at, x); break;
+    default: {  // kSatAdd
+      uint32_t seen = load_volatile(at), old;
+      while (seen != 0xFFFFFFFFu &&
+             (old = atomicCAS(at, seen, fold(kSatAdd, seen, x))) != seen)
+        seen = old;
+    }
+  }
+}
 
 // The G lanes of a warp that walk one key together.
 struct Group {
@@ -328,10 +362,6 @@ __device__ __forceinline__ Group make_group(int size) {
 
 __device__ __forceinline__ int group_size(const Walk& w) {
   return w.window < 32 ? (int)w.window : 32;
-}
-
-__device__ __forceinline__ uint32_t load_volatile(const uint32_t* p) {
-  return *reinterpret_cast<const volatile uint32_t*>(p);
 }
 
 // The read-only walk of key k: its flat slot (row * W + lane), or -1 when
@@ -428,6 +458,7 @@ upsert_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
   uint32_t row = first_row(w, k.word);
 
   int st = kFull;
+  long long at = -1;
   uint32_t cand_row = 0;
   int cand_lane = -1;
   long long cand_attempt = 0;
@@ -445,8 +476,8 @@ upsert_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
       any_empty |= eb != 0;
     }
     if (mlane >= 0) {
-      if (g.lane == 0)
-        vals.matched(vals.load(q), (size_t)row * w.window + mlane);
+      at = (long long)row * w.window + mlane;
+      if (g.lane == 0) vals.matched(vals.load(q), (size_t)at);
       st = kUpdated;
       break;
     }
@@ -461,14 +492,16 @@ upsert_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
 
   if (st != kUpdated && cand_lane >= 0) {
     const Row<V> r = vals.load(q);
-    const long long at = claim<1>(tk, w, g, cand_row, cand_lane,
-                                  cand_attempt, step, k);
+    at = claim<1>(tk, w, g, cand_row, cand_lane, cand_attempt, step, k);
     if (at >= 0) {
       if (g.lane == 0) vals.claimed(r, (size_t)at);
       st = kInserted;
     }
   }
-  if (g.lane == 0) status[q] = st;
+  if (g.lane == 0) {
+    status[q] = st;
+    vals.record(q, at);
+  }
 }
 
 // Pass 1 of the two-plane upsert and update: write (or fold into) the
@@ -487,6 +520,7 @@ match_kernel(const uint32_t* __restrict__ tk, Values<V, FOLD> vals,
   if (g.lane == 0) {
     if (hit >= 0) vals.matched(vals.load(q), (size_t)hit);
     status[q] = hit >= 0 ? kUpdated : kFull;
+    vals.record(q, hit);
   }
 }
 
@@ -511,7 +545,27 @@ append_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
   if (g.lane == 0) {
     if (at >= 0) vals.claimed(r, (size_t)at);
     status[q] = at >= 0 ? kInserted : kFull;
+    vals.record(q, at);
   }
+}
+
+// Launch 2 of the update: row i of the batch folds its operand into the
+// slot of its representative rest_rep[i] (-1: a representative or a
+// masked row, which fold nothing here), unless that one is FULL.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(Values<V, true> vals, const int* __restrict__ rest_rep,
+            const uint32_t* __restrict__ rest_operand, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int r = rest_rep[i];
+  if (r < 0) return;
+  const long long at = vals.slot[r];
+  if (at < 0) return;
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+    atomic_fold((vals.ops >> (4 * p)) & 15, vals.tv + p * vals.plane + at,
+                rest_operand[i * V + p]);
 }
 
 // VALUES: read the value of each key found (false: a hash set, no value
@@ -619,18 +673,6 @@ unsigned blocks_for(long long n, int window) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
-template <int V, bool FOLD>
-Values<V, FOLD> make_values(void* table_values, unsigned num_rows, int window,
-                            int ops, const void* operand,
-                            const void* claimv) {
-  Values<V, FOLD> v;
-  v.tv = (uint32_t*)table_values;
-  v.plane = (size_t)num_rows * (size_t)window;
-  v.ops = ops;
-  v.operand = (const uint32_t*)operand;
-  v.claimv = (const uint32_t*)claimv;
-  return v;
-}
 
 template <int KW>
 int lookup(const void* table_keys, const void* table_values, const void* keys,
@@ -654,13 +696,43 @@ int lookup(const void* table_keys, const void* table_values, const void* keys,
 }
 
 // The write-back of a launch: the V value planes at `table_values`, folded
-// into (FOLD) or stored, from the (n, V) `operand` and `claimv` batches.
+// into (FOLD) or stored, from the (n, V) `operand` and `claimv` batches;
+// for the update, the (n_rest,) `rest_rep` and (n_rest, V) `rest_operand`
+// rows that fold in after the walk, through the (n,) `slot` scratch the
+// walk records (all null, and n_rest 0, for a batch with no such row).
 struct Writes {
   void* table_values;
   int ops;
   const void* operand;
   const void* claimv;
+  void* slot;
+  const void* rest_rep;
+  const void* rest_operand;
+  long long n_rest;
 };
+
+template <int V, bool FOLD>
+Values<V, FOLD> make_values(const Writes& wr, unsigned num_rows, int window) {
+  Values<V, FOLD> v;
+  v.tv = (uint32_t*)wr.table_values;
+  v.plane = (size_t)num_rows * (size_t)window;
+  v.ops = wr.ops;
+  v.operand = (const uint32_t*)wr.operand;
+  v.claimv = (const uint32_t*)wr.claimv;
+  v.slot = (long long*)wr.slot;
+  return v;
+}
+
+// Launch 2 of the update (see the header), after the walk on one stream.
+template <int V>
+int fold_rest(const Writes& wr, unsigned num_rows, int window, void* stream) {
+  if (wr.n_rest <= 0) return 0;
+  fold_kernel<V><<<(unsigned)((wr.n_rest + kThreads - 1) / kThreads),
+                   kThreads, 0, (cudaStream_t)stream>>>(
+      make_values<V, true>(wr, num_rows, window), (const int*)wr.rest_rep,
+      (const uint32_t*)wr.rest_operand, wr.n_rest);
+  return (int)cudaGetLastError();
+}
 
 // One walk per 1-word key: the upsert (a store) or the update (FOLD).
 template <int V, bool FOLD>
@@ -669,9 +741,7 @@ int upsert(void* table_keys, const Writes& wr, const void* keys,
            unsigned seed, int linear, long long max_probes, void* stream) {
   upsert_kernel<V, FOLD><<<blocks_for(n, window), kThreads, 0,
                            (cudaStream_t)stream>>>(
-      (uint32_t*)table_keys,
-      make_values<V, FOLD>(wr.table_values, num_rows, window, wr.ops,
-                           wr.operand, wr.claimv),
+      (uint32_t*)table_keys, make_values<V, FOLD>(wr, num_rows, window),
       (const uint32_t*)keys, (int*)status, n,
       make_walk(num_rows, window, seed, linear, max_probes));
   return (int)cudaGetLastError();
@@ -686,8 +756,7 @@ int append(void* table_keys, const Writes& wr, const void* keys,
            unsigned seed, int linear, long long max_probes, int match_pass,
            void* stream) {
   const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
-  const Values<V, FOLD> vals = make_values<V, FOLD>(
-      wr.table_values, num_rows, window, wr.ops, wr.operand, wr.claimv);
+  const Values<V, FOLD> vals = make_values<V, FOLD>(wr, num_rows, window);
   if (match_pass) {
     match_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0,
                                 (cudaStream_t)stream>>>(
@@ -703,9 +772,28 @@ int append(void* table_keys, const Writes& wr, const void* keys,
   return (int)cudaGetLastError();
 }
 
+// The walk of V value planes: of 1-word keys in one pass (KW = 1 and
+// `match_pass` < 0: `upsert`), or the append's / the two-plane passes
+// (`append`); for the update (FOLD), then launch 2, the rows' folds.
+template <int KW, int V, bool FOLD>
+int walk(void* table_keys, const Writes& wr, const void* keys, void* status,
+         long long n, unsigned num_rows, int window, unsigned seed,
+         int linear, long long max_probes, int match_pass, void* stream) {
+  const int rc =
+      KW == 1 && match_pass < 0
+          ? upsert<V, FOLD>(table_keys, wr, keys, status, n, num_rows,
+                            window, seed, linear, max_probes, stream)
+          : append<KW, V, FOLD>(table_keys, wr, keys, status, n, num_rows,
+                                window, seed, linear, max_probes,
+                                match_pass > 0, stream);
+  if constexpr (FOLD) {
+    if (rc == 0) return fold_rest<V>(wr, num_rows, window, stream);
+  }
+  return rc;
+}
+
 // The instantiation for `value_words` planes (0 only with a null
-// `table_values`: a hash set) and FOLD: a walk of 1-word keys (KW = 1,
-// `upsert`) or the append's / the two-plane passes (`append`).
+// `table_values`: a hash set) and FOLD.
 template <int KW, bool FOLD>
 int launch(void* table_keys, const Writes& wr, int value_words,
            const void* keys, void* status, long long n, unsigned num_rows,
@@ -713,25 +801,14 @@ int launch(void* table_keys, const Writes& wr, int value_words,
            int match_pass, void* stream) {
   if (n <= 0) return 0;
   const int v = wr.table_values ? value_words : 0;
-  if (KW == 1 && match_pass < 0) {
-    if (v == 0) return upsert<0, FOLD>(table_keys, wr, keys, status, n,
+  if (v == 0) return walk<KW, 0, FOLD>(table_keys, wr, keys, status, n,
                                        num_rows, window, seed, linear,
-                                       max_probes, stream);
-    if (v == 1) return upsert<1, FOLD>(table_keys, wr, keys, status, n,
+                                       max_probes, match_pass, stream);
+  if (v == 1) return walk<KW, 1, FOLD>(table_keys, wr, keys, status, n,
                                        num_rows, window, seed, linear,
-                                       max_probes, stream);
-    return upsert<2, FOLD>(table_keys, wr, keys, status, n, num_rows, window,
-                           seed, linear, max_probes, stream);
-  }
-  const int pass = match_pass > 0;
-  if (v == 0) return append<KW, 0, FOLD>(table_keys, wr, keys, status, n,
-                                         num_rows, window, seed, linear,
-                                         max_probes, pass, stream);
-  if (v == 1) return append<KW, 1, FOLD>(table_keys, wr, keys, status, n,
-                                         num_rows, window, seed, linear,
-                                         max_probes, pass, stream);
-  return append<KW, 2, FOLD>(table_keys, wr, keys, status, n, num_rows,
-                             window, seed, linear, max_probes, pass, stream);
+                                       max_probes, match_pass, stream);
+  return walk<KW, 2, FOLD>(table_keys, wr, keys, status, n, num_rows, window,
+                           seed, linear, max_probes, match_pass, stream);
 }
 
 template <int KW>
@@ -748,6 +825,12 @@ int retrieve(const void* table_keys, const void* keys, const void* active,
   return (int)cudaGetLastError();
 }
 
+// The stores of the insert and the append: `values` into one plane (or
+// none), no folds.
+Writes plain_writes(void* table_values, const void* values) {
+  return {table_values, 0, values, values, nullptr, nullptr, nullptr, 0};
+}
+
 }  // namespace
 
 // Every entry point launches on `stream`, allocates nothing, does not
@@ -761,7 +844,7 @@ extern "C" int cops_insert(void* table_keys, void* table_values,
                            long long n, unsigned num_rows, int window,
                            unsigned seed, int linear, long long max_probes,
                            void* stream) {
-  return launch<1, false>(table_keys, {table_values, 0, values, values}, 1,
+  return launch<1, false>(table_keys, plain_writes(table_values, values), 1,
                           keys, status, n, num_rows, window, seed, linear,
                           max_probes, -1, stream);
 }
@@ -774,37 +857,51 @@ extern "C" int cops_insert64(void* table_keys, void* table_values,
                              int window, unsigned seed, int linear,
                              long long max_probes, int match_pass,
                              void* stream) {
-  return launch<2, false>(table_keys, {table_values, 0, values, values}, 1,
+  return launch<2, false>(table_keys, plain_writes(table_values, values), 1,
                           keys, status, n, num_rows, window, seed, linear,
                           max_probes, match_pass, stream);
 }
 
-// The read-modify-write of DISTINCT keys: `table_values` is `value_words`
-// (1 or 2) (p, W) planes, `operand` and `claimv` (n, value_words); `ops`
-// holds the fold of value plane p in bits 4p .. 4p + 3 (0 add, 1 min, 2
-// max, 3 saturating add, all u32).
+// The read-modify-write of a batch (see the header): `keys` the n DISTINCT
+// representatives with their (n, value_words) `operand` and `claimv`
+// (init) words; `table_values` is `value_words` (1 or 2) (p, W) planes;
+// `ops` holds the fold of value plane p in bits 4p .. 4p + 3 (0 add, 1
+// min, 2 max, 3 saturating add, all u32).  Then the batch's (n_rest,)
+// `rest_rep` (the representative of each other live row, -1 for none)
+// and (n_rest, value_words) `rest_operand` fold in, through the (n,) int64
+// `slot` scratch; with n_rest = 0 these three may be null.
 extern "C" int cops_update(void* table_keys, void* table_values,
                            const void* keys, const void* operand,
-                           const void* claimv, void* status, long long n,
-                           unsigned num_rows, int window, unsigned seed,
-                           int linear, long long max_probes, int value_words,
-                           int ops, void* stream) {
-  return launch<1, true>(table_keys, {table_values, ops, operand, claimv},
-                         value_words, keys, status, n, num_rows, window,
-                         seed, linear, max_probes, -1, stream);
+                           const void* claimv, void* status, void* slot,
+                           const void* rest_rep, const void* rest_operand,
+                           long long n, unsigned num_rows, int window,
+                           unsigned seed, int linear, long long max_probes,
+                           int value_words, int ops, long long n_rest,
+                           void* stream) {
+  return launch<1, true>(
+      table_keys,
+      {table_values, ops, operand, claimv, slot, rest_rep, rest_operand,
+       n_rest},
+      value_words, keys, status, n, num_rows, window, seed, linear,
+      max_probes, -1, stream);
 }
 
-// cops_update for two-plane keys, in the two passes of cops_insert64.
+// cops_update for two-plane keys: its walk is the two passes of
+// cops_insert64.
 extern "C" int cops_update64(void* table_keys, void* table_values,
                              const void* keys, const void* operand,
-                             const void* claimv, void* status, long long n,
-                             unsigned num_rows, int window, unsigned seed,
-                             int linear, long long max_probes,
-                             int value_words, int ops, int match_pass,
-                             void* stream) {
-  return launch<2, true>(table_keys, {table_values, ops, operand, claimv},
-                         value_words, keys, status, n, num_rows, window,
-                         seed, linear, max_probes, match_pass, stream);
+                             const void* claimv, void* status, void* slot,
+                             const void* rest_rep, const void* rest_operand,
+                             long long n, unsigned num_rows, int window,
+                             unsigned seed, int linear, long long max_probes,
+                             int value_words, int ops, long long n_rest,
+                             int match_pass, void* stream) {
+  return launch<2, true>(
+      table_keys,
+      {table_values, ops, operand, claimv, slot, rest_rep, rest_operand,
+       n_rest},
+      value_words, keys, status, n, num_rows, window, seed, linear,
+      max_probes, match_pass, stream);
 }
 
 extern "C" int cops_lookup(const void* table_keys, const void* table_values,
@@ -830,7 +927,7 @@ extern "C" int cops_append(void* table_keys, void* table_values,
                            long long n, unsigned num_rows, int window,
                            unsigned seed, int linear, long long max_probes,
                            void* stream) {
-  return launch<1, false>(table_keys, {table_values, 0, values, values}, 1,
+  return launch<1, false>(table_keys, plain_writes(table_values, values), 1,
                           keys, status, n, num_rows, window, seed, linear,
                           max_probes, 0, stream);
 }
@@ -840,7 +937,7 @@ extern "C" int cops_append64(void* table_keys, void* table_values,
                              void* status, long long n, unsigned num_rows,
                              int window, unsigned seed, int linear,
                              long long max_probes, void* stream) {
-  return launch<2, false>(table_keys, {table_values, 0, values, values}, 1,
+  return launch<2, false>(table_keys, plain_writes(table_values, values), 1,
                           keys, status, n, num_rows, window, seed, linear,
                           max_probes, 0, stream);
 }

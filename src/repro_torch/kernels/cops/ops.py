@@ -17,10 +17,12 @@ word, which holds the sentinels):
   ``cops_retrieve`` / ``cops_retrieve64``;
 - ``bucket_walk`` (the bucket list's chain walk over its value pool: the
   (query, rank) pool arena of pre-probed handles) -> ``cops_bucket_walk``;
-- ``update`` / ``update64`` (the read-modify-write upsert of distinct
-  keys behind the counting table and the group-by: fold an operand into a
-  present key's value planes, or claim a slot holding the claim value) ->
-  ``cops_update`` / ``cops_update64``.
+- ``update`` / ``update64`` (the read-modify-write behind the counting
+  table and the group-by: the walk of distinct representatives folds each
+  one's operand into a present key's value planes, or claims a slot
+  holding its claim value; then every other row of the batch folds its
+  operand into its representative's slot) -> ``cops_update`` /
+  ``cops_update64``.
 
 ``insert`` and ``lookup`` (and their twins) also take a table with no
 value plane (``table_values=None``, a hash set): the insert then takes no
@@ -37,7 +39,8 @@ one for each pair of twins, over (p, W) or (kw, p, W) key planes:
 ``repro.core.bulk.insert_multi``), ``retrieve_walk_plain`` (the port of
 ``repro.core.bulk_retrieve.fused_walk``), ``bucket_walk_plain`` (the
 port of ``repro.core.bucket_list.chain_arena``) and ``update_plain``
-(probe -> placement -> ``bulk.fold_words``, as
+(probe -> placement -> ``bulk.fold_words``, then the rows' folds through
+``bulk.fold_rest``; with ``bulk.update_front`` bit-exact against
 ``repro.core.bulk.update_single``), each bit-exact against the JAX
 engine.  A match holds on every key plane; the walk's row and step come
 from the key's probe word (``single_value.key_hash_word``).  On any other
@@ -114,13 +117,15 @@ def _upsert_plain(table_keys, table_values, keys, operand, claimv, fold, *,
     """The bulk engine's lane over DISTINCT keys, in place: a matched key's
     value words become ``fold(old, operand)`` (``fold`` None: the
     operand), a placed claimer writes ``claimv``; (m, V) words each.
-    Status (m,) int32 (INSERTED / UPDATED / FULL)."""
+    Returns (status (m,) int32: INSERTED / UPDATED / FULL, the flat slot
+    (m,) int64 each key landed in, -1 when FULL)."""
     kps = _planes(table_keys)
     vps = _value_planes(table_values, kps)
     tstat = _tstatic(kps, scheme, seed, max_probes, vps.shape[0])
     ops = tstat[0]
     store = {"keys": kps, "values": vps}
     status = torch.empty(keys.shape[:1], dtype=torch.int32, device=keys.device)
+    slot = torch.empty(keys.shape[:1], dtype=torch.int64, device=keys.device)
     for s in range(0, keys.shape[0], PLAIN_CHUNK):
         k = keys[s:s + PLAIN_CHUNK]
         x, c = operand[s:s + PLAIN_CHUNK], claimv[s:s + PLAIN_CHUNK]
@@ -138,7 +143,10 @@ def _upsert_plain(table_keys, table_values, keys, operand, claimv, fold, *,
         status[s:s + PLAIN_CHUNK] = torch.where(
             matched, STATUS_UPDATED,
             torch.where(placed, STATUS_INSERTED, STATUS_FULL))
-    return status
+        slot[s:s + PLAIN_CHUNK] = torch.where(
+            matched, mrow * ops.window + mlane,
+            torch.where(placed, crow * ops.window + clane, -1))
+    return status, slot
 
 
 def insert_plain(table_keys, table_values, keys, values, *, seed, scheme,
@@ -151,18 +159,31 @@ def insert_plain(table_keys, table_values, keys, values, *, seed, scheme,
          else values[:, None])
     return _upsert_plain(table_keys, table_values, keys, v, v, None,
                          seed=seed, scheme=scheme, max_probes=max_probes,
-                         count=count)
+                         count=count)[0]
 
 
-def update_plain(table_keys, table_values, keys, operand, claimv, *, ops,
-                 seed, scheme, max_probes, count):
-    """The read-modify-write of DISTINCT keys over the (V, p, W) value
-    planes, in place: a present key's value word w becomes ``ops[w](old,
-    operand[:, w])`` (``bulk.FOLD_OPS``), an absent key claims a slot
-    holding ``claimv``; status (m,) int32 (INSERTED / UPDATED / FULL)."""
-    return _upsert_plain(table_keys, table_values, keys, operand, claimv,
-                         tuple(ops), seed=seed, scheme=scheme,
-                         max_probes=max_probes, count=count)
+def update_plain(table_keys, table_values, keys, operand, claimv,
+                 rest_rep=None, rest_operand=None, *, ops, seed, scheme,
+                 max_probes, count):
+    """The read-modify-write over the (V, p, W) value planes, in place.
+
+    The DISTINCT ``keys`` walk first: a present key's value word w becomes
+    ``ops[w](old, operand[:, w])`` (``bulk.FOLD_OPS``), an absent key
+    claims a slot holding ``claimv``.  Then row i of ``rest_operand``
+    ((N, V) words) folds into the slot of key ``rest_rep[i]`` ((N,) int32,
+    -1 for none), unless that key is FULL.  Status (m,) int32 (INSERTED /
+    UPDATED / FULL)."""
+    ops = tuple(ops)
+    status, slot = _upsert_plain(table_keys, table_values, keys, operand,
+                                 claimv, ops, seed=seed, scheme=scheme,
+                                 max_probes=max_probes, count=count)
+    if rest_rep is not None:
+        vps = _value_planes(table_values, table_keys).view(len(ops), -1)
+        landed = slot >= 0
+        red = bulk.fold_rest(ops, rest_rep, rest_operand, keys.shape[0])
+        at = slot[landed]
+        vps[:, at] = bulk.fold_words(ops, vps[:, at].T, red[landed]).T
+    return status
 
 
 def lookup_plain(table_keys, table_values, keys, *, seed, scheme, max_probes,
@@ -320,8 +341,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args + [vp]     # ... and the stream
         fn.restype = ctypes.c_int
-    for name, args in (("cops_update", [vp] * 6 + walk + [i, i]),
-                       ("cops_update64", [vp] * 6 + walk + [i, i, i])):
+    for name, args in (("cops_update", [vp] * 9 + walk + [i, i, ll]),
+                       ("cops_update64", [vp] * 9 + walk + [i, i, ll, i])):
         fn = getattr(lib, name)
         fn.argtypes = args + [vp]
         fn.restype = ctypes.c_int
@@ -542,8 +563,8 @@ def retrieve_walk64(table_keys, keys, active, *, seed, scheme, max_probes,
                           collect=collect)
 
 
-def _update(key_words, table_keys, table_values, keys, operand, claimv, *,
-            ops, seed, scheme, max_probes, count):
+def _update(key_words, table_keys, table_values, keys, operand, claimv,
+            rest_rep, rest_operand, *, ops, seed, scheme, max_probes, count):
     ops = tuple(ops)
     if table_values.ndim != 3 or table_values.shape[0] not in (1, 2):
         raise ValueError(f"(V, p, W) value planes with V in (1, 2), got "
@@ -555,39 +576,59 @@ def _update(key_words, table_keys, table_values, keys, operand, claimv, *,
     if any(t.shape != (keys.shape[0], vw) for t in (operand, claimv)):
         raise ValueError(f"(n, {vw}) operands and claim values, got "
                          f"{tuple(operand.shape)} and {tuple(claimv.shape)}")
+    rest = _present(rest_rep, rest_operand)
+    if len(rest) == 1 or (rest and (
+            rest_rep.ndim != 1 or rest_rep.dtype != torch.int32
+            or rest_operand.shape != (rest_rep.shape[0], vw))):
+        raise ValueError(f"rest rows: (N,) int32 representatives beside "
+                         f"(N, {vw}) operands, or neither")
+    if rest and rest_rep.numel():
+        # the fold launch indexes the representatives' slots with them
+        lo, hi = (int(v) for v in torch.aminmax(rest_rep))
+        if lo < -1 or hi >= keys.shape[0]:
+            raise ValueError(f"rest representatives in [-1, {keys.shape[0]}),"
+                             f" got [{lo}, {hi}]")
     _check_geometry(key_words, table_keys, keys, list(table_values), [],
                     scheme)
-    if _on_cpu(table_keys, table_values, keys, operand, claimv):
+    if _on_cpu(table_keys, table_values, keys, operand, claimv, *rest):
         return update_plain(table_keys, table_values, keys, operand, claimv,
-                            ops=ops, seed=seed, scheme=scheme,
-                            max_probes=max_probes, count=count)
+                            rest_rep, rest_operand, ops=ops, seed=seed,
+                            scheme=scheme, max_probes=max_probes, count=count)
     n = keys.shape[0]
     status = torch.empty((n,), dtype=torch.int32, device=keys.device)
     if n:
+        n_rest = rest_rep.shape[0] if rest else 0
+        # where each representative landed, for the rows' folds
+        slot = (torch.empty((n,), dtype=torch.int64, device=keys.device)
+                if n_rest else None)
         codes = sum(bulk.FOLD_OPS.index(op) << 4 * w for w, op in enumerate(ops))
         # the two-plane update's first pass, as the insert's
-        extra = (vw, codes) + (() if key_words == 1 else (int(count > 0),))
+        extra = (vw, codes, n_rest) + (() if key_words == 1
+                                       else (int(count > 0),))
         _launch("cops_update" if key_words == 1 else "cops_update64",
                 table_keys, n, seed, scheme, max_probes, table_keys,
-                table_values, keys, operand, claimv, status, extra=extra)
+                table_values, keys, operand, claimv, status, slot,
+                rest_rep if n_rest else None,
+                rest_operand if n_rest else None, extra=extra)
     return status
 
 
-def update(table_keys, table_values, keys, operand, claimv, *, ops, seed,
-           scheme, max_probes, count):
-    """The read-modify-write of DISTINCT keys into the (V, p, W) value
-    planes in place (see ``update_plain``) -> status (m,) int32."""
+def update(table_keys, table_values, keys, operand, claimv, rest_rep=None,
+           rest_operand=None, *, ops, seed, scheme, max_probes, count):
+    """The read-modify-write of a batch into the (V, p, W) value planes in
+    place (see ``update_plain``) -> status (m,) int32 of the DISTINCT
+    ``keys``."""
     return _update(1, table_keys, table_values, keys, operand, claimv,
-                   ops=ops, seed=seed, scheme=scheme, max_probes=max_probes,
-                   count=count)
+                   rest_rep, rest_operand, ops=ops, seed=seed, scheme=scheme,
+                   max_probes=max_probes, count=count)
 
 
-def update64(table_keys, table_values, keys, operand, claimv, *, ops, seed,
-             scheme, max_probes, count):
+def update64(table_keys, table_values, keys, operand, claimv, rest_rep=None,
+             rest_operand=None, *, ops, seed, scheme, max_probes, count):
     """``update`` of DISTINCT (m, 2) keys into the (2, p, W) key planes."""
     return _update(2, table_keys, table_values, keys, operand, claimv,
-                   ops=ops, seed=seed, scheme=scheme, max_probes=max_probes,
-                   count=count)
+                   rest_rep, rest_operand, ops=ops, seed=seed, scheme=scheme,
+                   max_probes=max_probes, count=count)
 
 
 def bucket_walk(pool, ptr, cnt, bidx, active, sizes, cum):

@@ -3,11 +3,11 @@
 Every group key owns one slot of a ``SingleValueHashTable`` with two value
 words: plane 0 the aggregate's accumulator, plane 1 the group's
 cardinality.  ``update`` folds a batch in through
-``single_value.update_values``: the bulk engine merges each group's
-operands in torch (one representative per distinct key), and one
-read-modify-write per group (the ``cops_update`` kernel on the card,
-``cops_update64`` for two-word keys) folds them into the slot or claims a
-slot for a new group.  ``mean`` finalizes as float32 accumulator / count;
+``single_value.update_values``: the bulk engine picks one representative
+per distinct key in torch, and the ``cops_update`` kernel on the card
+(``cops_update64`` for two-word keys) walks the representatives, each
+folding its operand into its group's slot or claiming a slot for a new
+group, then folds every other row's operand into its group's slot.  ``mean`` finalizes as float32 accumulator / count;
 ``sum`` wraps mod 2^32, like the u32 arithmetic it is built on.
 
 Group keys may be composite: a tuple of u32 columns, an (n, key_words)

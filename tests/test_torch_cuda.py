@@ -410,7 +410,7 @@ def test_update_claims_race_beside_a_present_key(window, key_words):
     rows = probing.initial_row(key_hash_word(pool), t.num_rows, t.seed)
     same = pool[rows == 0][: p * window // 2]
     kw = dict(seed=t.seed, scheme=t.scheme, max_probes=bulk._tstatic(t)[3])
-    fold = combine = ("add", "add")
+    fold = ("add", "add")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(window)
     for rnd in range(60):
@@ -426,11 +426,13 @@ def test_update_claims_race_beside_a_present_key(window, key_words):
                                       keys[keys.shape[0] // 4:])):
             batch = torch.cat([batch, batch[:8]])          # duplicates
             vals = contract.update_batch(batch, rnd + step, "sum")
-            rk, agg, claim, _ = bulk.update_front(batch, vals, vals, None,
-                                                  combine, fold)
-            ks = update(*kernel, rk, agg, claim, ops=fold, count=count, **kw)
-            ps = ops.update_plain(*plain, rk, agg, claim, ops=fold,
+            rk, x, claim, rest, _ = bulk.update_front(batch, vals, vals)
+            ks = update(*kernel, rk, x, claim, rest, vals, ops=fold,
+                        count=count, **kw)
+            ps = ops.update_plain(*plain, rk, x, claim, rest, vals, ops=fold,
                                   count=count, **kw)
+            claim = bulk.fold_words(fold, claim, bulk.fold_rest(
+                fold, rest, vals, rk.shape[0]))
             parts = contract.check_update(kernel, plain, rk, claim, ks, ps,
                                           **kw)
             assert all(parts.values()), (rnd, step, parts)

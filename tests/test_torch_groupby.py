@@ -315,3 +315,55 @@ def test_tables_are_on_the_card_by_default():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             create(64)
         assert create(64, device="cpu").device.type == "cpu"
+
+
+_FOLDS = {"add": lambda a, b: (a + b) & 0xFFFFFFFF, "min": min, "max": max,
+          "sat_add": lambda a, b: min(a + b, 0xFFFFFFFF)}
+
+
+@pytest.mark.parametrize("fold", sorted(_FOLDS))
+def test_update_folds_every_row_in_batch_order(fold):
+    """``update_values`` gives the sequential chain's result: a present
+    key folds each live operand in turn, an absent key's first live
+    element claims a slot holding its ``init`` and the later ones fold
+    in (large operands, so sums wrap and the counter saturates).  The
+    representative walks, then every other row folds into its slot."""
+    from repro_torch.core import single_value as sv
+    rng = np.random.default_rng(11)
+    keys = rng.integers(1, 40, 300).astype(np.uint32)
+    vals = rng.integers(0, 2 ** 32, 300, dtype=np.uint32)
+    init = rng.integers(0, 2 ** 32, 300, dtype=np.uint32)
+    mask = rng.random(300) < 0.85
+    combine = "add" if fold == "sat_add" else fold
+    t = sv.create(128, device="cpu")
+    t, _ = sv.insert(t, np.arange(1, 20, dtype=np.uint32),
+                     np.full(19, 0xFFFFFF00, dtype=np.uint32))
+    want = {k: 0xFFFFFF00 for k in range(1, 20)}
+    for k, v, i, m in zip(keys.tolist(), vals.tolist(), init.tolist(),
+                          mask.tolist()):
+        if m:
+            want[k] = _FOLDS[fold](want[k], v) if k in want else i
+    t, st = sv.update_values(t, keys, (fold,), init, mask, values=vals,
+                             combine=(combine,))
+    got, found = sv.retrieve(t, np.array(sorted(want), dtype=np.uint32))
+    assert bool(found.all()) and t.count == len(want)
+    assert to_numpy_u32(got).tolist() == [want[k] for k in sorted(want)]
+    assert not bool((st == STATUS_FULL).any())
+
+
+def test_update_refuses_out_of_range_representatives():
+    """The fold's representatives index the walk's slots: the wrapper
+    refuses any outside [-1, m)."""
+    from repro_torch.core import single_value as sv
+    t = sv.create(64, value_words=2, device="cpu")
+    k = torch.arange(1, 5, dtype=torch.int32)
+    x = torch.ones((4, 2), dtype=torch.int32)
+    kw = dict(ops=("add", "add"), seed=t.seed, scheme=t.scheme,
+              max_probes=8, count=0)
+    for bad in ([0, 4], [-2, 1]):
+        with pytest.raises(ValueError, match="rest representatives"):
+            ops.update(t.store["keys"][0], t.store["values"], k, x, x,
+                       torch.tensor(bad, dtype=torch.int32), x[:2], **kw)
+    with pytest.raises(ValueError, match="or neither"):
+        ops.update(t.store["keys"][0], t.store["values"], k, x, x,
+                   torch.tensor([0, 1], dtype=torch.int32), None, **kw)

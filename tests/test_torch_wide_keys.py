@@ -441,9 +441,12 @@ def test_distinct_keys64():
 
 
 @pytest.mark.parametrize("create", [tsv.create, tmv.create])
-@pytest.mark.parametrize("kwargs", [{"key_words": 3}, {"value_words": 3},
-                                    {"key_words": 2, "value_words": 3}])
+@pytest.mark.parametrize("kwargs", [{"key_words": 3}, {"value_words": 2},
+                                    {"key_words": 2, "value_words": 2}])
 def test_wider_configurations_refuse_naming_item_2b(create, kwargs):
+    if create is tsv.create and "value_words" in kwargs:
+        # the single-value table carries two value words (the group-by's)
+        kwargs = {**kwargs, "value_words": 3}
     with pytest.raises(NotImplementedError, match="item 2b"):
         create(64, device="cpu", **kwargs)
 
