@@ -5,8 +5,9 @@
 
 Drives the port's paths — bulk build and bulk retrieval on the
 single-value COPS table, the paper's headline (§IV-B, Fig. 5), on the
-multi-value table and the bucket list (§IV-B.4, §IV-C, Fig. 7), and the
-metagenomics pipeline (§V-C, Fig. 8) — at the paper's scale, and holds
+multi-value table and the bucket list (§IV-B.4, §IV-C, Fig. 7), the
+metagenomics pipeline (§V-C, Fig. 8), the relational layer (fig9) and the
+bloom-filtered elastic service (fig12) — at the paper's scale, and holds
 every kernel of each path against its plain PyTorch version.  Phases, one
 status line each:
 
@@ -110,7 +111,33 @@ status line each:
     2^25- and 64-group sums and ``cops_update64`` alone on the composite
     group-by, each into an empty table (every group claims) and again into
     the table it filled (every group folds), against their plain versions,
-    timed, with byte bounds from each run's own statuses.
+    timed, with byte bounds from each run's own statuses;
+19. ``bloom_insert`` / ``bloom_query`` vs their plain versions at 2^20
+    keys (each ~4 times, half masked) for 256-, 512- and 1024-bit blocks,
+    k = 1, 4, 8, one filter and a stack of 8 with a plane per key, and an
+    empty batch: filter words and hits bit-exact;
+20. the elastic service (``serving/elastic.py``) at fig12's shape
+    (``benchmarks/fig12_serve.py:57-62``: 8 shards, 16 bloom bits per key,
+    slack 2.5) scaled to the card: 2^25 slots per shard (2^28 in all),
+    2^27 keys preloaded in batches of 2^24, then a warm-up step and 16
+    timed serve steps of 2^20
+    upserts (3/4 new keys, 1/4 live), 2^20 lookups (half live, half from a
+    disjoint absent range) and 2^18 erases of live keys, every status,
+    value, found and erased flag held against a table-free model of the
+    live set (sorted keys, last writer wins); step p50 / p99 from CUDA
+    events, steps/s, operations/s, the skip share of absent lookups, the
+    false-positive share and the step split (routing, shard inserts, bloom
+    kernels, shard lookups, erases, gathers); ``compact_all`` (the
+    advertised-dead share drops, no live key lost); then save through the
+    ``SnapshotWriter`` -> ``load`` (bit-exact shard planes) and ``reshard``
+    8 -> 16 (``check_ownership``) at 2^22 slots per shard, so the snapshot
+    on disk stays under 300 MiB.  The counters are zeroed just before and
+    read just after;
+21. ``bloom_insert`` and ``bloom_query`` alone at 2^28 keys into a filter
+    of 2^32 bits (next_prime(2^23) blocks of 512 bits, 512 MiB of words,
+    k = 4) and their plain versions, compared and timed, with byte bounds
+    from the sectors this run's keys touch, the compulsory floor beside
+    them, and the false-positive rate on 2^28 absent keys.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
@@ -156,6 +183,15 @@ REL_GROUPS = (64, 1024, 2 ** 25)
 REL_AGGS = ("sum", "count", "mean")
 N_COMPOSITE = 2 ** 24
 UPDATE_GROUPS = (64, 2 ** 16, 2 ** 19)
+# benchmarks/fig12_serve.py:57-62 (8 shards, 16 bloom bits per key, slack
+# 2.5; each step nb upserts, nb lookups, nb // 4 erases) scaled to the card
+EL_SHARDS, EL_BITS_PER_KEY, EL_SLACK = 8, 16, 2.5
+EL_CAPACITY = 2 ** 25     # per shard: 2^28 slots in all
+EL_PRELOAD, EL_PRELOAD_BATCH = 2 ** 27, 2 ** 24
+EL_NB, EL_STEPS = 2 ** 20, 16
+EL_SNAP_CAPACITY = 2 ** 22  # the save / load / reshard leg, per shard
+N_BLOOM = 2 ** 28         # phase 21: keys into a filter of 2^32 bits
+BLOOM_BITS = 2 ** 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper white paper; the guide's
 # table has no integer rate): 32-bit integer operations per second
@@ -164,8 +200,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # update of the forward and reverse words (6), validity (3), the min (1),
 # fmix32 (8: three xor-shifts, two multiplies) and the INVALID select (1)
 OPS_PER_KMER = 19
+# the fewest 32-bit operations per key of a bloom insert or query: the two
+# xor-ins (2), murmur3 twice and xxhash once (8 + 8 + 9), the block's
+# modulo and row address (3), and per bit a multiply-add, its mask and the
+# word / bit split (4 per bit, added at the call)
+OPS_PER_BLOOM_KEY = 30
 SOURCE = "src/repro_torch/kernels/cops/csrc/cops.cu"
 MINHASH_SOURCE = "src/repro_torch/kernels/minhash/csrc/minhash.cu"
+BLOOM_SOURCE = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
 REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
             "cops_lookup": "src/repro/kernels/cops/kernel.py:789",
             "cops_append": "src/repro/kernels/cops/kernel.py:103",
@@ -177,7 +219,9 @@ REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
             "cops_bucket_walk": "src/repro/kernels/cops/kernel.py:435",
             "cops_update": "src/repro/kernels/cops/kernel.py:203",
             "cops_update64": "src/repro/kernels/cops/kernel.py:203",
-            "kmer_hash": "src/repro/kernels/minhash/kernel.py:33"}
+            "kmer_hash": "src/repro/kernels/minhash/kernel.py:33",
+            "bloom_insert": "src/repro/kernels/bloom/kernel.py:45",
+            "bloom_query": "src/repro/kernels/bloom/kernel.py:83"}
 
 
 def card_line() -> str:
@@ -1539,6 +1583,401 @@ def update_kernel(torch, card, check, phase, cases, launches, name):
     return record
 
 
+def words_err(torch, a, b) -> int:
+    """Largest difference between two tensors of int32 words (as u32) or
+    bools."""
+    from repro_torch.core.common import as_u32
+    if a.numel() == 0:
+        return 0
+    if a.dtype == torch.bool:
+        return int((a.to(torch.int8) - b.to(torch.int8)).abs().max())
+    return int((as_u32(a) - as_u32(b)).abs().max())
+
+
+def bloom_cases(torch, check, phase):
+    """Phase 19: ``bloom_insert`` / ``bloom_query`` vs their plain versions
+    on the same card tensors at N_CHECK keys (each key ~4 times, half of
+    them masked), for 256-, 512- and 1024-bit blocks, k = 1, 4 and 8, one
+    filter and a stack of 8 with a plane per key, at 16 bits per key:
+    filter words and hits bit-exact, every inserted key hit, an empty batch
+    a no-op.  Returns the largest error."""
+    from repro_torch.core import bloom
+    from repro_torch.kernels.bloom import ops as bloom_ops
+    from repro_torch.kernels.cops import contract
+    t0 = time.perf_counter()
+    since = len(check.failed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    base = contract.distinct_keys(0, N_CHECK // 4, "cuda")
+    keys = base[torch.randint(0, base.shape[0], (N_CHECK,), generator=gen,
+                              device="cuda")]
+    mask = torch.rand((N_CHECK,), generator=gen, device="cuda") < 0.5
+    queries = torch.cat([keys, contract.distinct_keys(2 ** 31, N_CHECK,
+                                                      "cuda")])
+    empty = keys[:0]
+    err = cases = 0
+    for planes in (1, 8):
+        owners = (torch.randint(0, planes, (N_CHECK,), generator=gen,
+                                device="cuda") if planes > 1 else None)
+        qowners = None if owners is None else torch.cat([owners, owners])
+        for block_bits in (256, 512, 1024):
+            nb = bloom.num_blocks_for(16 * N_CHECK // planes, block_bits)
+            words = torch.zeros((planes, nb, block_bits // 32),
+                                dtype=torch.int32, device="cuda")
+            for k in (1, 4, 8):
+                kw = dict(k_hashes=k, seed=0x9E3779B9)
+                got = words.clone()
+                bloom_ops.insert_words(got, keys, mask, planes=owners, **kw)
+                bloom_ops.insert_words(got, empty, **kw)
+                want = bloom_ops.insert_plain(words.clone(), keys, mask,
+                                              planes=owners, **kw)
+                hit = bloom_ops.query_words(got, queries, planes=qowners, **kw)
+                want_hit = bloom_ops.query_plain(want, queries,
+                                                 planes=qowners, **kw)
+                err = max(err, words_err(torch, got, want),
+                          words_err(torch, hit, want_hit))
+                check(f"bloom P={planes} bits={block_bits} k={k} exact",
+                      torch.equal(got, want) and torch.equal(hit, want_hit))
+                check(f"bloom P={planes} bits={block_bits} k={k} no false "
+                      "negative", bool(hit[:N_CHECK][mask].all()))
+                check(f"bloom P={planes} bits={block_bits} k={k} empty",
+                      bloom_ops.query_words(got, empty, **kw).shape == (0,))
+                cases += 1
+    torch.cuda.synchronize()
+    print(f"phase {phase} bloom kernels vs plain n={N_CHECK} (x2 queries, "
+          f"half absent), {cases} cases (P 1 / 8, block bits 256 / 512 / "
+          f"1024, k 1 / 4 / 8, half masked, ~4 copies of each key, an empty "
+          f"batch): {check.status(since)}, max error {err} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return err
+
+
+def _percentile(torch, values, q) -> float:
+    return float(torch.quantile(torch.tensor(values, dtype=torch.float64),
+                                q / 100))
+
+
+def elastic_path(torch, card, check, phase):
+    """Phase 20: the elastic service at fig12's shape on one card (see the
+    module docstring).  The launch counters are zeroed just before and read
+    just after.  Returns the launches."""
+    import shutil
+    from repro_torch.core import bloom, hashing, snapshot
+    from repro_torch.core.common import (
+        STATUS_INSERTED,
+        STATUS_UPDATED,
+        as_u32,
+        as_word,
+    )
+    from repro_torch.kernels.bloom import ops as bloom_ops
+    from repro_torch.kernels.cops import contract, ops
+    from repro_torch.serving import elastic
+    since = len(check.failed)
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    bloom_ops.reset_launches()
+    st = elastic.create(EL_SHARDS, EL_CAPACITY,
+                        bloom_bits_per_key=EL_BITS_PER_KEY, slack=EL_SLACK,
+                        device=dev)
+    keys = contract.distinct_keys(0, EL_PRELOAD, dev)
+    vals = contract.values_for(keys, 20)
+    t0 = time.perf_counter()
+    ok = True
+    for s in range(0, EL_PRELOAD, EL_PRELOAD_BATCH):
+        st, status = elastic.insert(st, keys[s:s + EL_PRELOAD_BATCH],
+                                    vals[s:s + EL_PRELOAD_BATCH])
+        ok &= bool((status == STATUS_INSERTED).all())
+    torch.cuda.synchronize()
+    preload_s = time.perf_counter() - t0
+    check("elastic preload all INSERTED",
+          ok and elastic.count(st) == EL_PRELOAD)
+    slots = sum(t.capacity for t in st.shards)
+    print(f"phase {phase} service: {EL_SHARDS} shards x {st.shards[0].capacity}"
+          f" slots ({slots * 8 / 2 ** 30:.2f} GiB of key and value planes), "
+          f"filters {tuple(st.filter_words.shape)} "
+          f"({st.filter_words.numel() * 4 / 2 ** 20:.0f} MiB of words); "
+          f"preload {EL_PRELOAD} keys in batches of {EL_PRELOAD_BATCH} in "
+          f"{preload_s:.3f} s", flush=True)
+    # the table-free model of the live set: sorted u32 keys, their values
+    mk = as_u32(keys)
+    order = torch.argsort(mk)
+    mk, mv = mk[order], vals[order]
+    del keys, vals, order
+
+    def members(q):
+        """(live, position in the model) of int64 u32 queries."""
+        pos = torch.searchsorted(mk, q).clamp(max=mk.numel() - 1)
+        return mk[pos] == q, pos
+
+    def sample(n):
+        return mk[torch.randint(0, mk.numel(), (n,), generator=gen,
+                                device=dev)]
+
+    step_ms, split, dead = [], {}, []
+    next_fresh, skips, fps, n_absent = EL_PRELOAD, 0, 0, 0
+    overflow = 0
+    for step in range(EL_STEPS + 1):    # step 0 is the warm-up, not timed
+        n_fresh = EL_NB - EL_NB // 4
+        ik = torch.cat([contract.distinct_keys(next_fresh, n_fresh, dev),
+                        as_word(sample(EL_NB // 4))])
+        next_fresh += n_fresh
+        iv = torch.randint(-2 ** 31, 2 ** 31, (EL_NB,), dtype=torch.int32,
+                           generator=gen, device=dev)
+        absent = contract.distinct_keys(2 ** 31 + step * EL_NB, EL_NB // 2,
+                                        dev)
+        gk = torch.cat([as_word(sample(EL_NB // 2)), absent])
+        dk = sample(EL_NB // 4)
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, (status, got, found, erased, stats) = elastic.serve_step(
+            st, ik, iv, gk, as_word(dk), mark=mark)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        prev = start
+        for name, e in marks + [("other", end)]:
+            if step:
+                split[name] = split.get(name, 0.0) + prev.elapsed_time(e)
+            prev = e
+        # the model: upserts (last writer wins), then lookups, then erases
+        ik64 = as_u32(ik)
+        live, _ = members(ik64)
+        uk, inv = torch.unique(ik64, return_inverse=True)
+        idx = torch.arange(EL_NB, device=dev)
+        first = torch.full(uk.shape, EL_NB, device=dev).scatter_reduce(
+            0, inv, idx, "amin")
+        last = torch.full(uk.shape, -1, device=dev).scatter_reduce(
+            0, inv, idx, "amax")
+        want = torch.where(live | (first[inv] != idx), STATUS_UPDATED,
+                           STATUS_INSERTED).to(torch.int32)
+        check(f"elastic step {step} statuses", torch.equal(status, want))
+        uv = iv[last]
+        uhit, upos = members(uk)
+        mv[upos[uhit]] = uv[uhit]
+        mk = torch.cat([mk, uk[~uhit]])
+        mv = torch.cat([mv, uv[~uhit]])
+        order = torch.argsort(mk)
+        mk, mv = mk[order], mv[order]
+        del order, uk, inv, first, last, uv, uhit, upos
+        hit, pos = members(as_u32(gk))
+        check(f"elastic step {step} lookups",
+              torch.equal(found, hit)
+              and torch.equal(got, torch.where(hit, mv[pos], 0)))
+        check(f"elastic step {step} erases", bool(erased.all()))
+        mk_keep = ~torch.isin(mk, dk)
+        mk, mv = mk[mk_keep], mv[mk_keep]
+        dead.append(dk)
+        skips += int(stats["skips"])
+        fps += int(stats["false_positives"])
+        overflow += int(stats["overflow"])
+        n_absent += EL_NB // 2
+    check("elastic no exchange overflow", overflow == 0)
+    check("elastic skips + false positives == absent lookups",
+          skips + fps == n_absent)
+    check("elastic live count", elastic.count(st) == mk.numel())
+    warm, step_ms = step_ms[0], step_ms[1:]
+    p50, p99 = (_percentile(torch, step_ms, q) for q in (50, 99))
+    mean = sum(step_ms) / len(step_ms)
+    ops_per_step = EL_NB + EL_NB + EL_NB // 4
+    check("elastic skip share of absent lookups >= 0.5",
+          skips / n_absent >= 0.5)
+    parts = ", ".join(f"{name} {ms / EL_STEPS:.3f} ms ({ms / sum(step_ms):.1%})"
+                      for name, ms in split.items())
+    print(f"phase {phase} serve: {EL_STEPS} steps (after a warm-up step of "
+          f"{warm:.3f} ms) of {EL_NB} upserts (3/4 "
+          f"new, 1/4 live) + {EL_NB} lookups (half live, half absent) + "
+          f"{EL_NB // 4} erases of live keys; step p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms, mean {mean:.3f} ms (CUDA events) = "
+          f"{1e3 / mean:.3f} steps/s = {ops_per_step * 1e3 / mean / 1e6:.3f} M"
+          f" ops/s; skip share of absent lookups {skips / n_absent:.6f}, "
+          f"false-positive share {fps / n_absent:.6f}; per step: {parts}; "
+          f"live {mk.numel()}; every status, value, found and erased flag "
+          f"equal to the table-free model: {check.status(since)}",
+          flush=True)
+    # compaction: the advertised-dead share drops, no live key is lost
+    dead = torch.unique(torch.cat(dead))
+    dead = dead[~members(dead)[0]]
+
+    def advertised(keys64):
+        owners = hashing.hash_owner(keys64, st.num_shards)
+        return float(bloom.contains_stack(st.filters[0], st.filter_words,
+                                          owners, keys64).float().mean())
+
+    before = advertised(dead)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = elastic.compact_all(st)
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    after = advertised(dead)
+    check("elastic compact_all drops the advertised-dead share",
+          after < before and after < 0.05)
+    lost = wrong = 0
+    for s in range(0, mk.numel(), EL_PRELOAD_BATCH):
+        g, f, stt = elastic.lookup(st, as_word(mk[s:s + EL_PRELOAD_BATCH]))
+        lost += int((~f).sum())
+        wrong += int((g != mv[s:s + EL_PRELOAD_BATCH]).sum())
+        overflow += int(stt["overflow"])
+    check("elastic compact_all lost no live key",
+          lost == 0 and wrong == 0 and overflow == 0
+          and elastic.count(st) == mk.numel())
+    print(f"phase {phase} compact_all in {compact_s:.3f} s: advertised-dead "
+          f"share of {dead.numel()} erased keys {before:.6f} -> {after:.6f}; "
+          f"{mk.numel()} live keys looked up, {lost} lost, {wrong} wrong",
+          flush=True)
+    del st, mk, mv, dead
+    torch.cuda.empty_cache()
+    # save -> load through the writer, and reshard 8 -> 16, at a reduced size
+    small = elastic.create(EL_SHARDS, EL_SNAP_CAPACITY,
+                           bloom_bits_per_key=EL_BITS_PER_KEY, slack=EL_SLACK,
+                           device=dev)
+    n_small = EL_SHARDS * EL_SNAP_CAPACITY // 2
+    sk = contract.distinct_keys(2 ** 30, n_small, dev)
+    sv_ = contract.values_for(sk, 21)
+    small, _ = elastic.insert(small, sk, sv_)
+    small, _ = elastic.erase(small, sk[: n_small // 8])
+    path = HERE / "build" / "chip_smoke_elastic"
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with snapshot.SnapshotWriter() as w:
+        elastic.save(small, str(path), writer=w)
+        queued_s = time.perf_counter() - t0
+        w.flush()
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in path.iterdir())
+    t0 = time.perf_counter()
+    back = elastic.load(str(path), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check("elastic load bit-exact shard planes", all(
+        torch.equal(a.store["keys"], b.store["keys"])
+        and torch.equal(a.store["values"], b.store["values"])
+        and a.count == b.count for a, b in zip(small.shards, back.shards)))
+    check("elastic load filters a subset of the incremental ones",
+          not bool((back.filter_words & ~small.filter_words).any()))
+    live_k, live_v = sk[n_small // 8:], sv_[n_small // 8:]
+    t0 = time.perf_counter()
+    big = elastic.reshard(back, 2 * EL_SHARDS)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    elastic.check_ownership(big)
+    for name, svc in (("load", back), ("reshard", big)):
+        g, f, _ = elastic.lookup(svc, live_k)
+        _, f_gone, _ = elastic.lookup(svc, sk[: n_small // 8])
+        check(f"elastic {name} keeps every live key",
+              bool(f.all()) and torch.equal(g, live_v)
+              and not bool(f_gone.any())
+              and elastic.count(svc) == live_k.numel())
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = {**ops.LAUNCHES, **bloom_ops.LAUNCHES}
+    for name in ("bloom_insert", "bloom_query", "cops_insert", "cops_lookup"):
+        check(f"{name} launched on the elastic path", launches[name] > 0)
+    print(f"phase {phase} save / load / reshard at capacity_per_shard="
+          f"{EL_SNAP_CAPACITY} (reduced from {EL_CAPACITY} so the snapshot "
+          f"on disk stays under 300 MiB): {n_small} keys, 1/8 erased; save "
+          f"through SnapshotWriter {save_s:.3f} s ({queued_s:.3f} s to queue"
+          f"), {size / 2 ** 20:.1f} MiB; load {load_s:.3f} s, bit-exact; "
+          f"reshard {EL_SHARDS} -> {2 * EL_SHARDS} {reshard_s:.3f} s, "
+          f"ownership exact: {check.status(since)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
+          f"{launches}; card {card}", flush=True)
+    return launches
+
+
+def bloom_sectors(torch, words, keys, k, seed, hits=None) -> int:
+    """The 32-byte sectors of the filter rows that ``keys`` need: per key
+    the distinct sectors its k bits fall in; for a query that misses
+    (``hits`` False) one sector, the least that shows a clear bit."""
+    from repro_torch.kernels.bloom import ref
+    nb, wpb = words.shape
+    total = 0
+    for s in range(0, keys.shape[0], 1 << 24):
+        _, bit = ref.positions(keys[s:s + (1 << 24)], nb, 32 * wpb, k, seed)
+        sec = torch.sort(bit // 256, dim=1).values
+        n = 1 + (sec[:, 1:] != sec[:, :-1]).sum(1)
+        if hits is not None:
+            n = torch.where(hits[s:s + (1 << 24)], n, 1)
+        total += int(n.sum())
+    return total
+
+
+def bloom_kernels(torch, card, check, phase, launches, err19):
+    """Phase 21: ``bloom_insert`` and ``bloom_query`` alone at N_BLOOM keys
+    into a filter of BLOOM_BITS bits (512-bit blocks, k = 4), and their
+    plain versions, compared and timed, with byte bounds from the run's
+    own data; the false-positive rate on N_BLOOM absent keys.  Returns
+    their two kernel records."""
+    from repro_torch.core import bloom
+    from repro_torch.kernels.bloom import ops as bloom_ops
+    from repro_torch.kernels.cops import contract
+    since = len(check.failed)
+    f = bloom.create(BLOOM_BITS, device="cuda")
+    kw = dict(k_hashes=f.k, seed=f.seed)
+    keys = contract.distinct_keys(0, N_BLOOM, "cuda")
+    ins_t, _ = timed(torch, lambda w: bloom_ops.insert_words(w, keys, **kw),
+                     lambda: (f.words.zero_(),))
+    plain = torch.zeros_like(f.words)
+    ins_p_t, plain = timed(
+        torch, lambda w: bloom_ops.insert_plain(w, keys, **kw),
+        lambda: (plain.zero_(),), reps=1, warmup=0)
+    err = words_err(torch, f.words, plain)
+    check(f"phase{phase} bloom_insert exact", torch.equal(f.words, plain))
+    del plain
+    q_t, hit = timed(torch, lambda: bloom_ops.query_words(f.words, keys, **kw))
+    q_p_t, want = timed(torch, lambda: bloom_ops.query_plain(f.words, keys,
+                                                              **kw),
+                        reps=1, warmup=0)
+    err = max(err, err19, words_err(torch, hit, want))
+    check(f"phase{phase} bloom_query exact and no false negative",
+          torch.equal(hit, want) and bool(hit.all()))
+    del hit, want
+    absent = contract.distinct_keys(2 ** 31, N_BLOOM, "cuda")
+    a_hit = bloom_ops.query_words(f.words, absent, **kw)
+    fp = float(a_hit.float().mean())
+    check(f"phase{phase} bloom false-positive rate below 1%", fp < 0.01)
+    filter_bytes = f.words.numel() * 4
+    sectors = bloom_sectors(torch, f.words, keys, f.k, f.seed)
+    ins_bytes = 64 * sectors + 4 * N_BLOOM
+    q_bytes = 32 * sectors + 5 * N_BLOOM
+    ops_ = (OPS_PER_BLOOM_KEY + 4 * f.k) * N_BLOOM
+    absent_sectors = bloom_sectors(torch, f.words, absent, f.k, f.seed, a_hit)
+    del absent, a_hit
+    ms = 1e3 / HBM_BYTES_PER_S
+    print(f"phase {phase} bloom kernels alone: {N_BLOOM} keys, "
+          f"{f.num_blocks} blocks x {f.block_bits} bits "
+          f"({filter_bytes / 2 ** 20:.0f} MiB), k={f.k}: "
+          f"{check.status(since)}; bloom_insert {spread(ins_t)}, plain "
+          f"{ins_p_t[0]:.3f} ms, bound {ins_bytes * ms:.3f} ms ({sectors} "
+          f"sectors read and written, {sectors / N_BLOOM:.4f} a key, + keys; "
+          f"the compulsory floor, filter read and written once + keys: "
+          f"{(2 * filter_bytes + 4 * N_BLOOM) * ms:.3f} ms; operations "
+          f"{ops_ / INT32_OPS_PER_S * 1e3:.3f} ms); bloom_query "
+          f"{spread(q_t)}, plain {q_p_t[0]:.3f} ms, bound {q_bytes * ms:.3f}"
+          f" ms (the same sectors read + keys + hits; floor "
+          f"{(filter_bytes + 5 * N_BLOOM) * ms:.3f} ms); false-positive rate "
+          f"on {N_BLOOM} absent keys {fp:.6f} (their least sectors "
+          f"{absent_sectors}); card {card}", flush=True)
+    return [kernel_record("bloom_insert", launches, err, ins_t, ins_p_t,
+                          ins_bytes, source=BLOOM_SOURCE, bound_ops=ops_),
+            kernel_record("bloom_query", launches, err, q_t, q_p_t, q_bytes,
+                          source=BLOOM_SOURCE, bound_ops=ops_)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1630,6 +2069,14 @@ def main() -> int:
         torch, card, check, 18,
         [("composite", pack_columns(gc), gv, N_COMPOSITE // 8)],
         cmp_launches, "cops_update64"))
+    del gc, gv, batches
+    torch.cuda.empty_cache()
+
+    # -- phases 19-21: the elastic service and the bloom kernels (fig12) ----
+    err19 = bloom_cases(torch, check, 19)
+    el_launches = elastic_path(torch, card, check, 20)
+    torch.cuda.empty_cache()
+    records += bloom_kernels(torch, card, check, 21, el_launches, err19)
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -41,9 +41,10 @@ words are then gathered by slot.  A table lives on one device, chosen at
 ``insert`` updates the key store and the pool in place and returns a table
 that shares them, carrying the new ``alloc_top`` and key count.
 
-Not ported: ``insert_or_grow``, ``for_each``, ``stats=True``, the
-``backend="scan"`` references, the dense mode of ``chain_arena`` and
-two-word keys (ROADMAP.md queue 1 item 5b).
+Not ported: ``insert_or_grow``, ``for_each``, the ``backend="scan"``
+references, the dense mode of ``chain_arena`` and two-word keys (ROADMAP.md
+queue 1 item 5b); ``stats=True`` is refused naming item 8, as on every
+table.
 """
 
 from __future__ import annotations
@@ -195,11 +196,13 @@ def _lookup(ks: sv.SingleValueHashTable, keys: torch.Tensor):
 # insertion — the batched build
 # ---------------------------------------------------------------------------
 
-def insert(table: BucketListHashTable, keys, values, mask=None):
+def insert(table: BucketListHashTable, keys, values, mask=None,
+           stats: bool = False):
     """Insert (key, value) pairs: a new key allocates its first bucket, a
     present key appends to its tail bucket and grows its list when the
     tail is full.  Returns (table, status (n,) int32: INSERTED / FULL /
     POOL_FULL / MASKED)."""
+    sv.check_stats(stats)
     keys = sv.normalize_key_batch(keys, 1, table.device)
     values = sv.normalize_words(values, 1, "values", table.device)
     if values.shape[0] != keys.shape[0]:
@@ -376,8 +379,10 @@ def _insert_bulk(table: BucketListHashTable, keys, values, mask):
 # retrieval — O(1) counts off the handles; the chain walk over the pool
 # ---------------------------------------------------------------------------
 
-def count_values(table: BucketListHashTable, keys) -> torch.Tensor:
+def count_values(table: BucketListHashTable, keys,
+                 stats: bool = False) -> torch.Tensor:
     """Per-key value count, int32, read off the handle (no chain walk)."""
+    sv.check_stats(stats)
     keys = sv.normalize_key_batch(keys, 1, table.device)
     if keys.shape[0] == 0:
         return torch.zeros((0,), dtype=torch.int32, device=table.device)
@@ -407,7 +412,8 @@ def _handle_probe(table: BucketListHashTable, keys):
     return is_rep, rep_of, found, ptr, rcnt, bidx, counts
 
 
-def retrieve_all(table: BucketListHashTable, keys, out_capacity: int):
+def retrieve_all(table: BucketListHashTable, keys, out_capacity: int,
+                 stats: bool = False):
     """Gather every value of each queried key, walking its bucket list.
 
     Returns ``(values (out_capacity,), offsets (n + 1,), counts (n,))``,
@@ -417,6 +423,7 @@ def retrieve_all(table: BucketListHashTable, keys, out_capacity: int):
     with ``count_values``.  Duplicate queries walk once.
     """
     from repro_torch.kernels.cops import ops as cops_ops
+    sv.check_stats(stats)
     keys = sv.normalize_key_batch(keys, 1, table.device)
     n, dev = keys.shape[0], table.device
     if n == 0:

@@ -8,15 +8,19 @@ table from exactly that, tombstones included, and ``table_to_numpy`` goes
 back from either.  A ``BucketListHashTable`` crosses the same way with
 its key store's planes (the values are the two handle words), its
 ``pool``, ``alloc_top`` and schedule (``bucket_table_from_numpy`` /
-``bucket_table_to_numpy``).  Neither side imports the other: the bridge
-speaks numpy only.
+``bucket_table_to_numpy``).  A bloom filter crosses as the JAX filter's
+``(num_blocks, block_bits)`` u8 bits, which the port packs into its u32
+words (``bloom_from_numpy`` / ``bloom_to_numpy``).  Neither side imports
+the other: the bridge speaks numpy only.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core import bucket_list, multi_value, single_value
+import torch
+
+from repro_torch.core import bloom, bucket_list, multi_value, single_value
 from repro_torch.core.common import to_numpy_u32, to_words
 
 
@@ -108,3 +112,24 @@ def bucket_table_to_numpy(table: bucket_list.BucketListHashTable) -> dict:
     the key store plus ``pool`` (u32) and ``alloc_top``."""
     return {**table_to_numpy(table.key_store), "pool": to_numpy_u32(table.pool),
             "alloc_top": int(table.alloc_top)}
+
+
+def bloom_from_numpy(bits: np.ndarray, *, k: int, seed: int,
+                     device=None) -> bloom.BloomFilter:
+    """The port's filter holding a JAX filter's state: its (num_blocks,
+    block_bits) u8 bits in {0, 1} (``np.asarray(f.bits)``), packed into
+    u32 words."""
+    bits = np.asarray(bits)
+    if bits.ndim != 2 or bits.dtype != np.uint8:
+        raise ValueError(f"expected (num_blocks, block_bits) uint8 bits, got "
+                         f"{bits.shape} {bits.dtype}")
+    from repro_torch.kernels.bloom import ref
+    words = ref.pack_bits(torch.from_numpy(bits.copy()))
+    return bloom.unpack_words(words.to(single_value.resolve_device(device)),
+                              bits.shape[1], k, seed)
+
+
+def bloom_to_numpy(f: bloom.BloomFilter) -> np.ndarray:
+    """The inverse of ``bloom_from_numpy``: the filter's (num_blocks,
+    block_bits) u8 bits, the JAX filter's ``bits``."""
+    return bloom.bits(f).cpu().numpy()

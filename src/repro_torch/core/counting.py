@@ -36,10 +36,8 @@ def create(min_capacity: int, *, key_words: int = 1,
 def insert(table: CountingHashTable, keys, mask=None, stats: bool = False):
     """Count each key occurrence (saturating at 2^32 - 1).  Returns
     (table, status (n,) int32); the store is updated in place."""
-    if stats:
-        raise NotImplementedError(f"stats=True {_ITEM_8}")
     return sv.update_values(table, keys, ("sat_add",), 1, mask,
-                            combine=("add",))
+                            combine=("add",), stats=stats)
 
 
 def insert_or_grow(table: CountingHashTable, keys, mask=None, *,
@@ -49,6 +47,4 @@ def insert_or_grow(table: CountingHashTable, keys, mask=None, *,
 
 def counts(table: CountingHashTable, keys, stats: bool = False):
     """Occurrence count per key, int32 holding u32 bits (0 when absent)."""
-    if stats:
-        raise NotImplementedError(f"stats=True {_ITEM_8}")
-    return sv.retrieve(table, keys)[0]
+    return sv.retrieve(table, keys, stats=stats)[0]

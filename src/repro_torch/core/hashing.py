@@ -130,3 +130,12 @@ def hash_step(key_word: torch.Tensor, num_rows: int, seed: int) -> torch.Tensor:
     """
     h = mix_xxhash(as_u32(key_word) ^ ((int(seed) * _STEP_SEED) & MASK32))
     return h % (num_rows - 1) + 1
+
+
+def hash_owner(key_word: torch.Tensor, num_owners: int,
+               seed: int = 0x5BD1E995) -> torch.Tensor:
+    """Shard owner of each probe word, in [0, num_owners) (paper §IV-E):
+    independent of ``hash_rows`` / ``hash_step``, so probing inside a shard
+    stays uniform after the keys are partitioned by owner."""
+    h = mix_xxhash(mix_murmur3(key_word) ^ (int(seed) & MASK32))
+    return h % num_owners

@@ -32,6 +32,7 @@ from repro_torch.core.common import DEFAULT_SEED, DEFAULT_WINDOW, table_geometry
 from repro_torch.core.single_value import (
     _refuse,
     check_ported,
+    check_stats,
     normalize_key_batch,
     normalize_mask,
     normalize_words,
@@ -93,9 +94,11 @@ def create(min_capacity: int, *, key_words: int = 1, value_words: int = 1,
         layout=layout, seed=seed, max_probes=int(max_probes or num_rows))
 
 
-def insert(table: MultiValueHashTable, keys, values, mask=None):
+def insert(table: MultiValueHashTable, keys, values, mask=None,
+           stats: bool = False):
     """Append (key, value) pairs; duplicates of a key take distinct slots.
     Returns (table, status (n,) int32: INSERTED / FULL / MASKED)."""
+    check_stats(stats)
     keys = normalize_key_batch(keys, table.key_words, table.device)
     values = normalize_words(values, table.value_words, "values", table.device)
     if values.shape[0] != keys.shape[0]:
@@ -104,15 +107,17 @@ def insert(table: MultiValueHashTable, keys, values, mask=None):
     return bulk.insert_multi(table, keys, values, mask)
 
 
-def count_values(table: MultiValueHashTable, keys, mask=None) -> torch.Tensor:
+def count_values(table: MultiValueHashTable, keys, mask=None,
+                 stats: bool = False) -> torch.Tensor:
     """Number of stored values per queried key, int32 (0 where masked)."""
+    check_stats(stats)
     keys = normalize_key_batch(keys, table.key_words, table.device)
     mask = normalize_mask(mask, keys.shape[0], table.device)
     return bulk_retrieve.count_multi(table, keys, mask)
 
 
 def retrieve_all(table: MultiValueHashTable, keys, out_capacity: int,
-                 mask=None):
+                 mask=None, stats: bool = False):
     """Gather every value of each queried key.
 
     Returns ``(values (out_capacity,), offsets (n + 1,), counts (n,))``:
@@ -120,6 +125,7 @@ def retrieve_all(table: MultiValueHashTable, keys, out_capacity: int,
     walk order.  Entries past the true total are zero, and values past
     ``out_capacity`` are dropped: size it with ``count_values``.
     """
+    check_stats(stats)
     keys = normalize_key_batch(keys, table.key_words, table.device)
     mask = normalize_mask(mask, keys.shape[0], table.device)
     return bulk_retrieve.retrieve_all_multi(table, keys, out_capacity, mask)

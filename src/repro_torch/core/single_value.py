@@ -70,6 +70,7 @@ _NOT_PORTED = {
               "the sequential update_values without a combiner",
     "layout": "queue 1 item 1b (the rest of the single-value table)",
     "bucketed": "queue 1 item 4 (high-load lane: bucketed, quotient)",
+    "stats": "queue 1 item 8 (growth, snapshots and telemetry)",
 }
 
 
@@ -107,6 +108,13 @@ def _refuse(what: str, detail: str):
     raise NotImplementedError(
         f"{detail} is not ported to repro_torch yet: see ROADMAP.md "
         f"{_NOT_PORTED[what]}")
+
+
+def check_stats(stats: bool) -> None:
+    """Take the reference's ``stats`` keyword: ``False`` is the only value
+    ported (the in-graph ``TableStats`` telemetry is not)."""
+    if stats:
+        _refuse("stats", "stats=True")
 
 
 def resolve_device(device) -> torch.device:
@@ -257,9 +265,11 @@ def normalize_mask(mask, n: int, device):
 # operations
 # ---------------------------------------------------------------------------
 
-def insert(table: SingleValueHashTable, keys, values, mask=None):
+def insert(table: SingleValueHashTable, keys, values, mask=None,
+           stats: bool = False):
     """Batch upsert. Returns (table, status (n,) int32) — see STATUS_* codes.
     ``values`` are (n, 0) for a table with no value word (a hash set)."""
+    check_stats(stats)
     if table.value_words > 1:
         # the insert kernels store one value word, or none
         _refuse("insert_words", f"insert into value_words={table.value_words}")
@@ -271,9 +281,10 @@ def insert(table: SingleValueHashTable, keys, values, mask=None):
     return bulk.insert_single(table, keys, values, mask)
 
 
-def retrieve(table: SingleValueHashTable, keys):
+def retrieve(table: SingleValueHashTable, keys, stats: bool = False):
     """Batch lookup -> (values, found (n,) bool): int32 u32 bits, 0 where
     absent, (n,) for one value word and (n, value_words) otherwise."""
+    check_stats(stats)
     keys = normalize_key_batch(keys, table.key_words, table.device)
     return bulk_retrieve.retrieve_single(table, keys)
 
@@ -291,7 +302,7 @@ def erase(table: SingleValueHashTable, keys, mask=None):
 
 
 def update_values(table: SingleValueHashTable, keys, update, init, mask=None,
-                  values=None, combine=None):
+                  values=None, combine=None, stats: bool = False):
     """Read-modify-write upsert: a present key's value becomes
     ``update(old, new)``, an absent key inserts ``init``.  The substrate of
     the counting table and the group-by.
@@ -309,6 +320,7 @@ def update_values(table: SingleValueHashTable, keys, update, init, mask=None,
     Returns (table, status (n,) int32).  Callables, the bitwise specs and ``combine=None`` (the
     JAX package's sequential reference) are not ported.
     """
+    check_stats(stats)
     if combine is None:
         _refuse("update", "update_values without a combiner")
     bulk.check_spec(update, bulk.FOLD_OPS, "update")

@@ -14,6 +14,11 @@
   (``minhash/csrc/minhash.cu``: ``kmer_hash``), with its wrappers, launch
   counter and the minhash sketch in ``minhash/ops.py`` and the plain
   versions in ``minhash/ref.py``.
+- ``bloom`` — the blocked bloom filter's insert and query in CUDA C++
+  (``bloom/csrc/bloom.cu``: ``bloom_insert``, one ``atomicOr`` per touched
+  word, and ``bloom_query``), over one filter or a stack of filters with a
+  plane per key, with their wrappers, plain versions and launch counters
+  in ``bloom/ops.py`` and the bit-view arithmetic in ``bloom/ref.py``.
 
 ``build`` compiles the CUDA sources with nvcc at first use.
 """

@@ -1,0 +1,210 @@
+"""The blocked bloom filter's kernel wrappers, plain versions and launch
+counters.
+
+``insert_words`` / ``query_words`` replace ``repro.kernels.bloom.ops``'s
+jitted wrappers over the Pallas tiles (kernels #9 and #10).  They work on
+packed words, int32 tensors holding u32 bits: one filter ``(num_blocks,
+wpb)`` or a stack of filters ``(P, num_blocks, wpb)`` with a plane index
+per key (``planes``; None means plane 0).  On CUDA tensors they launch
+``bloom_insert`` / ``bloom_query`` (``csrc/bloom.cu``, built by
+``kernels.build``) on the current stream, add one to ``LAUNCHES`` and
+raise if the launch reports a CUDA error; on CPU tensors they run the
+plain versions below; on any other device they raise.  There is no
+fallback: a CUDA tensor launches the kernel or raises.
+
+Unlike the reference, the insert updates ``words`` **in place** (and
+returns it): a filter of the card's size is never copied per batch.  A
+key whose mask is False, or whose plane is outside [0, P), is not
+inserted and queries as False.
+
+The plain versions follow the reference's own structure (torch has no
+bitwise-OR scatter): the insert writes ones into the bit view
+(``ref.unpack_bits``) with ``index_put_`` and repacks; the query gathers
+each key's k words and tests its bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.common import as_u32
+from repro_torch.kernels.bloom import ref
+
+#: launches of each kernel since the last ``reset_launches``
+LAUNCHES = {"bloom_insert": 0, "bloom_query": 0}
+
+#: keys per pass of the plain versions (bounds their (n, k) temporaries)
+PLAIN_CHUNK = 1 << 22
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import build
+    lib = build.library("bloom")
+    vp, ll, ui, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+                     ctypes.c_int)
+    geometry = [ll, i, ui, i, i, ui, vp]   # n, planes, blocks, wpb, k, seed, stream
+    lib.bloom_insert.argtypes = [vp] * 4 + geometry
+    lib.bloom_query.argtypes = [vp] * 4 + geometry
+    lib.bloom_insert.restype = lib.bloom_query.restype = ctypes.c_int
+    return lib
+
+
+def _stack(words: torch.Tensor) -> torch.Tensor:
+    """(P, num_blocks, wpb) view of one filter or of a stack."""
+    return words if words.ndim == 3 else words[None]
+
+
+def _check(words, keys, mask, planes) -> bool:
+    """Validate the arguments; True for CPU tensors (the plain versions),
+    False for CUDA tensors (a launch), raise on anything else."""
+    if words.dtype != torch.int32 or words.ndim not in (2, 3):
+        raise ValueError(f"expected (num_blocks, wpb) or (P, num_blocks, "
+                         f"wpb) int32 words, got {tuple(words.shape)} "
+                         f"{words.dtype}")
+    if keys.dtype != torch.int32 or keys.ndim != 1:
+        raise ValueError(f"expected (n,) int32 key words, got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    n = keys.shape[0]
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != (n,)):
+        raise ValueError(f"expected a ({n},) bool mask, got "
+                         f"{tuple(mask.shape)} {mask.dtype}")
+    if planes is not None and (planes.is_floating_point()
+                               or planes.shape != (n,)):
+        raise ValueError(f"expected ({n},) integer planes, got "
+                         f"{tuple(planes.shape)} {planes.dtype}")
+    tensors = [t for t in (words, keys, mask, planes) if t is not None]
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"the bloom kernels run on CUDA or CPU tensors, "
+                         f"not {dev}")
+    if not words.is_contiguous():
+        raise ValueError("the filter words must be contiguous")
+    return False
+
+
+def _launch(name, words, keys, args, k_hashes, seed) -> None:
+    """Launch kernel ``name`` on the current stream with the pointers
+    ``args`` (None for a null one); count it and raise on a CUDA error."""
+    stack = _stack(words)
+    with torch.cuda.device(words.device):
+        rc = getattr(_lib(), name)(
+            *(None if a is None else a.data_ptr() for a in args),
+            keys.shape[0], stack.shape[0], stack.shape[1], stack.shape[2],
+            k_hashes, seed & 0xFFFFFFFF,
+            torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[name] += 1
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+def _plane_index(planes, n, num_planes, device):
+    """(plane int64 (n,) clamped into range, in_range bool (n,))."""
+    if planes is None:
+        return (torch.zeros((n,), dtype=torch.int64, device=device),
+                torch.ones((n,), dtype=torch.bool, device=device))
+    planes = planes.to(torch.int64)
+    ok = (planes >= 0) & (planes < num_planes)
+    return planes.clamp(0, num_planes - 1), ok
+
+
+def insert_plain(words, keys, mask=None, *, k_hashes, seed, planes=None):
+    """The plain insert: ones into the bit view, repacked into ``words``
+    in place."""
+    stack = _stack(words)
+    p, nb, wpb = stack.shape
+    bits = ref.unpack_bits(stack).view(p * nb, wpb * 32)
+    for s in range(0, keys.shape[0], PLAIN_CHUNK):
+        k = keys[s:s + PLAIN_CHUNK]
+        block, bit = ref.positions(k, nb, wpb * 32, k_hashes, seed)
+        plane, live = _plane_index(
+            None if planes is None else planes[s:s + PLAIN_CHUNK],
+            k.shape[0], p, k.device)
+        if mask is not None:
+            live = live & mask[s:s + PLAIN_CHUNK]
+        rows = (plane * nb + block)[live]
+        bits.index_put_((rows[:, None].expand(-1, k_hashes), bit[live]),
+                        torch.ones((), dtype=torch.uint8, device=k.device))
+    stack.copy_(ref.pack_bits(bits.view(p, nb, wpb * 32)))
+    return words
+
+
+def query_plain(words, keys, *, k_hashes, seed, planes=None):
+    """The plain query: each key's k bits gathered from its row."""
+    stack = _stack(words)
+    p, nb, wpb = stack.shape
+    flat = stack.reshape(-1)
+    out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+    for s in range(0, keys.shape[0], PLAIN_CHUNK):
+        k = keys[s:s + PLAIN_CHUNK]
+        block, bit = ref.positions(k, nb, wpb * 32, k_hashes, seed)
+        plane, ok = _plane_index(
+            None if planes is None else planes[s:s + PLAIN_CHUNK],
+            k.shape[0], p, k.device)
+        row = (plane * nb + block) * wpb
+        got = as_u32(flat[row[:, None] + bit // 32]) >> (bit % 32)
+        out[s:s + PLAIN_CHUNK] = ok & (got & 1).bool().all(1)
+    return out
+
+
+def insert_words(words, keys, mask=None, *, k_hashes, seed, planes=None):
+    """Insert (n,) int32 key words into ``words`` in place; returns
+    ``words``.  ``mask`` (n,) bool (None: every key), ``planes`` (n,)
+    integers picking each key's filter of a stack."""
+    if _check(words, keys, mask, planes):
+        return insert_plain(words, keys, mask, k_hashes=k_hashes, seed=seed,
+                            planes=planes)
+    if keys.shape[0] and k_hashes:
+        _launch("bloom_insert", words, keys,
+                (words, keys.contiguous(),
+                 None if mask is None else mask.contiguous(),
+                 None if planes is None
+                 else planes.to(torch.int32).contiguous()),
+                k_hashes, seed)
+    return words
+
+
+def query_words(words, keys, *, k_hashes, seed, planes=None):
+    """Membership of (n,) int32 key words -> (n,) bool: True where the
+    key's row (of its plane) holds every one of its k bits."""
+    if _check(words, keys, None, planes):
+        return query_plain(words, keys, k_hashes=k_hashes, seed=seed,
+                           planes=planes)
+    out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+    if keys.shape[0]:
+        _launch("bloom_query", words, keys,
+                (words, keys.contiguous(),
+                 None if planes is None
+                 else planes.to(torch.int32).contiguous(), out),
+                k_hashes, seed)
+    return out
+
+
+def insert(f, keys, mask=None):
+    """``BloomFilter`` insert through the kernel (in place; returns ``f``)."""
+    from repro_torch.core import bloom
+    from repro_torch.core.single_value import normalize_mask
+    keys = bloom.key_batch(keys, f.device)
+    mask = normalize_mask(mask, keys.shape[0], f.device)
+    insert_words(f.words, keys, mask, k_hashes=f.k, seed=f.seed)
+    return f
+
+
+def contains(f, keys) -> torch.Tensor:
+    from repro_torch.core import bloom
+    return query_words(f.words, bloom.key_batch(keys, f.device),
+                       k_hashes=f.k, seed=f.seed)

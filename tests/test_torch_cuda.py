@@ -28,6 +28,7 @@ from repro_torch.core.common import (
 from repro_torch.kernels.cops import contract, ops
 from repro_torch.kernels.minhash import ops as mh
 from repro_torch.kernels.minhash.ref import INVALID_WORD
+from repro_torch.kernels.bloom import ops as bloom_ops
 
 #: every launch counter at zero
 _NONE = dict.fromkeys(ops.LAUNCHES, 0)
@@ -524,3 +525,135 @@ def test_relational_layer_on_card_goes_through_kernels():
                 assert torch.equal(x, y), name
             else:
                 assert x == y, name
+
+
+def _bloom_case(gen, n, planes, num_blocks, wpb, dev="cuda"):
+    """Keys over the whole u32 range with repeats, half masked, a plane
+    per key (some out of range), and a filter already holding bits."""
+    keys = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
+                         generator=gen).to(dev)
+    keys[n // 2: n // 2 + n // 4] = keys[: n // 4]
+    mask = (torch.rand((n,), generator=gen) < 0.5).to(dev)
+    plane = torch.randint(-1, planes + 1, (n,), generator=gen).to(dev)
+    words = torch.randint(-2 ** 31, 2 ** 31, (planes, num_blocks, wpb),
+                          dtype=torch.int32, generator=gen)
+    words &= torch.randint(-2 ** 31, 2 ** 31, words.shape, dtype=torch.int32,
+                           generator=gen)
+    words &= torch.randint(-2 ** 31, 2 ** 31, words.shape, dtype=torch.int32,
+                           generator=gen)
+    return keys, mask, plane, words.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 5])
+@pytest.mark.parametrize("k", [1, 4, 8, 17])
+@pytest.mark.parametrize("block_bits", [32, 96, 256, 512, 1024])
+def test_bloom_kernels_hold_to_plain(block_bits, k, planes):
+    """bloom_insert / bloom_query against their plain versions on the same
+    card tensors, bit-exact: 512-bit and non-power-of-two blocks, the
+    merged (k <= 16) and per-bit (k = 17) inserts, masks, repeated keys,
+    planes out of range, and an empty batch."""
+    _need_card()
+    gen = torch.Generator().manual_seed(block_bits * 100 + k * 10 + planes)
+    wpb = block_bits // 32
+    keys, mask, plane, words = _bloom_case(gen, 1 << 16, planes, 1021, wpb)
+    seed = 0x9E3779B9
+    bloom_ops.reset_launches()
+    got = words.clone()
+    bloom_ops.insert_words(got, keys, mask, k_hashes=k, seed=seed,
+                           planes=plane)
+    want = bloom_ops.insert_plain(words.clone(), keys, mask, k_hashes=k,
+                                  seed=seed, planes=plane)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    queries = torch.cat([keys, keys.flip(0) ^ 0x5A5A5A5A])
+    qplane = torch.cat([plane, plane])
+    hit = bloom_ops.query_words(got, queries, k_hashes=k, seed=seed,
+                                planes=qplane)
+    assert torch.equal(hit, bloom_ops.query_plain(
+        want, queries, k_hashes=k, seed=seed, planes=qplane))
+    assert bool(hit[: 1 << 16][mask & (plane >= 0) & (plane < planes)].all())
+    empty = torch.zeros((0,), dtype=torch.int32, device="cuda")
+    bloom_ops.insert_words(got, empty, k_hashes=k, seed=seed)
+    assert bloom_ops.query_words(got, empty, k_hashes=k,
+                                 seed=seed).shape == (0,)
+    assert torch.equal(got, want)
+    assert bloom_ops.LAUNCHES == {"bloom_insert": 1, "bloom_query": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 20])
+def test_bloom_insert_atomics_race(k):
+    """One key repeated 2^16 times, and 2^16 keys into a filter of two
+    blocks: every thread ORs into the same few words at once.  The filter
+    is bit-exact against the plain version."""
+    _need_card()
+    gen = torch.Generator().manual_seed(k)
+    one = torch.full((1 << 16,), 123456789, dtype=torch.int32,
+                     device="cuda")
+    many = torch.randint(-2 ** 31, 2 ** 31, (1 << 16,), dtype=torch.int32,
+                         generator=gen).cuda()
+    for keys, num_blocks in ((one, 1021), (many, 2)):
+        words = torch.zeros((num_blocks, 16), dtype=torch.int32,
+                            device="cuda")
+        bloom_ops.insert_words(words, keys, k_hashes=k, seed=7)
+        want = bloom_ops.insert_plain(torch.zeros_like(words), keys,
+                                      k_hashes=k, seed=7)
+        torch.cuda.synchronize()
+        assert torch.equal(words, want)
+        assert bool(bloom_ops.query_words(words, keys, k_hashes=k,
+                                          seed=7).all())
+
+
+@pytest.mark.cuda
+def test_elastic_service_on_card_goes_through_kernels(tmp_path):
+    """The elastic service on the card and on the CPU take the same
+    traffic: statuses, values, found and erased flags and stats agree, the
+    filter stacks are bit-exact (OR is order-free), and so do they after
+    compact_all, a reshard and a snapshot round trip (bit-exact within the
+    card)."""
+    _need_card()
+    from repro_torch.core import snapshot
+    from repro_torch.serving import elastic
+    rng = np.random.default_rng(12)
+    pool = rng.choice(2 ** 31, 1 << 15, replace=False).astype(np.uint32)
+    absent = pool[1 << 14:]
+    bloom_ops.reset_launches()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = elastic.create(4, 1 << 13, slack=2.5, device=dev)
+        res = []
+        for s in range(4):
+            ins = pool[s * 2048:(s + 1) * 2048].copy()
+            ins[1024:1100] = ins[:76]
+            get = np.concatenate([pool[: (s + 1) * 1024], absent[:1024]])
+            st, outs = elastic.serve_step(st, ins, ins * 3, get, ins[::8])
+            res.append(tuple(x.cpu() for x in outs[:4])
+                       + tuple(int(v) for v in outs[4].values()))
+        res.append(st.filter_words.clone().cpu())   # a copy on either device
+        st = elastic.compact_all(st)
+        res.append(st.filter_words.clone().cpu())
+        st = elastic.reshard(st, 3)
+        elastic.check_ownership(st)
+        res.append(elastic.lookup(st, pool)[:2])
+        out[dev] = res
+        if dev == "cuda":
+            elastic.save(st, str(tmp_path / "svc"))
+            back = elastic.load(str(tmp_path / "svc"), device="cuda")
+            for a, b in zip(st.shards, back.shards):
+                assert torch.equal(a.store["keys"], b.store["keys"])
+                assert torch.equal(a.store["values"], b.store["values"])
+            assert torch.equal(back.filter_words, st.filter_words)
+            blob = snapshot.snapshot_bytes(st.shards[0])
+            assert snapshot.snapshot_bytes(snapshot.restore_bytes(
+                blob, device="cuda")) == blob
+    torch.cuda.synchronize()
+    assert bloom_ops.LAUNCHES["bloom_insert"] > 0
+    assert bloom_ops.LAUNCHES["bloom_query"] > 0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            for x, y in zip(a, b):
+                assert (torch.equal(x.cpu(), y) if isinstance(x, torch.Tensor)
+                        else x == y)

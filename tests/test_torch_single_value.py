@@ -231,6 +231,40 @@ def test_unported_configurations_refuse(kwargs):
         tsv.create(64, device="cpu", **kwargs)
 
 
+def _stats_calls():
+    """Every table entry point that takes the reference's ``stats``."""
+    from repro_torch.core import bucket_list as tbl
+    from repro_torch.core import multi_value as tmv
+    k = np.arange(1, 9, dtype=np.uint32)
+    sv_t = lambda: tsv.create(64, device="cpu")              # noqa: E731
+    mv_t = lambda: tmv.create(64, device="cpu")              # noqa: E731
+    bl_t = lambda: tbl.create(64, 128, device="cpu")         # noqa: E731
+    return {
+        "sv.insert": lambda st: tsv.insert(sv_t(), k, k, stats=st),
+        "sv.retrieve": lambda st: tsv.retrieve(sv_t(), k, stats=st),
+        "sv.update_values": lambda st: tsv.update_values(
+            sv_t(), k, ("add",), 1, combine=("add",), stats=st),
+        "mv.insert": lambda st: tmv.insert(mv_t(), k, k, stats=st),
+        "mv.count_values": lambda st: tmv.count_values(mv_t(), k, stats=st),
+        "mv.retrieve_all": lambda st: tmv.retrieve_all(mv_t(), k, 16,
+                                                       stats=st),
+        "bl.insert": lambda st: tbl.insert(bl_t(), k, k, stats=st),
+        "bl.count_values": lambda st: tbl.count_values(bl_t(), k, stats=st),
+        "bl.retrieve_all": lambda st: tbl.retrieve_all(bl_t(), k, 16,
+                                                       stats=st),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_stats_calls()))
+def test_stats_keyword(entry):
+    """The reference's ``stats`` keyword: ``False`` runs, ``True`` (the
+    in-graph telemetry) refuses naming ROADMAP.md item 8."""
+    call = _stats_calls()[entry]
+    call(False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+        call(True)
+
+
 def test_unknown_configurations_raise():
     with pytest.raises(ValueError):
         tsv.create(64, scheme="cuckoo", device="cpu")
@@ -263,9 +297,11 @@ def test_cpu_table_launches_no_kernel():
 def test_package_imports_neither_jax_nor_repro():
     """Every module of repro_torch imports, both tables run their u32 and
     two-word key paths (every key spelling), and the bucket list, the
-    minhash sketches, the counting table, the hash set and the relational
-    operators (group-by, DISTINCT, the four joins) run, on the CPU,
-    without pulling in JAX or the JAX package."""
+    minhash sketches, the counting table, the hash set, the relational
+    operators (group-by, DISTINCT, the four joins), a bloom filter and a
+    small elastic service (insert, lookup, erase, compaction, reshard, a
+    grown shard's snapshot) run, on the CPU, without pulling in JAX or the
+    JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy as np\n"
@@ -312,6 +348,19 @@ def test_package_imports_neither_jax_nor_repro():
         "    for how in join.HOW:\n"
         "        r = join.hash_join(keys, keys, 64, how, device='cpu')\n"
         "        join.gather_payload(r, cols[0], cols[0])\n"
+        "from repro_torch.core import bloom, migrate, snapshot\n"
+        "from repro_torch.serving import elastic\n"
+        "f = bloom.create(1 << 12, device='cpu')\n"
+        "bloom.insert(f, cols[1]); bloom.contains(f, cols[0])\n"
+        "convert.bloom_from_numpy(convert.bloom_to_numpy(f), k=4, seed=1, "
+        "device='cpu')\n"
+        "st = elastic.create(3, 256, device='cpu')\n"
+        "st, _ = elastic.insert(st, cols[1], cols[0])\n"
+        "elastic.lookup(st, cols[0]); st, _ = elastic.erase(st, cols[1][:9])\n"
+        "st = elastic.reshard(elastic.compact_all(st), 2)\n"
+        "elastic.check_ownership(st)\n"
+        "snapshot.restore_bytes(snapshot.snapshot_bytes(migrate.grow("
+        "st.shards[0], 512)), device='cpu')\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith"
         "('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
@@ -319,4 +368,4 @@ def test_package_imports_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[-1]) >= 27
+    assert int(res.stdout.split()[-1]) >= 39
