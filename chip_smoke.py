@@ -128,16 +128,21 @@ status line each:
     events, steps/s, operations/s, the skip share of absent lookups, the
     false-positive share and the step split (routing, shard inserts, bloom
     kernels, shard lookups, erases, gathers); ``compact_all`` (the
-    advertised-dead share drops, no live key lost); then save through the
+    advertised-dead share drops, no live key lost).  Every bloom launch of
+    the last preload batch, the warm-up step, ``compact_all`` and the
+    lookups after it is held, on its own inputs, against the plain
+    version: filter words and admission bits bit-exact.  Then save through the
     ``SnapshotWriter`` -> ``load`` (bit-exact shard planes) and ``reshard``
     8 -> 16 (``check_ownership``) at 2^22 slots per shard, so the snapshot
     on disk stays under 300 MiB.  The counters are zeroed just before and
     read just after;
 21. ``bloom_insert`` and ``bloom_query`` alone at 2^28 keys into a filter
     of 2^32 bits (next_prime(2^23) blocks of 512 bits, 512 MiB of words,
-    k = 4) and their plain versions, compared and timed, with byte bounds
-    from the sectors this run's keys touch, the compulsory floor beside
-    them, and the false-positive rate on 2^28 absent keys.
+    k = 4) and their plain versions, compared and timed; the bound is the
+    sectors this run's keys touch, each once (about the filter, read and
+    written once), + the key and hit streams, or the integer operations
+    if more; the design's own traffic (every key's sectors) beside it; and
+    the false-positive rate on 2^28 absent keys.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
@@ -147,6 +152,7 @@ beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1652,6 +1658,58 @@ def bloom_cases(torch, check, phase):
     return err
 
 
+class BloomTap:
+    """Holds every bloom launch made while it is active against the plain
+    version on the same inputs: ``with tap:`` swaps ``insert_words`` /
+    ``query_words`` of the ops module (which the service and
+    ``core.bloom`` call through) for versions that clone the filter
+    before an insert, call the kernel's wrapper, then run ``insert_plain``
+    / ``query_plain`` on the clone and record whether the two agree.  The
+    plain versions launch no kernel, so the launch counts are those of the
+    path alone; ``seconds`` is the host time the checks took (the card
+    synchronized around each), for a caller that times the path."""
+
+    def __init__(self, torch, bloom_ops):
+        self.torch, self.ops = torch, bloom_ops
+        self.calls = {"insert": 0, "query": 0}
+        self.exact, self.err, self.seconds, self.shapes = True, 0, 0.0, set()
+
+    def _check(self, kind, got, plain, words, keys):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        self.calls[kind] += 1
+        self.exact &= bool(self.torch.equal(got, want))
+        self.err = max(self.err, words_err(self.torch, got, want))
+        self.shapes.add((kind, tuple(words.shape), keys.shape[0]))
+        self.seconds += time.perf_counter() - t0
+
+    def __enter__(self):
+        ops = self.ops
+        self._saved = ops.insert_words, ops.query_words
+        insert, query = self._saved
+
+        def tapped_insert(words, keys, mask=None, **kw):
+            before = words.clone()
+            out = insert(words, keys, mask, **kw)
+            self._check("insert", words, lambda: ops.insert_plain(
+                before, keys, mask, **kw), words, keys)
+            return out
+
+        def tapped_query(words, keys, **kw):
+            hit = query(words, keys, **kw)
+            self._check("query", hit, lambda: ops.query_plain(
+                words, keys, **kw), words, keys)
+            return hit
+
+        ops.insert_words, ops.query_words = tapped_insert, tapped_query
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.insert_words, self.ops.query_words = self._saved
+        return False
+
+
 def _percentile(torch, values, q) -> float:
     return float(torch.quantile(torch.tensor(values, dtype=torch.float64),
                                 q / 100))
@@ -1660,7 +1718,8 @@ def _percentile(torch, values, q) -> float:
 def elastic_path(torch, card, check, phase):
     """Phase 20: the elastic service at fig12's shape on one card (see the
     module docstring).  The launch counters are zeroed just before and read
-    just after.  Returns the launches."""
+    just after.  Returns the launches and the largest error of the
+    path's bloom launches against their plain versions."""
     import shutil
     from repro_torch.core import bloom, hashing, snapshot
     from repro_torch.core.common import (
@@ -1687,12 +1746,15 @@ def elastic_path(torch, card, check, phase):
     vals = contract.values_for(keys, 20)
     t0 = time.perf_counter()
     ok = True
+    tap = BloomTap(torch, bloom_ops)
     for s in range(0, EL_PRELOAD, EL_PRELOAD_BATCH):
-        st, status = elastic.insert(st, keys[s:s + EL_PRELOAD_BATCH],
-                                    vals[s:s + EL_PRELOAD_BATCH])
+        last = s + EL_PRELOAD_BATCH >= EL_PRELOAD
+        with (tap if last else contextlib.nullcontext()):
+            st, status = elastic.insert(st, keys[s:s + EL_PRELOAD_BATCH],
+                                        vals[s:s + EL_PRELOAD_BATCH])
         ok &= bool((status == STATUS_INSERTED).all())
     torch.cuda.synchronize()
-    preload_s = time.perf_counter() - t0
+    preload_s = time.perf_counter() - t0 - tap.seconds
     check("elastic preload all INSERTED",
           ok and elastic.count(st) == EL_PRELOAD)
     slots = sum(t.capacity for t in st.shards)
@@ -1701,7 +1763,8 @@ def elastic_path(torch, card, check, phase):
           f"filters {tuple(st.filter_words.shape)} "
           f"({st.filter_words.numel() * 4 / 2 ** 20:.0f} MiB of words); "
           f"preload {EL_PRELOAD} keys in batches of {EL_PRELOAD_BATCH} in "
-          f"{preload_s:.3f} s", flush=True)
+          f"{preload_s:.3f} s (the last batch's bloom launch held against the "
+          f"plain version, not timed)", flush=True)
     # the table-free model of the live set: sorted u32 keys, their values
     mk = as_u32(keys)
     order = torch.argsort(mk)
@@ -1742,8 +1805,9 @@ def elastic_path(torch, card, check, phase):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        st, (status, got, found, erased, stats) = elastic.serve_step(
-            st, ik, iv, gk, as_word(dk), mark=mark)
+        with (tap if step == 0 else contextlib.nullcontext()):
+            st, (status, got, found, erased, stats) = elastic.serve_step(
+                st, ik, iv, gk, as_word(dk), mark=mark)
         end.record()
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
@@ -1797,7 +1861,8 @@ def elastic_path(torch, card, check, phase):
     parts = ", ".join(f"{name} {ms / EL_STEPS:.3f} ms ({ms / sum(step_ms):.1%})"
                       for name, ms in split.items())
     print(f"phase {phase} serve: {EL_STEPS} steps (after a warm-up step of "
-          f"{warm:.3f} ms) of {EL_NB} upserts (3/4 "
+          f"{warm:.3f} ms, its bloom launches held against the plain "
+          f"versions inside it) of {EL_NB} upserts (3/4 "
           f"new, 1/4 live) + {EL_NB} lookups (half live, half absent) + "
           f"{EL_NB // 4} erases of live keys; step p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms, mean {mean:.3f} ms (CUDA events) = "
@@ -1818,26 +1883,35 @@ def elastic_path(torch, card, check, phase):
 
     before = advertised(dead)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = elastic.compact_all(st)
+    t0, held = time.perf_counter(), tap.seconds
+    with tap:
+        st = elastic.compact_all(st)
     torch.cuda.synchronize()
-    compact_s = time.perf_counter() - t0
+    compact_s = time.perf_counter() - t0 - (tap.seconds - held)
     after = advertised(dead)
     check("elastic compact_all drops the advertised-dead share",
           after < before and after < 0.05)
     lost = wrong = 0
-    for s in range(0, mk.numel(), EL_PRELOAD_BATCH):
-        g, f, stt = elastic.lookup(st, as_word(mk[s:s + EL_PRELOAD_BATCH]))
-        lost += int((~f).sum())
-        wrong += int((g != mv[s:s + EL_PRELOAD_BATCH]).sum())
-        overflow += int(stt["overflow"])
+    with tap:
+        for s in range(0, mk.numel(), EL_PRELOAD_BATCH):
+            g, f, stt = elastic.lookup(st,
+                                       as_word(mk[s:s + EL_PRELOAD_BATCH]))
+            lost += int((~f).sum())
+            wrong += int((g != mv[s:s + EL_PRELOAD_BATCH]).sum())
+            overflow += int(stt["overflow"])
     check("elastic compact_all lost no live key",
           lost == 0 and wrong == 0 and overflow == 0
           and elastic.count(st) == mk.numel())
-    print(f"phase {phase} compact_all in {compact_s:.3f} s: advertised-dead "
-          f"share of {dead.numel()} erased keys {before:.6f} -> {after:.6f}; "
-          f"{mk.numel()} live keys looked up, {lost} lost, {wrong} wrong",
-          flush=True)
+    check("elastic path's bloom launches equal to their plain versions",
+          tap.exact and tap.calls["insert"] > 0 and tap.calls["query"] > 0)
+    print(f"phase {phase} compact_all in {compact_s:.3f} s (its bloom "
+          f"checks not timed): advertised-dead share of {dead.numel()} "
+          f"erased keys {before:.6f} -> {after:.6f}; {mk.numel()} live keys "
+          f"looked up, {lost} lost, {wrong} wrong; the path's bloom launches "
+          f"held against the plain versions on their own inputs: "
+          f"{tap.calls['insert']} inserts, {tap.calls['query']} queries, "
+          f"shapes (kind, filter, keys) {sorted(tap.shapes)}, exact "
+          f"{tap.exact}, max error {tap.err}", flush=True)
     del st, mk, mv, dead
     torch.cuda.empty_cache()
     # save -> load through the writer, and reshard 8 -> 16, at a reduced size
@@ -1896,32 +1970,36 @@ def elastic_path(torch, card, check, phase):
           f"ownership exact: {check.status(since)}; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
           f"{launches}; card {card}", flush=True)
-    return launches
+    return launches, tap.err
 
 
-def bloom_sectors(torch, words, keys, k, seed, hits=None) -> int:
-    """The 32-byte sectors of the filter rows that ``keys`` need: per key
-    the distinct sectors its k bits fall in; for a query that misses
-    (``hits`` False) one sector, the least that shows a clear bit."""
+def bloom_sectors(torch, words, keys, k, seed) -> tuple[int, int]:
+    """The 32-byte sectors of the filter that ``keys``' k bits fall in:
+    (summed over keys, each key's distinct ones: the traffic of a design
+    that visits every key's row; distinct over the whole run: each sector
+    once, what the work needs)."""
     from repro_torch.kernels.bloom import ref
     nb, wpb = words.shape
+    per_block = wpb * 32 // 256
+    touched = torch.zeros(nb * per_block, dtype=torch.bool,
+                          device=words.device)
     total = 0
     for s in range(0, keys.shape[0], 1 << 24):
-        _, bit = ref.positions(keys[s:s + (1 << 24)], nb, 32 * wpb, k, seed)
-        sec = torch.sort(bit // 256, dim=1).values
-        n = 1 + (sec[:, 1:] != sec[:, :-1]).sum(1)
-        if hits is not None:
-            n = torch.where(hits[s:s + (1 << 24)], n, 1)
-        total += int(n.sum())
-    return total
+        block, bit = ref.positions(keys[s:s + (1 << 24)], nb, 32 * wpb, k,
+                                   seed)
+        sec = torch.sort(block[:, None] * per_block + bit // 256, dim=1).values
+        touched[sec.reshape(-1)] = True
+        total += int((1 + (sec[:, 1:] != sec[:, :-1]).sum(1)).sum())
+    return total, int(touched.sum())
 
 
-def bloom_kernels(torch, card, check, phase, launches, err19):
+def bloom_kernels(torch, card, check, phase, launches, err_before):
     """Phase 21: ``bloom_insert`` and ``bloom_query`` alone at N_BLOOM keys
     into a filter of BLOOM_BITS bits (512-bit blocks, k = 4), and their
-    plain versions, compared and timed, with byte bounds from the run's
-    own data; the false-positive rate on N_BLOOM absent keys.  Returns
-    their two kernel records."""
+    plain versions, compared and timed, with bounds from the run's own
+    data (the distinct sectors its keys touch, or the integer operations);
+    the false-positive rate on N_BLOOM absent keys.  Returns their two
+    kernel records (``err_before``: the largest error of phases 19, 20)."""
     from repro_torch.core import bloom
     from repro_torch.kernels.bloom import ops as bloom_ops
     from repro_torch.kernels.cops import contract
@@ -1942,7 +2020,7 @@ def bloom_kernels(torch, card, check, phase, launches, err19):
     q_p_t, want = timed(torch, lambda: bloom_ops.query_plain(f.words, keys,
                                                               **kw),
                         reps=1, warmup=0)
-    err = max(err, err19, words_err(torch, hit, want))
+    err = max(err, err_before, words_err(torch, hit, want))
     check(f"phase{phase} bloom_query exact and no false negative",
           torch.equal(hit, want) and bool(hit.all()))
     del hit, want
@@ -1950,28 +2028,28 @@ def bloom_kernels(torch, card, check, phase, launches, err19):
     a_hit = bloom_ops.query_words(f.words, absent, **kw)
     fp = float(a_hit.float().mean())
     check(f"phase{phase} bloom false-positive rate below 1%", fp < 0.01)
-    filter_bytes = f.words.numel() * 4
-    sectors = bloom_sectors(torch, f.words, keys, f.k, f.seed)
-    ins_bytes = 64 * sectors + 4 * N_BLOOM
-    q_bytes = 32 * sectors + 5 * N_BLOOM
-    ops_ = (OPS_PER_BLOOM_KEY + 4 * f.k) * N_BLOOM
-    absent_sectors = bloom_sectors(torch, f.words, absent, f.k, f.seed, a_hit)
     del absent, a_hit
+    filter_bytes = f.words.numel() * 4
+    per_key, distinct = bloom_sectors(torch, f.words, keys, f.k, f.seed)
+    ins_bytes = 64 * distinct + 4 * N_BLOOM
+    q_bytes = 32 * distinct + 5 * N_BLOOM
+    ops_ = (OPS_PER_BLOOM_KEY + 4 * f.k) * N_BLOOM
     ms = 1e3 / HBM_BYTES_PER_S
     print(f"phase {phase} bloom kernels alone: {N_BLOOM} keys, "
           f"{f.num_blocks} blocks x {f.block_bits} bits "
           f"({filter_bytes / 2 ** 20:.0f} MiB), k={f.k}: "
           f"{check.status(since)}; bloom_insert {spread(ins_t)}, plain "
-          f"{ins_p_t[0]:.3f} ms, bound {ins_bytes * ms:.3f} ms ({sectors} "
-          f"sectors read and written, {sectors / N_BLOOM:.4f} a key, + keys; "
-          f"the compulsory floor, filter read and written once + keys: "
-          f"{(2 * filter_bytes + 4 * N_BLOOM) * ms:.3f} ms; operations "
-          f"{ops_ / INT32_OPS_PER_S * 1e3:.3f} ms); bloom_query "
-          f"{spread(q_t)}, plain {q_p_t[0]:.3f} ms, bound {q_bytes * ms:.3f}"
-          f" ms (the same sectors read + keys + hits; floor "
-          f"{(filter_bytes + 5 * N_BLOOM) * ms:.3f} ms); false-positive rate "
-          f"on {N_BLOOM} absent keys {fp:.6f} (their least sectors "
-          f"{absent_sectors}); card {card}", flush=True)
+          f"{ins_p_t[0]:.3f} ms; bloom_query {spread(q_t)}, plain "
+          f"{q_p_t[0]:.3f} ms; bounds: bytes {ins_bytes * ms:.3f} / "
+          f"{q_bytes * ms:.3f} ms ({distinct} distinct sectors, "
+          f"{32 * distinct / filter_bytes:.6f} of the filter, read and "
+          f"written / read once, + keys (+ hits)), integer operations "
+          f"{ops_ / INT32_OPS_PER_S * 1e3:.3f} ms each; this design's own "
+          f"traffic, every key's sectors ({per_key}, "
+          f"{per_key / N_BLOOM:.4f} a key): "
+          f"{(64 * per_key + 4 * N_BLOOM) * ms:.3f} / "
+          f"{(32 * per_key + 5 * N_BLOOM) * ms:.3f} ms; false-positive rate "
+          f"on {N_BLOOM} absent keys {fp:.6f}; card {card}", flush=True)
     return [kernel_record("bloom_insert", launches, err, ins_t, ins_p_t,
                           ins_bytes, source=BLOOM_SOURCE, bound_ops=ops_),
             kernel_record("bloom_query", launches, err, q_t, q_p_t, q_bytes,
@@ -2074,9 +2152,10 @@ def main() -> int:
 
     # -- phases 19-21: the elastic service and the bloom kernels (fig12) ----
     err19 = bloom_cases(torch, check, 19)
-    el_launches = elastic_path(torch, card, check, 20)
+    el_launches, err20 = elastic_path(torch, card, check, 20)
     torch.cuda.empty_cache()
-    records += bloom_kernels(torch, card, check, 21, el_launches, err19)
+    records += bloom_kernels(torch, card, check, 21, el_launches,
+                             max(err19, err20))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

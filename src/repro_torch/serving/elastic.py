@@ -400,36 +400,26 @@ def serve_step(st: ShardedTable, ins_keys, ins_vals, get_keys, del_keys, *,
     return st, (status, vals, found, erased, stats)
 
 
-def serve_traffic(st: ShardedTable, traffic, *, rate_hz: float | None = None,
-                  tracer=None):
-    """Drive the serve step over a traffic iterable.
+def serve_traffic(st: ShardedTable, traffic, *, tracer=None):
+    """Drive the serve step closed-loop over a traffic iterable.
 
     ``traffic`` yields ``(ins_keys, ins_vals, get_keys, del_keys)``
-    batches.  ``rate_hz`` paces step *starts* open-loop (a slow step eats
-    into the next slot); ``None`` runs closed-loop.  Every step is spanned
+    batches; each step starts when the last one ends (the reference's
+    open-loop ``rate_hz`` pacing is not ported).  Every step is spanned
     (``elastic.serve_step``) and waits for the card before the span ends,
     so ``tracer.percentiles`` gives true p50/p95/p99.  Bloom counters
     accumulate into the global REGISTRY.  Returns ``(st, tracer, steps,
     totals)`` where ``totals`` sums the stats dicts; raises on exchange
     overflow (undersized ``slack``).
     """
-    import time
-
     from repro_torch.obs.trace import Tracer
 
     if tracer is None:
         tracer = Tracer()
-    period = 1.0 / rate_hz if rate_hz else 0.0
-    next_t = time.perf_counter()
     steps = 0
     totals = {k: 0 for k in ("probes", "skips", "hits", "false_positives",
                              "overflow")}
     for batch in traffic:
-        if period:
-            now = time.perf_counter()
-            if now < next_t:
-                time.sleep(next_t - now)
-            next_t += period
         with tracer.span("elastic.serve_step", step=steps):
             st, outs = serve_step(st, *batch)
             if st.device.type == "cuda":
