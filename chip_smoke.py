@@ -7,7 +7,8 @@ Drives the port's paths — bulk build and bulk retrieval on the
 single-value COPS table, the paper's headline (§IV-B, Fig. 5), on the
 multi-value table and the bucket list (§IV-B.4, §IV-C, Fig. 7), the
 metagenomics pipeline (§V-C, Fig. 8), the relational layer (fig9) and the
-bloom-filtered elastic service (fig12) — at the paper's scale, and holds
+bloom-filtered elastic service (fig12) — at the paper's scale, flash
+attention at starcoder2-3b's attention widths, and holds
 every kernel of each path against its plain PyTorch version.  Phases, one
 status line each:
 
@@ -142,7 +143,24 @@ status line each:
     sectors this run's keys touch, each once (about the filter, read and
     written once), + the key and hit streams, or the integer operations
     if more; the design's own traffic (every key's sectors) beside it; and
-    the false-positive rate on 2^28 absent keys.
+    the false-positive rate on 2^28 absent keys;
+22. ``flash_fwd`` through ``flash_attention`` vs its plain version
+    (``ref.gqa_attention``, f32 softmax attention, TF32 off) on the same
+    card tensors for every case of ``tests/test_torch_flash.py`` and the
+    configs' widths at S up to 1024 (starcoder2-3b 24 / 2 heads, hd 128;
+    smollm-360m 15 / 5, hd 64; olmo-1b 16 / 16, hd 128; hd 16; Sk != S;
+    tq 64 / tk 128), and ``flash_call`` on panels, at the reference's
+    tolerances (2e-5 f32, 2e-2 bf16);
+23. the main path: ``flash_attention`` at starcoder2-3b's widths, causal,
+    on the train_4k sequence (bf16, B = 4, S = 4096), the prefill_32k
+    sequence (bf16, B = 1, S = 32768) and the 4k sequence in f32 (B = 1);
+    the counter zeroed just before and read just after; each output held
+    against the plain version (timed once) and against
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    (B, H, S, hd) views of the same tensors; ``flash_fwd`` and SDPA timed
+    (median of 5 after a warm-up); the bound: the flops (4 hd per visible
+    pair) at the type's peak (989 TFLOP/s bf16, 67 f32), the bytes (q, k,
+    v, o once) and the exponentials beside it.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
@@ -199,6 +217,48 @@ EL_SNAP_CAPACITY = 2 ** 22  # the save / load / reshard leg, per shard
 N_BLOOM = 2 ** 28         # phase 21: keys into a filter of 2^32 bits
 BLOOM_BITS = 2 ** 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+# phases 22-23: flash attention at starcoder2-3b's attention widths
+# (configs/starcoder2_3b.py:7-8: 24 query heads on 2 KV heads, hd 128) and
+# the repo's sequences (configs/base.py:9-10: train_4k, prefill_32k);
+# (cell, dtype, batch, sequence), all causal
+FLASH_HEADS = (24, 2, 128)
+FLASH_MAIN = (("flash-starcoder2-3b-4k", "bfloat16", 4, 4096),
+              ("flash-starcoder2-3b-32k", "bfloat16", 1, 32768),
+              ("flash-starcoder2-3b-4k-f32", "float32", 1, 4096))
+# phase 22's cases: (B, S, Sk, H, Hkv, hd, dtype, causal, tq, tk) — those of
+# tests/test_torch_flash.py, then the configs' widths at S up to 1024:
+# starcoder2-3b (24 / 2 / 128), smollm-360m (15 / 5 / 64,
+# configs/smollm_360m.py:7-8), olmo-1b (16 / 16 / 128), the SMOKE head dim 16
+FLASH_CASES = (
+    (2, 256, 256, 4, 2, 64, "float32", True, 128, 128),
+    (2, 256, 256, 4, 2, 64, "float32", False, 128, 128),
+    (1, 384, 384, 2, 2, 32, "float32", True, 128, 128),
+    (1, 384, 384, 2, 2, 32, "float32", False, 128, 128),
+    (2, 128, 128, 4, 4, 64, "float32", True, 128, 128),
+    (2, 128, 128, 4, 4, 64, "float32", False, 128, 128),
+    (1, 256, 256, 2, 2, 64, "bfloat16", True, 128, 128),
+    (1, 128, 128, 24, 2, 32, "float32", True, 128, 128),
+    (1, 128, 128, 4, 2, 16, "float32", True, 128, 128),
+    (1, 128, 256, 2, 1, 32, "float32", True, 128, 128),
+    (1, 256, 128, 2, 1, 32, "float32", False, 128, 128),
+    (1, 256, 256, 2, 2, 32, "float32", True, 64, 128),
+    (2, 1024, 1024, 24, 2, 128, "bfloat16", True, 128, 128),
+    (2, 1024, 1024, 24, 2, 128, "float32", True, 64, 128),
+    (2, 1024, 1024, 15, 5, 64, "bfloat16", True, 128, 128),
+    (2, 1024, 1024, 15, 5, 64, "float32", False, 128, 128),
+    (1, 1024, 1024, 16, 16, 128, "bfloat16", True, 128, 128),
+    (1, 1024, 1024, 16, 16, 128, "float32", False, 128, 128),
+    (1, 512, 1024, 24, 2, 128, "bfloat16", True, 128, 128),
+    (1, 1024, 384, 24, 2, 128, "float32", False, 128, 128),
+    (2, 1024, 1024, 4, 2, 16, "bfloat16", True, 128, 128),
+)
+# the reference's tolerances (tests/test_kernels.py::TestFlashKernel)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# peak rates for the flash bound (the on-chip-measurement guide's table,
+# NVIDIA's H100 SXM data sheet, dense): flops per second by input type
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# 132 SMs x 16 special-function lanes x 1.98 GHz: exponentials per second
+EXP_PER_S = 132 * 16 * 1.98e9
 # 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper white paper; the guide's
 # table has no integer rate): 32-bit integer operations per second
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -214,6 +274,7 @@ OPS_PER_BLOOM_KEY = 30
 SOURCE = "src/repro_torch/kernels/cops/csrc/cops.cu"
 MINHASH_SOURCE = "src/repro_torch/kernels/minhash/csrc/minhash.cu"
 BLOOM_SOURCE = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash/csrc/flash.cu"
 REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
             "cops_lookup": "src/repro/kernels/cops/kernel.py:789",
             "cops_append": "src/repro/kernels/cops/kernel.py:103",
@@ -227,7 +288,8 @@ REPLACES = {"cops_insert": "src/repro/kernels/cops/kernel.py:75",
             "cops_update64": "src/repro/kernels/cops/kernel.py:203",
             "kmer_hash": "src/repro/kernels/minhash/kernel.py:33",
             "bloom_insert": "src/repro/kernels/bloom/kernel.py:45",
-            "bloom_query": "src/repro/kernels/bloom/kernel.py:83"}
+            "bloom_query": "src/repro/kernels/bloom/kernel.py:83",
+            "flash_fwd": "src/repro/kernels/flash/kernel.py:35"}
 
 
 def card_line() -> str:
@@ -332,19 +394,29 @@ def multi_walk_windows(torch, table_keys, keys, seed, scheme, budget):
 
 
 def kernel_record(name, launches, err, times, plain_times, bound_bytes,
-                  source=SOURCE, bound_ops=0):
+                  source=SOURCE, bound_ops=0, bound_flops=0, flops_rate=None,
+                  library_times=None):
     """One entry of the ``{"kernels": [...]}`` line: the main path's
     ``launches`` of the kernel, its median time of ``times``, the plain
-    version's time and the bound: the larger of the bytes at the card's
-    memory rate and the 32-bit integer operations at its integer rate."""
+    version's time, the library call's median time where there is one, and
+    the bound: the largest of the bytes at the card's memory rate, the
+    32-bit integer operations at its integer rate and the flops at
+    ``flops_rate``; ``bound_rate`` names the one that bounds."""
     by_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = bound_ops / INT32_OPS_PER_S * 1e3
+    by_flops = bound_flops / flops_rate * 1e3 if bound_flops else 0.0
+    bound = max(by_bytes, by_ops, by_flops)
+    rate = ("bytes at 3.35 TB/s" if bound == by_bytes
+            else f"32-bit integer operations at "
+                 f"{INT32_OPS_PER_S / 1e12:.2f} Tops/s" if bound == by_ops else f"flops at {flops_rate / 1e12:g} TFLOP/s")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": statistics.median(times),
-            "plain_ms": plain_times[0], "bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None}
+            "plain_ms": plain_times[0], "bound_ms": bound,
+            "bound_by": "bytes" if bound == by_bytes else "operations",
+            "bound_rate": rate,
+            "library_ms": (statistics.median(library_times)
+                           if library_times else None)}
 
 
 def pair_err(a, b) -> float:
@@ -2056,6 +2128,136 @@ def bloom_kernels(torch, card, check, phase, launches, err_before):
                           source=BLOOM_SOURCE, bound_ops=ops_)]
 
 
+def flash_inputs(torch, seed, b, s, sk, h, hkv, hd, dtype):
+    """Seeded N(0, 1) (B, S, H, hd) q and (B, Sk, Hkv, hd) k, v on the card
+    in ``dtype`` (rounded from f32)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+        for shape in ((b, s, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hd))]
+
+
+def flash_err(torch, got, want, dtype) -> tuple[float, bool]:
+    """(max abs difference, within the reference's tolerance: |got - want|
+    <= tol + tol * |want| everywhere, and every value finite)."""
+    tol = FLASH_TOL[dtype]
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return (float(diff.max()),
+            bool(torch.isfinite(got).all())
+            and bool((diff <= tol + tol * want.abs()).all()))
+
+
+def flash_cases(torch, check, phase):
+    """Phase 22: ``flash_fwd`` through ``flash_attention`` vs the plain
+    version (``ref.gqa_attention``) on the same card tensors for every case
+    of FLASH_CASES, and ``flash_call`` vs ``ref.attention`` on panels of the
+    first; the reference's tolerances.  Returns the largest error."""
+    from repro_torch.kernels.flash import ops as fl, ref
+    t0 = time.perf_counter()
+    since = len(check.failed)
+    err = 0.0
+    for i, (b, s, sk, h, hkv, hd, dtype, causal, tq, tk) in enumerate(
+            FLASH_CASES):
+        q, k, v = flash_inputs(torch, 22_000 + i, b, s, sk, h, hkv, hd,
+                               dtype)
+        got = fl.flash_attention(q, k, v, causal=causal, tq=tq, tk=tk)
+        want = ref.gqa_attention(q, k, v, causal=causal)
+        e, ok = flash_err(torch, got, want, dtype)
+        err = max(err, e)
+        check(f"phase{phase} flash B={b} S={s} Sk={sk} H={h}/{hkv} hd={hd} "
+              f"{dtype} causal={causal} tq={tq} tk={tk}",
+              ok and got.shape == q.shape and got.dtype == q.dtype)
+    b, s, sk, h, hkv, hd, dtype, causal, tq, tk = FLASH_CASES[0]
+    q, k, v = flash_inputs(torch, 22_100, b * h, s, sk, 1, 1, hd, dtype)
+    panels = [x[:, :, 0] for x in (q, k, v)]
+    e, ok = flash_err(torch, fl.flash_call(*panels), ref.attention(*panels),
+                      dtype)
+    err = max(err, e)
+    check(f"phase{phase} flash_call panels", ok)
+    torch.cuda.synchronize()
+    print(f"phase {phase} flash kernel vs plain, {len(FLASH_CASES)} cases "
+          f"(f32 / bf16, causal and not, hd 16 / 32 / 64 / 128, H / Hkv "
+          f"4 / 2, 24 / 2, 15 / 5, 16 / 16, Sk != S, tq 64 / tk 128, S up to "
+          f"{max(c[1] for c in FLASH_CASES)}) + flash_call: "
+          f"{check.status(since)}, max error {err:.3g} (tolerance 2e-5 f32, "
+          f"2e-2 bf16) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return err
+
+
+def flash_path(torch, card, check, phase, err_before):
+    """Phase 23: the FLASH_MAIN cells through ``flash_attention`` (causal),
+    the launch counter zeroed just before and read just after; then per
+    cell the output held against the plain version (timed once) and
+    against ``scaled_dot_product_attention`` on (B, H, S, hd) views of the
+    same tensors, ``flash_fwd`` and SDPA timed (median of 5 after a
+    warm-up), with the bound from the cell's bytes and flops.  Returns the
+    kernel record at the first cell."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import ops as fl, ref
+    h, hkv, hd = FLASH_HEADS
+    since = len(check.failed)
+    cells = {name: flash_inputs(torch, 23_000 + i, b, s, s, h, hkv, hd,
+                                dtype)
+             for i, (name, dtype, b, s) in enumerate(FLASH_MAIN)}
+    torch.cuda.synchronize()
+    fl.reset_launches()
+    outs = {name: fl.flash_attention(*cells[name], causal=True)
+            for name, *_ in FLASH_MAIN}
+    torch.cuda.synchronize()
+    launches = dict(fl.LAUNCHES)
+    check(f"phase{phase} flash_fwd launched on the path",
+          launches["flash_fwd"] == len(FLASH_MAIN))
+    record, err = None, err_before
+    for name, dtype, b, s in FLASH_MAIN:
+        q, k, v = cells.pop(name)
+        got = outs.pop(name)
+        plain_t, want = timed(torch, lambda: ref.gqa_attention(q, k, v),
+                              reps=1, warmup=0)
+        e, ok = flash_err(torch, got, want, dtype)
+        err = max(err, e)
+        check(f"phase{phase} {name} kernel vs plain",
+              ok and got.shape == q.shape and got.dtype == q.dtype)
+        del got
+        t, _ = timed(torch, lambda: fl.flash_attention(q, k, v))
+        views = [x.transpose(1, 2) for x in (q, k, v)]
+        lib_t, lib = timed(torch, lambda: F.scaled_dot_product_attention(
+            *views, is_causal=True, enable_gqa=True))
+        e_lib, ok = flash_err(torch, lib.transpose(1, 2), want, dtype)
+        check(f"phase{phase} {name} SDPA vs plain", ok)
+        del lib, want, views
+        pairs = b * h * s * (s + 1) // 2   # causal: query i sees i + 1 keys
+        flops = 4 * hd * pairs
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v, o
+        by_flops = flops / FLOPS_PER_S[dtype] * 1e3
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        med = statistics.median(t)
+        print(f"phase {phase} {name}: B={b} S={s} H={h} Hkv={hkv} hd={hd} "
+              f"{dtype} causal; flash_fwd {spread(t)} "
+              f"({flops / med / 1e9:.1f} TFLOP/s), plain {plain_t[0]:.3f} ms, "
+              f"SDPA {spread(lib_t)} "
+              f"({flops / statistics.median(lib_t) / 1e9:.1f} TFLOP/s); "
+              f"max error {e:.3g} (SDPA {e_lib:.3g}); "
+              f"bound {max(by_flops, by_bytes):.3f} ms ({flops:.4g} flops at "
+              f"{FLOPS_PER_S[dtype] / 1e12:g} TFLOP/s: {by_flops:.3f} ms; "
+              f"{nbytes:.4g} bytes: {by_bytes:.3f} ms; {pairs:.4g} "
+              f"exponentials: {pairs / EXP_PER_S * 1e3:.3f} ms); kernel at "
+              f"{med / max(by_flops, by_bytes):.1f}x its bound, "
+              f"{med / statistics.median(lib_t):.1f}x SDPA; card {card}",
+              flush=True)
+        if record is None:
+            record = (t, plain_t, nbytes, flops, FLOPS_PER_S[dtype], lib_t)
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(f"phase {phase} flash main path: {check.status(since)}, launches "
+          f"{launches}", flush=True)
+    t, plain_t, nbytes, flops, rate, lib_t = record
+    return kernel_record("flash_fwd", launches, err, t, plain_t, nbytes,
+                         source=FLASH_SOURCE, bound_flops=flops,
+                         flops_rate=rate, library_times=lib_t)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2156,6 +2358,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += bloom_kernels(torch, card, check, 21, el_launches,
                              max(err19, err20))
+    torch.cuda.empty_cache()
+
+    # -- phases 22-23: flash attention at starcoder2-3b's widths -----------
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version: f32
+    torch.backends.cudnn.allow_tf32 = False
+    err22 = flash_cases(torch, check, 22)
+    records.append(flash_path(torch, card, check, 23, err22))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

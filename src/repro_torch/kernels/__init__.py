@@ -19,6 +19,11 @@
   word, and ``bloom_query``), over one filter or a stack of filters with a
   plane per key, with their wrappers, plain versions and launch counters
   in ``bloom/ops.py`` and the bit-view arithmetic in ``bloom/ref.py``.
+- ``flash`` — flash attention's forward in CUDA C++
+  (``flash/csrc/flash.cu``: ``flash_fwd``, an f32 online softmax over K/V
+  tiles streamed past a query tile, grouped KV heads read in place, f32 or
+  bf16 at head dims 16, 32, 64 and 128), with its wrappers and launch
+  counter in ``flash/ops.py`` and the plain attention in ``flash/ref.py``.
 
 ``build`` compiles the CUDA sources with nvcc at first use.
 """

@@ -29,6 +29,8 @@ from repro_torch.kernels.cops import contract, ops
 from repro_torch.kernels.minhash import ops as mh
 from repro_torch.kernels.minhash.ref import INVALID_WORD
 from repro_torch.kernels.bloom import ops as bloom_ops
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash import ref as flash_ref
 
 #: every launch counter at zero
 _NONE = dict.fromkeys(ops.LAUNCHES, 0)
@@ -657,3 +659,77 @@ def test_elastic_service_on_card_goes_through_kernels(tmp_path):
             for x, y in zip(a, b):
                 assert (torch.equal(x.cpu(), y) if isinstance(x, torch.Tensor)
                         else x == y)
+
+
+#: the reference's tolerances (tests/test_kernels.py::TestFlashKernel)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(seed, b, s, sk, h, hkv, hd, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to("cuda", dtype)
+            for shape in ((b, s, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", flash_ops.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_holds_to_plain(causal, hd, dtype):
+    """``flash_fwd`` against the plain f32 attention on the card, one
+    launch per call: grouped heads (starcoder2-3b's 24 / 2), sequences that
+    are not multiples of the kernel's tiles, Sk != S both ways, and the
+    panels of ``flash_call``."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = FLASH_TOL[dtype]
+    for b, s, sk, h, hkv in [(2, 256, 256, 4, 2), (1, 200, 200, 24, 2),
+                             (1, 96, 320, 3, 3), (2, 320, 96, 2, 1)]:
+        q, k, v = _flash_inputs(s + h + hd, b, s, sk, h, hkv, hd, dtype)
+        flash_ops.reset_launches()
+        got = flash_ops.flash_attention(q, k, v, causal=causal, tq=s, tk=sk)
+        assert flash_ops.LAUNCHES["flash_fwd"] == 1
+        want = flash_ref.gqa_attention(q, k, v, causal=causal)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    panels = [x[0].transpose(0, 1).expand(h, -1, -1).contiguous()
+              for x in (q, k, v)]
+    got = flash_ops.flash_call(*panels, causal=causal, tq=s, tk=sk)
+    want = flash_ref.attention(*panels, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_tensors_and_refuses():
+    """Views are read where they lie (a (B, H, S, hd) tensor transposed,
+    a slice of fused QKV) or copied when misaligned; an empty batch
+    launches nothing; other head dims and dtypes raise on the card instead
+    of running the plain version."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.normal(size=(2, 256, 8, 64))
+                           .astype(np.float32)).cuda()
+    q = qkv[:, :, :4]
+    k = qkv[:, :, 4:6]
+    v = torch.from_numpy(rng.normal(size=(2, 2, 256, 64))
+                         .astype(np.float32)).cuda().transpose(1, 2)
+    want = flash_ref.gqa_attention(q, k, v)
+    torch.testing.assert_close(flash_ops.flash_attention(q, k, v), want,
+                               rtol=2e-5, atol=2e-5)
+    odd = torch.zeros(2 * 256 * 4 * 64 + 1, device="cuda")[1:]
+    odd = odd.view(2, 256, 4, 64).copy_(q)            # 4-byte aligned only
+    torch.testing.assert_close(flash_ops.flash_attention(odd, k, v), want,
+                               rtol=2e-5, atol=2e-5)
+    flash_ops.reset_launches()
+    empty = torch.zeros(0, 64, 2, 64, device="cuda")
+    assert flash_ops.flash_attention(empty, empty, empty).shape == (0, 64, 2,
+                                                                    64)
+    assert flash_ops.LAUNCHES["flash_fwd"] == 0     # nothing to launch
+    for bad in (torch.zeros(1, 64, 2, 48, device="cuda"),
+                torch.zeros(1, 64, 2, 64, device="cuda", dtype=torch.half)):
+        flash_ops.reset_launches()
+        with pytest.raises(NotImplementedError, match="item 14a"):
+            flash_ops.flash_attention(bad, bad, bad)
+        assert flash_ops.LAUNCHES["flash_fwd"] == 0

@@ -300,8 +300,8 @@ def test_package_imports_neither_jax_nor_repro():
     minhash sketches, the counting table, the hash set, the relational
     operators (group-by, DISTINCT, the four joins), a bloom filter and a
     small elastic service (insert, lookup, erase, compaction, reshard, a
-    grown shard's snapshot) run, on the CPU, without pulling in JAX or the
-    JAX package."""
+    grown shard's snapshot) and flash attention (grouped heads and
+    panels) run, on the CPU, without pulling in JAX or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy as np\n"
@@ -361,6 +361,11 @@ def test_package_imports_neither_jax_nor_repro():
         "elastic.check_ownership(st)\n"
         "snapshot.restore_bytes(snapshot.snapshot_bytes(migrate.grow("
         "st.shards[0], 512)), device='cpu')\n"
+        "import torch\n"
+        "from repro_torch.kernels.flash import ops as fl\n"
+        "x = torch.ones(1, 64, 4, 16)\n"
+        "fl.flash_attention(x, x[:, :, :2], x[:, :, :2])\n"
+        "fl.flash_call(x[0], x[0], x[0], causal=False)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith"
         "('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
