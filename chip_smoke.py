@@ -254,8 +254,8 @@ FLASH_CASES = (
 )
 # the reference's tolerances (tests/test_kernels.py::TestFlashKernel)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# peak rates for the flash bound (the on-chip-measurement guide's table,
-# NVIDIA's H100 SXM data sheet, dense): flops per second by input type
+# peak rates for the flash bound (NVIDIA's H100 SXM data sheet, dense):
+# flops per second by input type
 FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # 132 SMs x 16 special-function lanes x 1.98 GHz: exponentials per second
 EXP_PER_S = 132 * 16 * 1.98e9
