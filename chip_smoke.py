@@ -149,10 +149,11 @@ status line each:
     card tensors for every case of ``tests/test_torch_flash.py`` and the
     configs' widths at S up to 1024 (starcoder2-3b 24 / 2 heads, hd 128;
     smollm-360m 15 / 5, hd 64; olmo-1b 16 / 16, hd 128; hd 16; Sk != S;
-    tq 64 / tk 128), and ``flash_call`` on panels, at the reference's
-    elementwise tolerances (2e-5 f32, 2e-2 bf16) and at limits scaled to
-    the output: the relative error of the whole output and of each row
-    (one query of one head);
+    tq 64 / tk 128; in bf16 also S = 1, S = 130 and hd 32), and
+    ``flash_call`` on panels, at the reference's elementwise tolerances
+    (2e-5 f32, 2e-2 bf16) and at limits scaled to the output: the
+    relative error of the whole output and of each row (one query of one
+    head);
 23. the main path: ``flash_attention`` at starcoder2-3b's widths, causal,
     on the train_4k sequence (bf16, B = 4, S = 4096), the prefill_32k
     sequence (bf16, B = 1, S = 32768) and the 4k sequence in f32 (B = 1);
@@ -161,9 +162,11 @@ status line each:
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
     (B, H, S, hd) views of the same tensors, at scaled limits of its own
     (it rounds P to bf16); ``flash_fwd`` and SDPA timed
-    (median of 5 after a warm-up); the bound: the flops (4 hd per visible
-    pair) at the type's peak (989 TFLOP/s bf16, 67 f32), the bytes (q, k,
-    v, o once) and the exponentials beside it.
+    (median of 5 after a warm-up), and the CUDA kernels of one call of
+    each named by ``torch.profiler`` (which SDPA backend ran); the bound:
+    the flops (4 hd per visible pair) at the type's peak (989 TFLOP/s
+    bf16, 67 f32), the bytes (q, k, v, o once) and the exponentials beside
+    it.
 
 The second-to-last line is the ``{"kernels": [...]}`` record, one entry per
 kernel; its ``bound_by`` is "bytes" or "operations" (the larger term), and
@@ -257,6 +260,10 @@ FLASH_CASES = (
     (1, 512, 1024, 24, 2, 128, "bfloat16", True, 128, 128),
     (1, 1024, 384, 24, 2, 128, "float32", False, 128, 128),
     (2, 1024, 1024, 4, 2, 16, "bfloat16", True, 128, 128),
+    # the bf16 kernel's ragged edges: one row; one row past a 128-row tile
+    (1, 1, 1, 24, 2, 128, "bfloat16", True, 1, 1),
+    (1, 130, 130, 24, 2, 128, "bfloat16", True, 130, 130),
+    (1, 384, 384, 2, 2, 32, "bfloat16", False, 128, 128),
 )
 # the reference's tolerances (tests/test_kernels.py::TestFlashKernel):
 # |got - want| <= tol + tol |want| for every value
@@ -265,11 +272,14 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # sequences (a causal output over n keys of N(0, 1) values spreads about
 # sqrt(e / n): ~0.013 at 32k, below 2e-2): the relative error
 # ||got - want|| / ||want|| of the whole output and the largest of one
-# output row (one query of one head), 4-16x the largest reading of a
-# sound run (PERF.md, PR 17).  SDPA rounds the probabilities to bf16
-# before P V, so its own bf16 limits are wider.
+# output row (one query of one head).  f32: 4-16x the largest reading of
+# a sound run (PERF.md).  bf16: the kernel runs P V on the tensor
+# cores and so rounds the probabilities to bf16 first, as SDPA does, which
+# puts its whole-output error near 2e-3 (SDPA read 2.14e-3 / 2.24e-3,
+# worst row 4.08e-3 / 4.49e-3 at 4k / 32k, PERF.md): it is held to SDPA's
+# class, where a kernel that drops key tiles reads 0.1 / 0.7.
 FLASH_LIMITS = {"flash_fwd": {"float32": (1e-5, 5e-5),
-                              "bfloat16": (5e-4, 1e-2)},
+                              "bfloat16": (5e-3, 1.5e-2)},
                 "sdpa": {"float32": (1e-5, 5e-5),
                          "bfloat16": (5e-3, 1.5e-2)}}
 # peak rates for the flash bound (NVIDIA's H100 SXM data sheet, dense):
@@ -2227,6 +2237,24 @@ def flash_cases(torch, check, phase):
     return max(e for e, _, _ in worst.values())
 
 
+def device_kernels(torch, fn) -> str:
+    """The CUDA kernels that one call of ``fn`` runs, by device time, as
+    ``torch.profiler`` names them ("not measured" where it sees none)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as exc:
+        return f"not measured (profiler: {exc})"
+    rows = sorted(((e.device_time_total, e.key) for e in prof.key_averages()
+                   if e.device_time_total > 0), reverse=True)
+    if not rows:
+        return "not measured (the profiler saw no device time)"
+    return "; ".join(f"{name[:100]} {us / 1e3:.3f} ms" for us, name in rows)
+
+
 def flash_path(torch, card, check, phase, err_before):
     """Phase 23: the FLASH_MAIN cells through ``flash_attention`` (causal),
     the launch counter zeroed just before and read just after; then per
@@ -2268,7 +2296,14 @@ def flash_path(torch, card, check, phase, err_before):
         e_lib, rel_lib, row_lib, ok = flash_err(torch, lib.transpose(1, 2),
                                                 want, dtype, of="sdpa")
         check(f"phase{phase} {name} SDPA vs plain", ok)
-        del lib, want, views
+        del lib, want
+        print(f"phase {phase} {name}: device kernels of one call: "
+              f"flash_attention: "
+              f"{device_kernels(torch, lambda: fl.flash_attention(q, k, v))}"
+              f" | SDPA: " + device_kernels(
+                  torch, lambda: F.scaled_dot_product_attention(
+                      *views, is_causal=True, enable_gqa=True)), flush=True)
+        del views
         pairs = b * h * s * (s + 1) // 2   # causal: query i sees i + 1 keys
         flops = 4 * hd * pairs
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v, o

@@ -11,6 +11,10 @@ PyTorch headers), so it compiles in seconds into
 is newer than its library) and loads it; ``build_all`` compiles every
 source at once, one nvcc process per source.  Both raise when nvcc is
 missing or a build fails; nothing here runs when the module is imported.
+
+``python -m repro_torch.kernels.build [name ...]`` (with ``src`` on the
+path, on a machine with nvcc) prints ptxas's report of each kernel of the
+named sources: registers, shared memory, spills.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import functools
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -89,3 +94,28 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists() or path.stat().st_mtime < src.stat().st_mtime:
         build_all([name])
     return ctypes.CDLL(str(path))
+
+
+def ptxas_report(names=None) -> str:
+    """nvcc's ``-Xptxas -v`` output for the named sources (default: all),
+    compiled with the build's flags into a file that is then removed."""
+    srcs = sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = []
+    for name in names or srcs:
+        tmp = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.so"
+        try:
+            res = subprocess.run([nvcc(), *NVCC_FLAGS, "-Xptxas", "-v",
+                                  "-o", str(tmp), str(srcs[name])],
+                                 capture_output=True, text=True)
+        finally:
+            tmp.unlink(missing_ok=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc exited {res.returncode}\n"
+                               f"{res.stdout}{res.stderr}")
+        out.append(f"{name}:\n{res.stdout}{res.stderr}")
+    return "\n".join(out)
+
+
+if __name__ == "__main__":
+    print(ptxas_report(sys.argv[1:]))

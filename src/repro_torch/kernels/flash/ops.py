@@ -104,10 +104,11 @@ def _device(q, k, v) -> bool:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` if the kernel can read it where it lies (head dim contiguous,
-    16-byte aligned rows), else a contiguous copy."""
+    16-byte aligned rows, every other stride positive, as the bf16
+    kernel's TMA maps assume), else a contiguous copy."""
     vec = 16 // t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % vec == 0 for s in t.stride()[:-1])):
+            and all(s > 0 and s % vec == 0 for s in t.stride()[:-1])):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -119,8 +120,8 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if hd not in HEAD_DIMS or q.dtype not in _DTYPES:
         raise NotImplementedError(
             f"flash_fwd is built for f32 and bf16 at head dims {HEAD_DIMS}, "
-            f"not {q.dtype} at {hd}; the others come with the kernel's "
-            f"redesign (ROADMAP.md queue 1 item 14a)")
+            f"not {q.dtype} at {hd}; other head dims and types come with "
+            f"ROADMAP.md queue 1 item 12b")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, seq, heads, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:

@@ -6,6 +6,10 @@ softmax attention in f32, as ``repro.kernels.flash.ref.attention``.
 ``ops.flash_attention``, query head h reading KV head h // (H / Hkv).  Both
 go ``chunk`` panels at a time, so a card holds the (chunk, S, Sk) f32
 scores of one pass only; the result does not depend on ``chunk``.
+
+``blocked_attention`` is the bf16 kernel's arithmetic written plainly (an
+online softmax over key tiles, P rounded before P V), so the CPU tests can
+show that this rounding fits the limits the card holds the kernel to.
 """
 
 from __future__ import annotations
@@ -64,3 +68,36 @@ def attention(q, k, v, *, causal=True, chunk=None):
     """q: (BH, S, hd); k, v: (BH, Sk, hd) -> (BH, S, hd) in q's dtype."""
     return gqa_attention(q[:, :, None], k[:, :, None], v[:, :, None],
                          causal=causal, chunk=chunk)[:, :, 0]
+
+
+def blocked_attention(q, k, v, *, causal=True, tk=128,
+                      p_dtype=torch.bfloat16):
+    """q: (BH, S, hd); k, v: (BH, Sk, hd) -> (BH, S, hd) in q's dtype, as
+    ``flash_fwd``'s bf16 path computes it: an f32 online softmax over key
+    tiles of ``tk`` (running max m, running sum l of the f32
+    probabilities), each tile's probabilities rounded to ``p_dtype`` before
+    P V, the output summed in f32 and divided by max(l, 1e-30).  With
+    ``p_dtype=torch.float32`` it is ``attention`` up to f32 rounding."""
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = torch.arange(sq, device=dev)[:, None]
+    m = torch.full((bh, sq, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((bh, sq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bh, sq, hd), dtype=torch.float32, device=dev)
+    for k0 in range(0, sk, tk):
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, k0:k0 + tk])
+        s /= math.sqrt(hd)
+        if causal:
+            cols = torch.arange(k0, min(k0 + tk, sk), device=dev)[None, :]
+            s.masked_fill_(rows < cols, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bqk,bkd->bqd",
+                                        p.to(p_dtype).float(),
+                                        vf[:, k0:k0 + tk])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)

@@ -679,12 +679,14 @@ def _flash_inputs(seed, b, s, sk, h, hkv, hd, dtype):
 def test_flash_kernel_holds_to_plain(causal, hd, dtype):
     """``flash_fwd`` against the plain f32 attention on the card, one
     launch per call: grouped heads (starcoder2-3b's 24 / 2), sequences that
-    are not multiples of the kernel's tiles, Sk != S both ways, and the
-    panels of ``flash_call``."""
+    are not multiples of the kernel's tiles (one row, one row past a
+    128-row tile), Sk != S both ways, and the panels of ``flash_call``."""
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     tol = FLASH_TOL[dtype]
+    # the last shape, one KV head, also gives flash_call's panels
     for b, s, sk, h, hkv in [(2, 256, 256, 4, 2), (1, 200, 200, 24, 2),
+                             (1, 1, 1, 4, 2), (1, 130, 130, 24, 2),
                              (1, 96, 320, 3, 3), (2, 320, 96, 2, 1)]:
         q, k, v = _flash_inputs(s + h + hd, b, s, sk, h, hkv, hd, dtype)
         flash_ops.reset_launches()
@@ -702,26 +704,35 @@ def test_flash_kernel_holds_to_plain(causal, hd, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_kernel_reads_strided_tensors_and_refuses():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_tensors_and_refuses(dtype):
     """Views are read where they lie (a (B, H, S, hd) tensor transposed,
-    a slice of fused QKV) or copied when misaligned; an empty batch
-    launches nothing; other head dims and dtypes raise on the card instead
-    of running the plain version."""
+    a slice of fused QKV; in bf16 through TMA maps of those strides) or
+    copied when misaligned or expanded (stride 0); an empty batch launches
+    nothing; other head dims and dtypes raise on the card instead of
+    running the plain version."""
     _need_card()
+    tol = FLASH_TOL[dtype]
     rng = np.random.default_rng(3)
     qkv = torch.from_numpy(rng.normal(size=(2, 256, 8, 64))
-                           .astype(np.float32)).cuda()
+                           .astype(np.float32)).to("cuda", dtype)
     q = qkv[:, :, :4]
     k = qkv[:, :, 4:6]
     v = torch.from_numpy(rng.normal(size=(2, 2, 256, 64))
-                         .astype(np.float32)).cuda().transpose(1, 2)
-    want = flash_ref.gqa_attention(q, k, v)
-    torch.testing.assert_close(flash_ops.flash_attention(q, k, v), want,
-                               rtol=2e-5, atol=2e-5)
-    odd = torch.zeros(2 * 256 * 4 * 64 + 1, device="cuda")[1:]
-    odd = odd.view(2, 256, 4, 64).copy_(q)            # 4-byte aligned only
-    torch.testing.assert_close(flash_ops.flash_attention(odd, k, v), want,
-                               rtol=2e-5, atol=2e-5)
+                         .astype(np.float32)).to("cuda", dtype).transpose(1,
+                                                                          2)
+    want = flash_ref.gqa_attention(q, k, v).float()
+    torch.testing.assert_close(flash_ops.flash_attention(q, k, v).float(),
+                               want, rtol=tol, atol=tol)
+    odd = torch.zeros(2 * 256 * 4 * 64 + 1, device="cuda", dtype=dtype)[1:]
+    odd = odd.view(2, 256, 4, 64).copy_(q)        # element-aligned only
+    torch.testing.assert_close(flash_ops.flash_attention(odd, k, v).float(),
+                               want, rtol=tol, atol=tol)
+    one = k[:, :, :1]                                # stride 0 over heads
+    torch.testing.assert_close(
+        flash_ops.flash_attention(q, one.expand(-1, -1, 2, -1), v).float(),
+        flash_ref.gqa_attention(q, one.expand(-1, -1, 2, -1), v).float(),
+        rtol=tol, atol=tol)
     flash_ops.reset_launches()
     empty = torch.zeros(0, 64, 2, 64, device="cuda")
     assert flash_ops.flash_attention(empty, empty, empty).shape == (0, 64, 2,
@@ -730,6 +741,6 @@ def test_flash_kernel_reads_strided_tensors_and_refuses():
     for bad in (torch.zeros(1, 64, 2, 48, device="cuda"),
                 torch.zeros(1, 64, 2, 64, device="cuda", dtype=torch.half)):
         flash_ops.reset_launches()
-        with pytest.raises(NotImplementedError, match="item 14a"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
             flash_ops.flash_attention(bad, bad, bad)
         assert flash_ops.LAUNCHES["flash_fwd"] == 0

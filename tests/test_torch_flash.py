@@ -8,7 +8,9 @@ TestFlashKernel``): 2e-5 in f32, 2e-2 in bf16.  The cases: that class's
 three shapes, causal and not, its bf16 case, starcoder2-3b's GQA ratio of
 12 (24 query heads on 2 KV heads) at a narrow width, the SMOKE configs'
 head dim 16, and Sk != S.  One jitted shape per case, compiled with fast
-options, no long sequence: about 18 s on one core.  The CUDA kernel itself is held to the same plain
+options, no long sequence: about 20 s on one core.  ``ref.blocked_attention``
+(the card's bf16 arithmetic: P rounded to bf16 before P V) is held to the
+reference's plain attention at the limits the card holds the kernel to.  The CUDA kernel itself is held to the same plain
 version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
@@ -138,6 +140,42 @@ def test_answer_does_not_depend_on_tiles():
     tqkv = [torch.from_numpy(x) for x in (q, k, v)]
     for tq, tk in ((64, 128), (128, 64), (128, 128), (256, 32)):
         _close(ops.flash_attention(*tqkv, tq=tq, tk=tk), want, "float32")
+
+
+#: the card's limits on the bf16 kernel (chip_smoke.py: FLASH_LIMITS): the
+#: relative error of the whole output and of its worst row
+BF16_LIMITS = (5e-3, 1.5e-2)
+
+
+@pytest.mark.parametrize("bh, s, sk, hd, causal, p_dtype", [
+    (4, 512, 512, 128, True, "bfloat16"),
+    (2, 130, 130, 64, True, "bfloat16"),      # one row past a 128-key tile
+    (3, 200, 320, 32, False, "bfloat16"),
+    (2, 256, 256, 64, True, "float32"),
+])
+def test_blocked_rounding_fits_the_card_limits(bh, s, sk, hd, causal,
+                                                p_dtype):
+    """The bf16 kernel's arithmetic (``ref.blocked_attention``: an online
+    softmax over 128-key tiles, P rounded to bf16 before P V) against the
+    JAX package's ``ref.attention`` on the same bf16 inputs: within the
+    reference's 2e-2 and within the card's scaled limits.  With P in f32
+    and f32 inputs it is ``ref.attention`` to 2e-5."""
+    q, k, v = (x[0].transpose(1, 0, 2) for x in _inputs(s + sk + hd, 1, s,
+                                                         sk, bh, bh, hd))
+    want = jref.attention(*(_jax(x, p_dtype) for x in (q, k, v)),
+                          causal=causal)
+    got = ref.blocked_attention(*(_torch(x, p_dtype) for x in (q, k, v)),
+                                causal=causal,
+                                p_dtype=getattr(torch, p_dtype))
+    assert got.shape == (bh, s, hd) and got.dtype == getattr(torch, p_dtype)
+    _close(got, want, p_dtype)
+    if p_dtype == "bfloat16":
+        diff = got.float().numpy() - np.asarray(want, np.float32)
+        want = np.asarray(want, np.float32)
+        rel = np.linalg.norm(diff) / np.linalg.norm(want)
+        row = (np.linalg.norm(diff, axis=-1)
+               / np.maximum(np.linalg.norm(want, axis=-1), 1e-30)).max()
+        assert rel <= BF16_LIMITS[0] and row <= BF16_LIMITS[1], (rel, row)
 
 
 def test_refusals():
