@@ -29,11 +29,17 @@ status line each:
    (2^28 keys), compared and timed, with the least time the card could
    take for the same bytes (3.35 TB/s);
 5. multi-value kernels vs plain at 2^20 pairs, for wc-oa (W = 32 cops,
-   r = 1, 8, 32) and lp-oa (W = 1 linear, max_probes 8192, r = 8)
+   r = 1, 8, 32 and 100 in a row; at r = 8 also the runs rolled by 3
+   pairs, two keys interleaved and the pairs shuffled,
+   ``contract.LAYOUTS``) and lp-oa (W = 1 linear, max_probes 8192, r = 8)
    (``benchmarks/fig7_multi_value.py``): a build, an erase of 1/8 of the
    keys through ``multi_value.erase``, and a second batch onto the
    tombstones; after each batch the append under the multi-value contract
-   and the retrieve walk bit-exact (``contract.run_multi_case``);
+   and the retrieve walk bit-exact (``contract.run_multi_case``); and runs
+   that meet no other key and go FULL partway in a near-full store with a
+   budget of 2 windows, at W = 32 cops, W = 2 linear and W = 128 cops,
+   where the append must build the plain version's store exactly
+   (``contract.run_full_case``);
 6. the multi-value main path, Fig. 7's wc-oa cell at r = 8: 2^28 pairs
    (2^25 distinct keys, 8 in a row, values 0 .. n-1) into
    ``multi_value.create(n / 0.8)``, W = 32, cops — insert, count_values,
@@ -44,11 +50,15 @@ status line each:
    just after it;
 7. ``cops_append`` and ``cops_retrieve`` alone and their plain versions
    at phase 6's shapes, compared and timed, with their byte bounds; and
-   the append of 2^28 distinct keys (r = 1) at the same shape, timed;
+   at the same shape the append of 2^28 distinct keys (r = 1), of 2^23
+   keys 32 times in a row (r = 32) and of phase 6's pairs shuffled (a
+   permutation seeded through ``torch.Generator``), each timed with its
+   byte bound, all INSERTED and its live pairs the batch's;
 8. the two-plane kernels vs plain at 2^20 two-word keys, a quarter of
    them sharing 2^10 plane-0 words, some with plane 1 at 0xFFFFFFFF /
    0xFFFFFFFE: phase 2's single-value cases with ``cops_insert64`` /
-   ``cops_lookup64``, and phase 5's wc-oa r = 8 case with
+   ``cops_lookup64``, and phase 5's wc-oa r = 8 cases (every layout, the
+   keys sharing a plane-0 word side by side) and near-full cases with
    ``cops_append64`` / ``cops_retrieve64``;
 9. the u64 single-value main path: 2^28 distinct u64 keys (a bijective
    64-bit mix of ``arange``, ``contract.distinct_keys64``) into
@@ -64,6 +74,7 @@ status line each:
 11. each two-plane kernel alone and its plain version at the shapes of
     phases 9 and 10 (``cops_insert64`` both as the build and as the
     upsert of every key), compared and timed, with their byte bounds;
+    ``cops_append64`` also at r = 1, r = 32 and shuffled, as in phase 7;
 12. ``cops_bucket_walk`` vs plain (identical arenas) on bucket lists of
     2^20 pairs for Fig. 7's wc-bl-1 (growth 1.1, s0 1) and wc-bl-2
     (growth 1.0, s0 r) at r = 1, 8, 32, with chains grown across two
@@ -197,9 +208,18 @@ N_MV = 2 ** 28            # configs/warpcore.py: paper_n_pairs
 R_MV = 8                  # fig7: keys repeated r times in a row
 N_MV_SIDE = 2 ** 22       # duplicate queries, erases and re-inserts
 N_MV_ABSENT = 2 ** 24
-MV_CASES = (("wc-oa", 32, "cops", 1, None), ("wc-oa", 32, "cops", 8, None),
-            ("wc-oa", 32, "cops", 32, None),
-            ("lp-oa", 1, "linear", 8, 8192))  # fig7_multi_value.py:83-85
+# (cell, W, scheme, r, max_probes, layout): fig7_multi_value.py:83-85
+MV_CASES = (("wc-oa", 32, "cops", 1, None, "runs"),
+            ("wc-oa", 32, "cops", 8, None, "runs"),
+            ("wc-oa", 32, "cops", 8, None, "offset"),
+            ("wc-oa", 32, "cops", 8, None, "interleaved"),
+            ("wc-oa", 32, "cops", 8, None, "shuffled"),
+            ("wc-oa", 32, "cops", 32, None, "runs"),
+            ("wc-oa", 32, "cops", 100, None, "runs"),
+            ("lp-oa", 1, "linear", 8, 8192, "runs"))
+FULL_CASES = ((32, "cops"), (2, "linear"), (128, "cops"))  # near-full
+R_WIDE = 32               # phase 7's r = 32 variant: 2^23 keys
+SHUFFLE_SEED = 7          # phase 7's shuffled variant
 N_BL = 2 ** 28            # fig7 wc-bl: 2^25 keys x r = 8, as phase 6
 BL_CASES = (("wc-bl-1", 1.1, 1, 1), ("wc-bl-1", 1.1, 1, 8),
             ("wc-bl-1", 1.1, 1, 32), ("wc-bl-2", 1.0, 1, 1),
@@ -501,20 +521,35 @@ def single_cases(torch, check, phase, key_words):
 
 
 def multi_cases(torch, check, phase, cases, key_words):
-    """Phases 5 and 8: the multi-value kernels vs plain at N_CHECK pairs."""
+    """Phases 5 and 8: the multi-value kernels vs plain at N_CHECK pairs,
+    then the near-full cases."""
     from repro_torch.kernels.cops import contract
     what = "kernel" if key_words == 1 else "64-bit kernel"
-    for name, window, scheme, r, max_probes in cases:
+    for name, window, scheme, r, max_probes, layout in cases:
         t0 = time.perf_counter()
         checks = contract.run_multi_case(N_CHECK, window=window,
                                          scheme=scheme, device="cuda", r=r,
                                          max_probes=max_probes,
-                                         key_words=key_words)
+                                         key_words=key_words, layout=layout)
         torch.cuda.synchronize()
-        tag = f"phase{phase} {name} r={r}"
+        tag = f"phase{phase} {name} r={r} {layout}"
         bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
         print(f"phase {phase} multi-value {what} vs plain {name} W={window} "
-              f"{scheme} r={r} n={N_CHECK} load={contract.LOAD}: "
+              f"{scheme} r={r} {layout} n={N_CHECK} load={contract.LOAD}: "
+              f"{'ok' if not bad else 'FAILED ' + str(bad)} "
+              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    for window, scheme in FULL_CASES:
+        t0 = time.perf_counter()
+        checks = contract.run_full_case(N_CHECK, window=window,
+                                        scheme=scheme, device="cuda",
+                                        key_words=key_words)
+        torch.cuda.synchronize()
+        tag = f"phase{phase} near-full W={window} {scheme}"
+        bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
+        print(f"phase {phase} append {what} vs plain, runs going FULL "
+              f"partway: W={window} {scheme} capacity ~{N_CHECK} budget "
+              f"{contract.FULL_PROBES}: "
               f"{'ok' if not bad else 'FAILED ' + str(bad)} "
               f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
               flush=True)
@@ -805,9 +840,10 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
                         fresh, launches):
     """Phases 7 and 11: the append and retrieve-walk kernels (u32 or
     two-plane) and their plain versions at the multi-value main path's
-    shapes, compared and timed, with their byte bounds; for u32 keys also
-    the append of N_MV distinct keys (r = 1).  Returns their two kernel
-    records."""
+    shapes, compared and timed, with their byte bounds; also the append of
+    N_MV pairs of N_MV distinct keys (r = 1), of N_MV / R_WIDE keys R_WIDE
+    times in a row, and of the main path's pairs shuffled.  Returns their
+    two kernel records."""
     from repro_torch.core.common import EMPTY_WORD, STATUS_INSERTED
     from repro_torch.kernels.cops import contract, ops
     key_words, suffix = width(base)
@@ -832,23 +868,44 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
         return (landed * win_bytes + 32 * (key_words + 1) * sectors
                 + pairs * (4 * key_words + 8))
 
-    r1 = r1_windows = ""
-    if key_words == 1:
-        # the same append with N_MV distinct keys (r = 1): what the r = 8
-        # duplicates' CAS races on one row cost
-        keys_r1 = contract.distinct_keys(0, N_MV, "cuda")
-        r1_t, (r1_tab, st_r1) = timed(torch, lambda t: (t, append(
-            *planes(t), keys_r1, vals, **kw)), fresh)
-        check(f"phase{phase} append r=1 all INSERTED",
-              bool((st_r1 == STATUS_INSERTED).all()))
-        _, landed_r1, _ = multi_walk_windows(torch, planes(r1_tab)[0],
-                                             keys_r1, kw["seed"],
-                                             kw["scheme"], kw["max_probes"])
-        r1_bytes = append_bytes(planes(r1_tab)[0], landed_r1, N_MV)
-        r1 = (f", with r=1 (distinct keys) {spread(r1_t)}, bound "
-              f"{r1_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
-        r1_windows = f" (r=1: {landed_r1 / N_MV:.4f})"
-        del keys_r1, st_r1, r1_tab
+    def variant(label, vkeys, vvals, distinct=None):
+        """The append of (vkeys, vvals) into a fresh table, timed, with its
+        byte bound from the walks of its ``distinct`` keys (default: the
+        batch's own) on the store it built; all INSERTED and its live pairs
+        the batch's.  Returns (the phase line's timing, its windows per
+        key)."""
+        distinct = vkeys if distinct is None else distinct
+        times, (tab, st) = timed(torch, lambda t: (t, append(
+            *planes(t), vkeys, vvals, **kw)), fresh)
+        check(f"phase{phase} append{suffix} {label} all INSERTED",
+              bool((st == STATUS_INSERTED).all()))
+        check(f"phase{phase} append{suffix} {label} live pairs == batch",
+              pair_err(contract.live_pairs(*planes(tab)),
+                       contract.pairs_of(vkeys, vvals)) == 0)
+        _, landed_v, _ = multi_walk_windows(torch, planes(tab)[0], distinct,
+                                            kw["seed"], kw["scheme"],
+                                            kw["max_probes"])
+        vbytes = append_bytes(planes(tab)[0], landed_v, vkeys.shape[0])
+        return (f", {label} {spread(times)}, bound "
+                f"{vbytes / HBM_BYTES_PER_S * 1e3:.3f} ms",
+                f", {label} {landed_v / distinct.shape[0]:.4f}")
+
+    # the same append with N_MV distinct keys (r = 1): what the r = 8
+    # duplicates cost; with fewer, longer runs (r = 32); and with the
+    # duplicates scattered over the batch (shuffled: no runs to walk once)
+    r1, r1_windows = variant(
+        "r=1 (distinct keys)",
+        contract.distinct_keys(0, N_MV, "cuda") if key_words == 1
+        else contract.distinct_keys64(0, N_MV, "cuda"), vals)
+    wide = base[:N_MV // R_WIDE]
+    r32, r32_windows = variant(f"r={R_WIDE}",
+                               wide.repeat_interleave(R_WIDE, dim=0), vals,
+                               wide)
+    gen = torch.Generator(device="cuda").manual_seed(SHUFFLE_SEED)
+    perm = torch.randperm(N_MV, generator=gen, device="cuda")
+    shuf, shuf_windows = variant(f"shuffled r={R_MV}", keys[perm], vals[perm],
+                                 base)
+    del perm, wide
     app_t, (mk_t, kst) = timed(torch, lambda t: (t, append(
         *planes(t), keys, vals, **kw)), fresh)
     app_p_t, (mp_t, pst) = timed(torch, lambda t: (t, ops.append_plain(
@@ -885,11 +942,13 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
     print(f"phase {phase} {'64-bit ' if key_words == 2 else ''}multi-value "
           f"kernels at n={N_MV} pairs, {n_keys} queries: "
           f"{check.status(since)}; append windows per key "
-          f"{landed / n_keys:.4f}{r1_windows}, "
+          f"{landed / n_keys:.4f} ({r1_windows[2:]}{r32_windows}"
+          f"{shuf_windows}), "
           f"walk windows per query {walked / n_keys:.4f}"
           f"{f', plane-1 sectors per query {p1 / n_keys:.4f}' if key_words == 2 else ''}"
           f"; cops_append{suffix} {spread(app_t)}, plain {app_p_t[0]:.3f} "
-          f"ms, bound {app_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms{r1}; "
+          f"ms, bound {app_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms{r1}{r32}"
+          f"{shuf}; "
           f"cops_retrieve{suffix} collect {spread(rw_t)}, plain "
           f"{rw_p_t[0]:.3f} ms, bound {rw_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
           f" ms; counts only {spread(cnt_t)}, bound "
@@ -2384,7 +2443,9 @@ def main() -> int:
 
     # -- phases 8-11: the u64 paths -----------------------------------------
     single_cases(torch, check, 8, key_words=2)
-    multi_cases(torch, check, 8, MV_CASES[1:2], key_words=2)
+    multi_cases(torch, check, 8, [c for c in MV_CASES
+                                  if c[0] == "wc-oa" and c[3] == R_MV],
+                key_words=2)
     keys = contract.distinct_keys64(0, N_MAIN, dev)
     vals = contract.values_for(keys, 1)
     absent = contract.distinct_keys64(2 * N_MAIN, N_SIDE, dev)

@@ -34,6 +34,13 @@ The multi-value append (``check_append``):
    on the kernel-built store as on the plain-built one (the caller holds
    the ``cops_retrieve`` kernel bit-exact to ``retrieve_walk_plain``).
 
+The append kernel walks each run of equal adjacent keys once
+(``csrc/cops.cu``), so ``run_multi_case`` lays its batches out in
+``LAYOUTS``: runs in a row, runs straddling the kernel's chunks of pairs,
+two keys interleaved, shuffled pairs.  ``run_full_case`` adds runs that
+meet no other key and go FULL partway: there the kernel must build
+exactly the plain version's store.
+
 The bucket list's chain walk writes no shared state, so ``cops_bucket_walk``
 is held bit-exact to ``bucket_walk_plain``: both arenas identical, slot by
 slot (``run_bucket_case``).
@@ -78,6 +85,13 @@ from repro_torch.kernels.cops import ops
 
 LOAD = 0.8      # the multi-value case's target load: Fig. 7's wc-oa
 SHARED_WORDS = 1 << 10   # plane-0 words shared by a quarter of the keys
+#: the batch layouts of ``run_multi_case`` (``lay_out``)
+LAYOUTS = ("runs", "offset", "interleaved", "shuffled")
+OFFSET = 3      # "offset": the batch rolled by an odd count of pairs
+LAYOUT_SEED = 19   # "shuffled": the permutation's seed
+FULL_LOAD = 0.85   # the near-full case's fill, and its budget in windows:
+FULL_PROBES = 2
+FULL_RUNS = 64     # and the most runs it appends
 
 
 def twin(fn, table_keys):
@@ -208,6 +222,11 @@ def live_pairs(table_keys, table_values):
     slots = _live_slots(table_keys)
     return _lexsort(bulk.pack_keys(_slot_keys(table_keys, slots)),
                     as_u32(table_values.reshape(-1)[slots]))
+
+
+def pairs_of(keys, values):
+    """A batch's pair multiset, as ``live_pairs`` gives a store's."""
+    return _lexsort(bulk.pack_keys(keys), as_u32(values))
 
 
 def _same(a, b):
@@ -350,6 +369,28 @@ def case_keys(key_words: int, count: int, device) -> torch.Tensor:
 def values_for(keys: torch.Tensor, salt: int) -> torch.Tensor:
     """A value word per key ((n,) words or (n, 2) planes)."""
     return as_word(hashing.mix_xxhash(key_hash_word(keys) ^ salt))
+
+
+def lay_out(keys: torch.Tensor, r: int, layout: str) -> torch.Tensor:
+    """The batch of the distinct ``keys`` ((n,) words or (n, 2) planes),
+    each ``r`` times, in ``layout``: "runs", each key r times in a row
+    (Fig. 7's ``np.repeat``); "offset", that batch rolled by ``OFFSET``
+    pairs, so the runs straddle the kernel's aligned chunks; "interleaved",
+    keys 2i and 2i + 1 alternating (A B A B ...) for 2r pairs; "shuffled",
+    the pairs in a permutation seeded by ``LAYOUT_SEED``."""
+    dev = keys.device
+    key = torch.arange(keys.shape[0], device=dev).repeat_interleave(r)
+    if layout == "offset":
+        key = torch.roll(key, OFFSET)
+    elif layout == "interleaved":
+        copy = torch.arange(r, device=dev).repeat(keys.shape[0])
+        key = key[torch.argsort((key // 2) * 2 * r + 2 * copy + key % 2)]
+    elif layout == "shuffled":
+        gen = torch.Generator().manual_seed(LAYOUT_SEED)
+        key = key[torch.randperm(key.shape[0], generator=gen).to(dev)]
+    elif layout != "runs":
+        raise ValueError(f"layout {layout!r} not in {LAYOUTS}")
+    return keys[key]
 
 
 def table_planes(table):
@@ -541,15 +582,17 @@ def run_update_case(n: int, *, window: int, scheme: str, device,
 
 
 def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
-                   max_probes: int | None = None,
-                   key_words: int = 1) -> dict[str, bool]:
+                   max_probes: int | None = None, key_words: int = 1,
+                   layout: str = "runs") -> dict[str, bool]:
     """Hold ``cops_append`` / ``cops_retrieve`` (two-word keys:
     ``cops_append64`` / ``cops_retrieve64``; on the CPU, whatever the
     wrappers run) against the plain versions.
 
     Batch 1 appends ``n`` pairs at load ``LOAD``: ``n / r`` distinct keys
-    (``case_keys``), each repeated ``r`` times in a row (Fig. 7's layout),
-    values ``0 .. n-1``.  Then 1/8 of the keys are erased through
+    (``case_keys``; two-word keys sorted by plane 0, so that keys sharing
+    their low word sit side by side), each repeated ``r`` times, laid out
+    as ``layout`` says (``lay_out``; "runs" is Fig. 7's layout), values
+    ``0 .. n-1`` in batch order.  Then 1/8 of the keys are erased through
     ``multi_value.erase`` (tombstones), and batch 2 — n/8 pairs, half new
     pairs of present keys, half new keys — is appended onto that store.
     After each batch: contract parts 1-4, the live count, and the walk on
@@ -569,6 +612,8 @@ def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
     nk = max(16, n // r)
     pool = case_keys(key_words, nk + nk // 8 + nk // 16, device)
     base, absent, new = pool[:nk], pool[nk:nk + nk // 8], pool[nk + nk // 8:]
+    if key_words == 2:
+        base = base[torch.argsort(base[:, 0], stable=True)]
     checks = {}
 
     def walks(tag, queries):
@@ -599,7 +644,7 @@ def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
         checks[f"{tag}_count"] = (
             ktab.count == live_pairs(*table_planes(ktab))[0].shape[0])
 
-    append("batch1", base.repeat_interleave(r, dim=0), 0)
+    append("batch1", lay_out(base, r, layout), 0)
     walks("batch1", base)
     gone = base[: nk // 8]
     ktab, erased = multi_value.erase(ktab, gone)
@@ -613,8 +658,79 @@ def run_multi_case(n: int, *, window: int, scheme: str, device, r: int = 8,
                                        live_pairs(*table_planes(ptab)))
     half = nk // 16
     batch2 = torch.cat([base[nk // 8: nk // 8 + half], new[:half]])
-    append("batch2", batch2.repeat_interleave(r, dim=0), n)
+    append("batch2", lay_out(batch2, r, layout), n)
     walks("batch2", torch.cat([base, new[:half]]))
+    return checks
+
+
+def run_full_case(n: int, *, window: int, scheme: str, device,
+                  key_words: int = 1) -> dict[str, bool]:
+    """Hold ``cops_append`` (``cops_append64``) to ``append_plain`` where
+    runs go FULL partway.
+
+    A multi-value table of capacity ~n with a budget of ``FULL_PROBES``
+    windows is filled by ``append_plain`` with ``FULL_LOAD`` x capacity
+    distinct keys, one pair each (some go FULL; both stores alike).  Then
+    one batch appends runs of G = min(W, 32) pairs (the kernel's chunk, so
+    a run is one group's) of new keys whose walks hold between 1 and G - 1
+    free lanes and share no window with another run's walk, at most
+    ``FULL_RUNS`` of them.  No run meets another key, so the kernel must
+    place exactly what the plain version places: the first pairs of each
+    run in its free lanes, in walk and lane order, the rest FULL.  Checks:
+    contract parts 1-4, the same statuses and the same planes, and that
+    the case holds runs that went FULL partway.  Needs W >= 2 (at W = 1 a
+    run is one pair).
+    """
+    from repro_torch.core import multi_value
+    if window < 2:
+        raise ValueError("a run of W = 1 is one pair: it cannot go FULL "
+                         "partway")
+    ktab = multi_value.create(n, window=window, scheme=scheme,
+                              max_probes=FULL_PROBES, device=device,
+                              key_words=key_words)
+    kw = dict(seed=DEFAULT_SEED, scheme=scheme,
+              max_probes=bulk._tstatic(ktab)[3])
+    g = min(window, 32)
+    nfill = int(FULL_LOAD * ktab.capacity)
+    ncand = max(4 * FULL_RUNS, ktab.num_rows)
+    pool = case_keys(key_words, nfill + ncand, device)
+    fill, cand = pool[:nfill], pool[nfill:]
+    ops.append_plain(*table_planes(ktab), fill,
+                     torch.arange(nfill, dtype=torch.int32, device=device),
+                     **kw)
+    ptab = dataclasses.replace(
+        ktab, store={k: v.clone() for k, v in ktab.store.items()})
+    plane0 = ops._planes(table_planes(ktab)[0])[0]
+    free = ((plane0 == EMPTY_WORD) | (plane0 == TOMBSTONE_WORD)).sum(1)
+    words = key_hash_word(cand)
+    rows = [probing.initial_row(words, ktab.num_rows, kw["seed"])]
+    step = probing.row_step(scheme, words, ktab.num_rows, kw["seed"])
+    for _ in range(1, kw["max_probes"]):
+        rows.append(probing.advance_row(rows[-1], step, ktab.num_rows))
+    rows = torch.stack(rows, dim=1)
+    room = free[rows].sum(1).tolist()
+    picked, taken = [], set()
+    for i, walk in enumerate(rows.tolist()):
+        if 0 < room[i] < g and taken.isdisjoint(walk):
+            picked.append(i)
+            taken.update(walk)
+            if len(picked) == FULL_RUNS:
+                break
+    runs = cand[torch.tensor(picked, dtype=torch.int64, device=device)]
+    keys = runs.repeat_interleave(g, dim=0)
+    vals = torch.arange(nfill, nfill + keys.shape[0], dtype=torch.int32,
+                        device=device)
+    ks = twin(ops.append, table_planes(ktab)[0])(*table_planes(ktab), keys,
+                                                 vals, **kw)
+    ps = ops.append_plain(*table_planes(ptab), keys, vals, **kw)
+    checks = {f"full_{part}": ok for part, ok in check_append(
+        table_planes(ktab), table_planes(ptab), keys, ks, ps, **kw).items()}
+    checks["full_exact_status"] = torch.equal(ks, ps)
+    checks["full_exact_planes"] = all(
+        torch.equal(ktab.store[k], ptab.store[k]) for k in ktab.store)
+    landed = (ps == STATUS_INSERTED).view(-1, g).sum(1)
+    checks["full_partway_runs"] = len(picked) > 0 and bool(
+        ((landed > 0) & (landed < g)).all())
     return checks
 
 

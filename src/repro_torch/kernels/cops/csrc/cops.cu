@@ -44,16 +44,16 @@
 // sector per such window, not a second line.  A walk's windows depend on
 // each other, so the work is latency- and sector-bound, far from the card's
 // 3.35 TB/s on sequential streams.  The design:
-//   - one group of G = min(W, 32) lanes walks one key: at W = 32 a warp
-//     reads a whole window in one coalesced 128-byte load, and votes on it
-//     with __ballot_sync + __ffs (the paper's cooperative-group probe,
-//     §IV-B.2); for W < 32 a warp walks 32 / W keys at once, each group
-//     voting on its own lanes; for W > 32 a warp walks the window in
-//     32-lane chunks;
+//   - one group of G = min(W, 32) lanes walks one key (the append: one run
+//     of equal keys, below): at W = 32 a warp reads a whole window in one
+//     coalesced 128-byte load, and votes on it with __ballot_sync + __ffs
+//     (the paper's cooperative-group probe, §IV-B.2); for W < 32 a warp
+//     walks 32 / W keys at once, each group voting on its own lanes; for
+//     W > 32 a warp walks the window in 32-lane chunks;
 //   - thousands of independent walks are in flight per SM (8 warps per
 //     block, no shared memory) to hide the latency of the dependent loads;
 //   - the key, value and status streams are read and written once,
-//     coalesced, by lane 0 of each group.
+//     coalesced, by lane 0 of each group (the append: by every lane).
 //
 // The u32 insert takes DISTINCT keys (the caller's dedup front end): a key
 // absent at the start of the batch can then be claimed by no other group,
@@ -81,7 +81,7 @@
 //   1. the match walk (the lookup's): read-only on the key planes as they
 //      were before the batch, it writes the value of every key found and
 //      marks it UPDATED;
-//   2. the claim walk (the append's) of the keys not found: it reads only
+//   2. the claim walk of the keys not found: it reads only
 //      plane 0, for free lanes, and claims the lowest free lane of the
 //      first window that has one with the CAS on plane 0, then writes
 //      plane 1 and the value.
@@ -114,21 +114,44 @@
 // but then which duplicate reports INSERTED would follow the race, not the
 // batch order; the statuses fan out to the batch in torch.  The value
 // planes, and what a walk writes into them, are a `Values` descriptor, a
-// template over the plane count and store-or-fold: the upsert and the
-// append store (one plane, or none for a hash set), the update folds into
-// one or two planes.  What bounds the update is the walk, as for the
-// insert, one 32-byte sector per value plane per representative, written
-// on a claim and read and written on a match, and the rows' streams; the
-// atomics of a group's rows hit the sectors its representative already
-// holds in L2.
+// template over the plane count and store-or-fold: the upsert and its
+// two-plane claim pass store (one plane, or none for a hash set), the
+// update folds into one or two planes.  What bounds the update is the
+// walk, as for the insert, one 32-byte sector per value plane per
+// representative, written on a claim and read and written on a match, and
+// the rows' streams; the atomics of a group's rows hit the sectors its
+// representative already holds in L2.
 //
-// The append has no dedup front end: every pair is its own claimer, and
-// the consecutive duplicates of a multi-value batch start on the same row
-// and race for its lanes.  It walks to the first window that holds an
-// EMPTY or TOMBSTONE lane and claims through the same CAS loop, testing no
-// match.  A window seen full stays full (claims never free a slot), so a
-// pair never lands past the first EMPTY window of its walk, and a FULL
-// pair's whole walk was full.
+// The append (cops_append, cops_append64) has no dedup front end, and a
+// multi-value batch holds its duplicates in runs (Fig. 7 appends each key
+// r times in a row).  Were every pair its own claimer, a key's r copies
+// would start on the same row and race for its lanes: each re-reads the
+// line after every lost CAS, about r(r+1)/2 reads and CAS rounds for r
+// slots, all on one line.  So a group of G = min(W, 32) lanes owns G
+// consecutive pairs of the batch (lane l pair l), loads them coalesced,
+// and finds the runs of equal adjacent keys with one ballot (on both
+// planes: two-plane keys sharing their low word must not merge).  It
+// walks each run once, from the key's first row with its step, and at
+// each window:
+//   - reads it (volatile) and ballots its EMPTY / TOMBSTONE lanes;
+//   - the run's m remaining pairs take the lowest min(m, free) of them,
+//     each chosen lane CASing its own slot (observed sentinel -> k0) at
+//     once;
+//   - a second ballot gives the winners; the run's next pairs go to them
+//     in lane order, so a run meeting no other key fills lanes in batch
+//     order, as the sequential reference does;
+//   - each winner writes plane 1 (KW == 2) after its CAS, then the value;
+//   - lanes lost to another group are re-read: the walk leaves a window
+//     only when it holds no free lane.
+// A window seen full stays full (claims never free a slot), so a pair
+// never lands past the first EMPTY window of its walk, and the pairs a run
+// could not place before the budget ran out (FULL) had a full walk.  The
+// append tests no match, so plane 1 written after the claim is never read
+// half-published.  Runs split at the group's edges, and duplicates that
+// are not adjacent form runs of their own: they race through the CAS as
+// separate claimers, correct but not faster.  A run costs one walk where
+// it cost r, and its r claims one round of reads and CASes where they
+// cost about r(r+1)/2.
 //
 // The retrieve walk is read-only on the store and takes distinct
 // representatives (the torch dedup front end), so its arena stamps never
@@ -278,8 +301,8 @@ struct Row {
 // The V value planes of a store (V = 0, 1 or 2) and what a kernel writes
 // into them for a batch element at flat slot `at`: on a match plane p
 // becomes fold(op_p, old, operand[p]) (FOLD) or operand[p] (a store), on a
-// claim it takes claimv[p].  V and FOLD are compile-time, so the upsert and
-// the append compile as they would with one value plane written in place.
+// claim it takes claimv[p].  V and FOLD are compile-time, so the upserts
+// compile as they would with one value plane written in place.
 // Written by the group's lane 0 only.  A kernel loads a Row where it needs
 // it (after the match, or just before the CAS, whose latency hides the
 // load): a Row held across the walk costs registers the walk needs.
@@ -524,13 +547,13 @@ match_kernel(const uint32_t* __restrict__ tk, Values<V, FOLD> vals,
   }
 }
 
-// The append, and pass 2 of the two-plane upsert and update (`after_match`:
-// skip the keys that pass 1 marked UPDATED).
+// Pass 2 of the two-plane upsert and update, the claim walk of each
+// DISTINCT key (`after_match`: skip the keys that pass 1 marked UPDATED).
 template <int KW, int V, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
-append_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
-              const uint32_t* __restrict__ keys, int* __restrict__ status,
-              long long n, Walk w, int after_match) {
+claim_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
+             const uint32_t* __restrict__ keys, int* __restrict__ status,
+             long long n, Walk w, int after_match) {
   const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (q >= n || (after_match && status[q] == kUpdated)) return;
@@ -547,6 +570,94 @@ append_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
     status[q] = at >= 0 ? kInserted : kFull;
     vals.record(q, at);
   }
+}
+
+// Place the run of pairs s .. s + m - 1 of the group's chunk, all of key
+// (k0, k1) with probe word `word`, in one walk (see the header); lane l
+// holds the value `v` of pair l.  Returns how many of the run's pairs
+// landed: the first ones, in batch order; the rest are FULL.
+template <int KW>
+__device__ int place_run(uint32_t* tk, uint32_t* tv, const Walk& w,
+                         const Group& g, uint32_t k0, uint32_t k1,
+                         uint32_t word, int s, int m, uint32_t v) {
+  const unsigned below = (1u << g.lane) - 1u;  // lanes before this one
+  const uint32_t step = row_step(w, word);
+  uint32_t row = first_row(w, word);
+  long long attempt = 0;
+  int done = 0;
+  while (done < m) {
+    const size_t base = (size_t)row * w.window;
+    // the first G-lane chunk of the window holding a free lane
+    uint32_t c = 0, x = 0;
+    unsigned fb = 0;
+    for (; c < w.window; c += g.size) {
+      x = load_volatile(tk + base + c + g.lane);
+      fb = g.ballot(x == kEmpty || x == kTombstone);
+      if (fb) break;
+    }
+    bool full = fb == 0;
+    if (!full) {
+      const size_t at = base + c + g.lane;
+      const bool take = ((fb >> g.lane) & 1u) && __popc(fb & below) < m - done;
+      const bool won = take && atomicCAS(tk + at, x, k0) == x;
+      const unsigned wb = g.ballot(won);
+      const int pair = s + done + __popc(wb & below);
+      const uint32_t val = __shfl_sync(g.mask, v, won ? pair : g.lane, g.size);
+      if (won) {
+        if (KW == 2) tk[w.plane + at] = k1;
+        tv[at] = val;
+      }
+      done += __popc(wb);
+      // every free lane of a one-chunk window is now taken: it is full
+      full = wb == fb && w.window == (uint32_t)g.size;
+    }
+    if (full && done < m) {
+      if (++attempt >= w.max_probes) break;
+      row = next_row(w, row, step);
+    }
+  }
+  return done;
+}
+
+// The append: each group of G lanes places the G pairs of its chunk, run by
+// run (see the header).
+template <int KW>
+__global__ void __launch_bounds__(kThreads)
+append_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
+              const uint32_t* __restrict__ keys,
+              const uint32_t* __restrict__ values, int* __restrict__ status,
+              long long n, Walk w) {
+  const int G = group_size(w);
+  const long long chunk =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G * G;
+  if (chunk >= n) return;  // whole groups leave together
+  const Group g = make_group(G);
+  const int live = n - chunk < G ? (int)(n - chunk) : G;  // its pairs
+  const long long q = chunk + g.lane;
+  const bool mine = g.lane < live;
+  Key k = {0u, 0u, 0u};
+  uint32_t v = 0u;
+  if (mine) {
+    k = load_key<KW>(keys, q);
+    v = values[q];
+  }
+  // a run starts where the key differs from the pair before, on any plane
+  const uint32_t prev0 = __shfl_up_sync(g.mask, k.k0, 1, G);
+  const uint32_t prev1 = __shfl_up_sync(g.mask, k.k1, 1, G);
+  unsigned starts = g.ballot(
+      mine && (g.lane == 0 || prev0 != k.k0 || (KW == 2 && prev1 != k.k1)));
+  int st = kFull;
+  while (starts) {
+    const int s = __ffs(starts) - 1;
+    starts &= starts - 1u;
+    const int e = starts ? __ffs(starts) - 1 : live;
+    const int done = place_run<KW>(
+        tk, tv, w, g, __shfl_sync(g.mask, k.k0, s, G),
+        __shfl_sync(g.mask, k.k1, s, G), __shfl_sync(g.mask, k.word, s, G),
+        s, e - s, v);
+    if (g.lane >= s && g.lane < e) st = g.lane - s < done ? kInserted : kFull;
+  }
+  if (mine) status[q] = st;
 }
 
 // Launch 2 of the update: row i of the batch folds its operand into the
@@ -747,14 +858,14 @@ int upsert(void* table_keys, const Writes& wr, const void* keys,
   return (int)cudaGetLastError();
 }
 
-// The append; with `match_pass` = 1 the two passes of the two-plane upsert
-// or update (the two-plane wrappers pass 0 on an empty store, which holds
-// no key to find).
+// The two passes of the two-plane upsert or update; `match_pass` = 0 runs
+// pass 2 alone (the wrappers pass 0 on an empty store, which holds no key
+// to find).
 template <int KW, int V, bool FOLD>
-int append(void* table_keys, const Writes& wr, const void* keys,
-           void* status, long long n, unsigned num_rows, int window,
-           unsigned seed, int linear, long long max_probes, int match_pass,
-           void* stream) {
+int two_pass(void* table_keys, const Writes& wr, const void* keys,
+             void* status, long long n, unsigned num_rows, int window,
+             unsigned seed, int linear, long long max_probes, int match_pass,
+             void* stream) {
   const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
   const Values<V, FOLD> vals = make_values<V, FOLD>(wr, num_rows, window);
   if (match_pass) {
@@ -765,27 +876,28 @@ int append(void* table_keys, const Writes& wr, const void* keys,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  append_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0,
-                               (cudaStream_t)stream>>>(
+  claim_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0,
+                              (cudaStream_t)stream>>>(
       (uint32_t*)table_keys, vals, (const uint32_t*)keys, (int*)status, n, w,
       match_pass);
   return (int)cudaGetLastError();
 }
 
-// The walk of V value planes: of 1-word keys in one pass (KW = 1 and
-// `match_pass` < 0: `upsert`), or the append's / the two-plane passes
-// (`append`); for the update (FOLD), then launch 2, the rows' folds.
+// The walk of V value planes: of 1-word keys in one pass (`upsert`), of
+// two-plane keys in two (`two_pass`; `match_pass` is read only there); for
+// the update (FOLD), then launch 2, the rows' folds.
 template <int KW, int V, bool FOLD>
 int walk(void* table_keys, const Writes& wr, const void* keys, void* status,
          long long n, unsigned num_rows, int window, unsigned seed,
          int linear, long long max_probes, int match_pass, void* stream) {
-  const int rc =
-      KW == 1 && match_pass < 0
-          ? upsert<V, FOLD>(table_keys, wr, keys, status, n, num_rows,
-                            window, seed, linear, max_probes, stream)
-          : append<KW, V, FOLD>(table_keys, wr, keys, status, n, num_rows,
-                                window, seed, linear, max_probes,
-                                match_pass > 0, stream);
+  int rc;
+  if constexpr (KW == 1)
+    rc = upsert<V, FOLD>(table_keys, wr, keys, status, n, num_rows, window,
+                         seed, linear, max_probes, stream);
+  else
+    rc = two_pass<KW, V, FOLD>(table_keys, wr, keys, status, n, num_rows,
+                               window, seed, linear, max_probes,
+                               match_pass > 0, stream);
   if constexpr (FOLD) {
     if (rc == 0) return fold_rest<V>(wr, num_rows, window, stream);
   }
@@ -825,10 +937,26 @@ int retrieve(const void* table_keys, const void* keys, const void* active,
   return (int)cudaGetLastError();
 }
 
-// The stores of the insert and the append: `values` into one plane (or
-// none), no folds.
+// The stores of the insert: `values` into one plane (or none), no folds.
 Writes plain_writes(void* table_values, const void* values) {
   return {table_values, 0, values, values, nullptr, nullptr, nullptr, 0};
+}
+
+// The append of n pairs (see the header): one group per G pairs.
+template <int KW>
+int append(void* table_keys, void* table_values, const void* keys,
+           const void* values, void* status, long long n, unsigned num_rows,
+           int window, unsigned seed, int linear, long long max_probes,
+           void* stream) {
+  if (n <= 0) return 0;
+  if (!table_values) return (int)cudaErrorInvalidValue;
+  const int g = window < 32 ? window : 32;
+  append_kernel<KW><<<blocks_for((n + g - 1) / g, window), kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (uint32_t*)table_keys, (uint32_t*)table_values, (const uint32_t*)keys,
+      (const uint32_t*)values, (int*)status, n,
+      make_walk(num_rows, window, seed, linear, max_probes));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -927,9 +1055,8 @@ extern "C" int cops_append(void* table_keys, void* table_values,
                            long long n, unsigned num_rows, int window,
                            unsigned seed, int linear, long long max_probes,
                            void* stream) {
-  return launch<1, false>(table_keys, plain_writes(table_values, values), 1,
-                          keys, status, n, num_rows, window, seed, linear,
-                          max_probes, 0, stream);
+  return append<1>(table_keys, table_values, keys, values, status, n,
+                   num_rows, window, seed, linear, max_probes, stream);
 }
 
 extern "C" int cops_append64(void* table_keys, void* table_values,
@@ -937,9 +1064,8 @@ extern "C" int cops_append64(void* table_keys, void* table_values,
                              void* status, long long n, unsigned num_rows,
                              int window, unsigned seed, int linear,
                              long long max_probes, void* stream) {
-  return launch<2, false>(table_keys, plain_writes(table_values, values), 1,
-                          keys, status, n, num_rows, window, seed, linear,
-                          max_probes, 0, stream);
+  return append<2>(table_keys, table_values, keys, values, status, n,
+                   num_rows, window, seed, linear, max_probes, stream);
 }
 
 // `qarena` / `rank_arena` are both null (counts only) or both (p * W,)

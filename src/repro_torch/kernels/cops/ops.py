@@ -10,8 +10,9 @@ word, which holds the sentinels):
   ``cops_insert`` / ``cops_insert64``;
 - ``lookup`` / ``lookup64`` (value, found, slot) -> ``cops_lookup`` /
   ``cops_lookup64``;
-- ``append`` / ``append64`` (multi-value append, every pair its own
-  claimer) -> ``cops_append`` / ``cops_append64``;
+- ``append`` / ``append64`` (multi-value append: the kernel walks each
+  run of equal adjacent keys once and claims its lanes together) ->
+  ``cops_append`` / ``cops_append64``;
 - ``retrieve_walk`` / ``retrieve_walk64`` (the multi-value walk: per-query
   match counts and, with ``collect``, the (query, rank) slot arena) ->
   ``cops_retrieve`` / ``cops_retrieve64``;

@@ -310,14 +310,59 @@ def test_contract_catches_broken_stores():
     assert res["same_map"] and not res["before_first_empty"], res
 
 
-@pytest.mark.parametrize("scheme", ["cops", "linear"])
-@pytest.mark.parametrize("window", SUPPORTED_WINDOWS)
-def test_multi_contract_case_runs_on_cpu(window, scheme):
+#: every window and scheme in Fig. 7's layout (the ids these cases always
+#: had), the other layouts at W = 2, 32 and 128
+_MULTI_CPU_CASES = (
+    [pytest.param(w, s, "runs", id=f"{w}-{s}") for w in SUPPORTED_WINDOWS
+     for s in ("cops", "linear")]
+    + [pytest.param(w, s, layout, id=f"{w}-{s}-{layout}")
+       for layout in contract.LAYOUTS[1:] for w in (2, 32, 128)
+       for s in ("cops", "linear")])
+
+
+@pytest.mark.parametrize("window, scheme, layout", _MULTI_CPU_CASES)
+def test_multi_contract_case_runs_on_cpu(window, scheme, layout):
     """The multi-value kernel-vs-plain case of the card, run where both
-    sides are the plain versions: every check holds."""
+    sides are the plain versions: every check holds, in every layout."""
     checks = contract.run_multi_case(600, window=window, scheme=scheme,
-                                     device="cpu")
+                                     device="cpu", layout=layout)
     assert len(checks) == 24 and all(checks.values()), checks
+
+
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", [w for w in SUPPORTED_WINDOWS if w > 1])
+def test_full_contract_case_runs_on_cpu(window, scheme, key_words):
+    """The near-full case of the card (runs that go FULL partway), run
+    where both sides are the plain versions: every check holds."""
+    checks = contract.run_full_case(600, window=window, scheme=scheme,
+                                    device="cpu", key_words=key_words)
+    assert len(checks) == 7 and all(checks.values()), checks
+
+
+def test_layouts_reorder_the_runs():
+    """Each layout is a reordering of the same pairs: "offset" the runs
+    rolled by an odd count, "interleaved" two keys alternating, "shuffled"
+    a seeded permutation; two-word keys are laid out whole."""
+    keys = torch.arange(10, 15, dtype=torch.int32)
+    runs = contract.lay_out(keys, 3, "runs")
+    assert runs.tolist() == [10, 10, 10, 11, 11, 11, 12, 12, 12, 13, 13, 13,
+                             14, 14, 14]
+    assert contract.lay_out(keys, 3, "offset").tolist() == torch.roll(
+        runs, contract.OFFSET).tolist()
+    assert contract.lay_out(keys, 3, "interleaved").tolist() == [
+        10, 11, 10, 11, 10, 11, 12, 13, 12, 13, 12, 13, 14, 14, 14]
+    shuffled = contract.lay_out(keys, 3, "shuffled")
+    assert shuffled.tolist() != runs.tolist()
+    assert torch.equal(shuffled.sort().values, runs)
+    assert torch.equal(shuffled, contract.lay_out(keys, 3, "shuffled"))
+    planes = torch.stack([keys, -keys], dim=1)
+    assert torch.equal(contract.lay_out(planes, 3, "interleaved")[:, 0],
+                       contract.lay_out(keys, 3, "interleaved"))
+    assert torch.equal(contract.lay_out(planes, 3, "interleaved")[:, 1],
+                       -contract.lay_out(keys, 3, "interleaved"))
+    with pytest.raises(ValueError):
+        contract.lay_out(keys, 3, "sorted")
 
 
 def test_multi_contract_catches_broken_stores():

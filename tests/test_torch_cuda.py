@@ -92,17 +92,39 @@ def test_table_on_card_goes_through_kernels():
             assert a == b
 
 
+#: (r, layout) of the multi-value cases: runs of every length (100: longer
+#: than any window, split across the kernel's chunks), and at r = 8 and 32
+#: the other layouts (``contract.LAYOUTS``)
+_MULTI_LAYOUTS = ([(r, "runs") for r in (1, 8, 32, 100)]
+                  + [(8, layout) for layout in contract.LAYOUTS[1:]]
+                  + [(32, "offset")])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [1, 8, 32])
+@pytest.mark.parametrize("r, layout", _MULTI_LAYOUTS)
 @pytest.mark.parametrize("scheme", ["cops", "linear"])
 @pytest.mark.parametrize("window", SUPPORTED_WINDOWS)
-def test_multi_value_kernels_hold_to_plain(window, scheme, r):
+def test_multi_value_kernels_hold_to_plain(window, scheme, r, layout):
     """The append under the multi-value contract, the retrieve walk
-    bit-exact, at load 0.8 with r consecutive duplicates, tombstones,
-    duplicate and masked queries."""
+    bit-exact, at load 0.8 with r duplicates of each key laid out as
+    ``layout`` says, tombstones, duplicate and masked queries."""
     _need_card()
     checks = contract.run_multi_case(1 << 14, window=window, scheme=scheme,
-                                     device="cuda", r=r)
+                                     device="cuda", r=r, layout=layout)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", [w for w in SUPPORTED_WINDOWS if w > 1])
+def test_append_goes_full_partway_as_plain(window, scheme, key_words):
+    """Runs that meet no other key and go FULL partway: the append kernel
+    builds exactly the plain version's store and statuses."""
+    _need_card()
+    checks = contract.run_full_case(1 << 14, window=window, scheme=scheme,
+                                    device="cuda", key_words=key_words)
     torch.cuda.synchronize()
     assert all(checks.values()), checks
 
@@ -163,14 +185,17 @@ def test_multi_value_table_on_card_goes_through_kernels():
 @pytest.mark.parametrize("window", SUPPORTED_WINDOWS)
 def test_kernels64_hold_to_plain(window, scheme):
     """The two-plane kernels against their plain versions: the insert and
-    the append under their contracts, the lookup and the retrieve walk
+    the append (in every layout; keys sharing their plane-0 word side by
+    side) under their contracts, the lookup and the retrieve walk
     bit-exact; a quarter of the keys share 2^10 plane-0 words, some with
     plane 1 at 0xFFFFFFFF / 0xFFFFFFFE."""
     _need_card()
     single = contract.run_case(1 << 14, window=window, scheme=scheme,
                                device="cuda", key_words=2)
-    multi = contract.run_multi_case(1 << 14, window=window, scheme=scheme,
-                                    device="cuda", key_words=2)
+    multi = {f"{layout} {k}": ok for layout in contract.LAYOUTS
+             for k, ok in contract.run_multi_case(
+                 1 << 14, window=window, scheme=scheme, device="cuda",
+                 key_words=2, layout=layout).items()}
     torch.cuda.synchronize()
     assert all(single.values()), single
     assert all(multi.values()), multi
