@@ -105,8 +105,13 @@ status line each:
     aggregate at 64, 2^16 and 2^19 groups, the counting table's saturating
     count (counters at 0xFFFFFFF0 take 32 more), W = 8 and 32, cops and
     linear, tombstones, a table too small for its groups (FULL), and
-    two-word keys sharing plane-0 words; and the hash set's add, contains
-    and remove on 2^20 keys against a table-free reference;
+    two-word keys sharing plane-0 words; each fold op (add, min, max, the
+    saturating add, and the saturating add reached through a group's
+    other rows only) at R - 1, R and R + 1 groups (R: the most whose rows
+    the kernel combines in shared memory, ``ops.shared_groups``), every
+    group in the first batch, and on a batch whose rows all share one key;
+    and the hash set's add, contains and remove on 2^20 keys against a
+    table-free reference;
 17. the relational path at the paper's scale (``benchmarks/
     fig9_relational.py`` with n = paper_n_pairs / 2 = 2^27): the inner
     hash join of 2^27 distinct build keys and 2^27 probe keys drawn from
@@ -120,10 +125,13 @@ status line each:
     n = 2^24 (the join, the group-by and DISTINCT on two columns, each
     against the same columns packed into one word; counters zeroed just
     before and read just after), then ``cops_update`` alone on phase 17's
-    2^25- and 64-group sums and ``cops_update64`` alone on the composite
-    group-by, each into an empty table (every group claims) and again into
-    the table it filled (every group folds), against their plain versions,
-    timed, with byte bounds from each run's own statuses;
+    2^25-, 1024- and 64-group sums and ``cops_update64`` alone on the
+    composite group-by, each into an empty table (every group claims) and
+    again into the table it filled (every group folds), against their
+    plain versions, timed, with byte bounds from each run's own statuses,
+    this design's own traffic beside them (the combine's scratch), and the
+    kernels of one call (the combine, then the walk) named with their
+    times by ``torch.profiler``;
 19. ``bloom_insert`` / ``bloom_query`` vs their plain versions at 2^20
     keys (each ~4 times, half masked) for 256-, 512- and 1024-bit blocks,
     k = 1, 4, 8, one filter and a stack of 8 with a plane per key, and an
@@ -182,7 +190,11 @@ status line each:
 The second-to-last line is the ``{"kernels": [...]}`` record, one entry per
 kernel; its ``bound_by`` is "bytes" or "operations" (the larger term), and
 ``bound_rate`` names which operations at which peak rate (32-bit integer
-operations, or flops of the input's type).  The last is
+operations, or flops of the input's type).  ``elements`` counts what the
+main path's launches took (keys, rows, pairs, queries, k-mers or scores),
+``timed_elements`` what the timed launch took, and ``path_loss_ms`` is
+their ratio times the timed launch's ms above its bound: the ranking of
+the kernels for their redesign.  The last is
 ``{"ok": true, "device": ...}``, printed only when every phase passed.
 Exits non-zero without a card, or when the repository's sources are not
 beside this script.
@@ -236,6 +248,10 @@ REL_GROUPS = (64, 1024, 2 ** 25)
 REL_AGGS = ("sum", "count", "mean")
 N_COMPOSITE = 2 ** 24
 UPDATE_GROUPS = (64, 2 ** 16, 2 ** 19)
+# phase 16's cases at R - 1, R and R + 1 groups and at one key: a
+# contract.UPDATES entry per fold op (add, min, max, the saturating add,
+# and the saturating add reached through a group's other rows only)
+UPDATE_OPS = ("sum", "min", "max", "counting", "saturating")
 # benchmarks/fig12_serve.py:57-62 (8 shards, 16 bloom bits per key, slack
 # 2.5; each step nb upserts, nb lookups, nb // 4 erases) scaled to the card
 EL_SHARDS, EL_BITS_PER_KEY, EL_SLACK = 8, 16, 2.5
@@ -441,16 +457,38 @@ def multi_walk_windows(torch, table_keys, keys, seed, scheme, budget):
     return walked, int(last.sum()), sectors
 
 
-def kernel_record(name, launches, err, times, plain_times, bound_bytes,
-                  source=SOURCE, bound_ops=0, bound_flops=0, flops_rate=None,
-                  library_times=None):
+class Counts(dict):
+    """The launches of each kernel since its module's ``reset_launches``,
+    with the elements they took (keys, rows, pairs, queries, k-mers or
+    scores) in ``elements``."""
+
+    elements: dict
+
+
+def path_counts(*modules) -> Counts:
+    """The launch and element counters of the kernels of the wrapper
+    ``modules`` (``kernels/*/ops.py``), as they stand."""
+    out = Counts()
+    out.elements = {}
+    for m in modules:
+        out.update(m.LAUNCHES)
+        out.elements.update(m.ELEMENTS)
+    return out
+
+
+def kernel_record(name, launches, err, times, plain_times, bound_bytes, *,
+                  elements, source=SOURCE, bound_ops=0, bound_flops=0,
+                  flops_rate=None, library_times=None):
     """One entry of the ``{"kernels": [...]}`` line: the main path's
-    ``launches`` of the kernel, its median time of ``times``, the plain
+    ``launches`` of the kernel (``Counts``) and the elements they took, the
+    elements of the timed launch, its median time of ``times``, the plain
     version's time, the library call's median time where there is one, and
     the bound: the largest of the bytes at the card's memory rate, the
     32-bit integer operations at its integer rate and the flops at
     ``flops_rate``.  ``bound_by`` says "bytes" or "operations", and
-    ``bound_rate`` which operations at which rate."""
+    ``bound_rate`` which operations at which rate.  ``path_loss_ms`` ranks
+    the kernels for their redesign: the path's elements over the timed
+    launch's, times the timed launch's ms above its bound."""
     by_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = bound_ops / INT32_OPS_PER_S * 1e3
     by_flops = bound_flops / flops_rate * 1e3 if bound_flops else 0.0
@@ -462,14 +500,18 @@ def kernel_record(name, launches, err, times, plain_times, bound_bytes,
                 f"{INT32_OPS_PER_S / 1e12:.2f} Tops/s")
     else:
         rate = f"flops at {flops_rate / 1e12:g} TFLOP/s"
+    ms = statistics.median(times)
+    path = launches.elements[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err, "ms": statistics.median(times),
+            "max_abs_err": err, "ms": ms,
             "plain_ms": plain_times[0], "bound_ms": bound,
             "bound_by": "bytes" if bound == by_bytes else "operations",
             "bound_rate": rate,
             "library_ms": (statistics.median(library_times)
-                           if library_times else None)}
+                           if library_times else None),
+            "elements": path, "timed_elements": elements,
+            "path_loss_ms": path / elements * (ms - bound)}
 
 
 def pair_err(a, b) -> float:
@@ -626,7 +668,7 @@ def single_value_path(torch, card, check, phase, keys, vals, absent):
     check(f"{tag}re-inserted values",
           bool(found.all() and torch.equal(got, vals3)))
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = path_counts(ops)
     for name in ("cops_insert", "cops_lookup"):
         check(f"{name}{suffix} launched on the {tag}main path",
               launches[name + suffix] > 0)
@@ -723,9 +765,9 @@ def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
           f"ms, bound {look_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card "
           f"{card}", flush=True)
     return [kernel_record("cops_insert" + suffix, launches, ins_err, ins_t,
-                          ins_p_t, ins_bytes),
+                          ins_p_t, ins_bytes, elements=N_MAIN),
             kernel_record("cops_lookup" + suffix, launches, look_err, look_t,
-                          look_p_t, look_bytes)]
+                          look_p_t, look_bytes, elements=N_MAIN)]
 
 
 def multi_value_path(torch, card, check, phase, base, absent):
@@ -802,7 +844,7 @@ def multi_value_path(torch, card, check, phase, base, absent):
           torch.equal(sorted_segments(got, side), want[:side]))
     del got, offs, cnt, erased, st
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = path_counts(ops)
     for name in ("cops_append", "cops_retrieve"):
         check(f"{name}{suffix} launched on the {tag}path",
               launches[name + suffix] > 0)
@@ -955,9 +997,9 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
           f"{cnt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card {card}",
           flush=True)
     return [kernel_record("cops_append" + suffix, launches, app_err, app_t,
-                          app_p_t, app_bytes),
+                          app_p_t, app_bytes, elements=N_MV),
             kernel_record("cops_retrieve" + suffix, launches, rw_err, rw_t,
-                          rw_p_t, rw_bytes)]
+                          rw_p_t, rw_bytes, elements=n_keys)]
 
 
 def bucket_cases(torch, check, phase):
@@ -1105,7 +1147,7 @@ def bucket_list_path(torch, card, check, phase, base, absent):
           not bool(bl.count_values(table, absent).any()))
     del got
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = path_counts(ops)
     for name in ("cops_lookup", "cops_bucket_walk"):
         check(f"{name} launched on the bucket-list path", launches[name] > 0)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1264,7 +1306,7 @@ def metagenomics_path(torch, card, check, phase):
 
     cls_t, (q, counts, got, pred) = timed(torch, classify, reps=3)
     torch.cuda.synchronize()
-    launches = {**ops.LAUNCHES, **mh.LAUNCHES}
+    launches = path_counts(ops, mh)
     peak = torch.cuda.max_memory_allocated() / 1e9
     # what every insert pays whatever its size (outside the counted run): a
     # claim placement of no key still scans the whole key store for free
@@ -1359,38 +1401,48 @@ def new_kernels(torch, card, check, phase, table, base, reads, bl_launches,
           f"{kmer_ops / INT32_OPS_PER_S * 1e3:.3f} ms); card {card}",
           flush=True)
     return [kernel_record("cops_bucket_walk", bl_launches, walk_err, walk_t,
-                          walk_p_t, walk_bytes),
+                          walk_p_t, walk_bytes, elements=n_q),
             kernel_record("kmer_hash", mg_launches, kmer_err, kmer_t,
-                          kmer_p_t, kmer_bytes, source=MINHASH_SOURCE,
-                          bound_ops=kmer_ops)]
+                          kmer_p_t, kmer_bytes, elements=rows * n_out,
+                          source=MINHASH_SOURCE, bound_ops=kmer_ops)]
 
 
 def update_cases(torch, check, phase):
     """Phase 16: the update kernels vs plain at N_CHECK rows, and the hash
     set against a table-free reference."""
-    from repro_torch.kernels.cops import contract
-    cases = [(what, g, 32, "cops", 0.9, 1) for what in
+    from repro_torch.kernels.cops import contract, ops
+    cases = [(what, g, 32, "cops", 0.9, 1, False) for what in
              ("sum", "min", "max", "count", "mean") for g in UPDATE_GROUPS]
-    cases += [("counting", 2 ** 16, 32, "cops", 0.9, 1),
-              ("sum", 2 ** 16, 8, "cops", 0.9, 1),
-              ("sum", 2 ** 16, 8, "linear", 0.9, 1),
-              ("max", 2 ** 16, 32, "linear", 0.9, 1),
-              ("sum", 2 ** 16, 32, "cops", 1.2, 1),
-              ("sum", 2 ** 16, 32, "cops", 0.9, 2),
-              ("min", 2 ** 16, 8, "linear", 0.9, 2),
-              ("counting", 2 ** 16, 32, "cops", 0.9, 2)]
-    for what, groups, window, scheme, rho, key_words in cases:
+    cases += [("counting", 2 ** 16, 32, "cops", 0.9, 1, False),
+              ("sum", 2 ** 16, 8, "cops", 0.9, 1, False),
+              ("sum", 2 ** 16, 8, "linear", 0.9, 1, False),
+              ("max", 2 ** 16, 32, "linear", 0.9, 1, False),
+              ("sum", 2 ** 16, 32, "cops", 1.2, 1, False),
+              ("sum", 2 ** 16, 32, "cops", 0.9, 2, False),
+              ("min", 2 ** 16, 8, "linear", 0.9, 2, False),
+              ("counting", 2 ** 16, 32, "cops", 0.9, 2, False)]
+    # the combine on both sides of R groups in shared memory, and a batch
+    # whose rows all share one key, every group in batch 1, for each op
+    r = ops.shared_groups()
+    for what in UPDATE_OPS:
+        cases += [(what, g, 32, "cops", 0.9, 1, True)
+                  for g in (r - 1, r, r + 1)]
+        cases.append((what, 1, 32, "cops", 1 / 256, 1, True))
+    cases += [("saturating", r, 32, "cops", 0.9, 2, True),
+              ("saturating", 1, 32, "cops", 1 / 256, 2, True)]
+    for what, groups, window, scheme, rho, key_words, cover in cases:
         t0 = time.perf_counter()
         checks = contract.run_update_case(
             N_CHECK, window=window, scheme=scheme, device="cuda", what=what,
-            groups=groups, rho=rho, key_words=key_words)
+            groups=groups, rho=rho, key_words=key_words, cover=cover)
         torch.cuda.synchronize()
         tag = (f"phase{phase} {what} g={groups} W={window} {scheme} "
-               f"rho={rho} kw={key_words}")
+               f"rho={rho:g} kw={key_words}")
         bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
         print(f"phase {phase} update{'64' if key_words == 2 else ''} kernel "
-              f"vs plain {what} n={N_CHECK} groups={groups} W={window} "
-              f"{scheme} rho={rho}"
+              f"vs plain {what} n={N_CHECK} groups={groups}"
+              f"{' (every one in batch 1)' if cover else ''} W={window} "
+              f"{scheme} rho={rho:g}"
               f"{' (FULL reported)' if rho > 1 else ''}: "
               f"{'ok' if not bad else 'FAILED ' + str(bad)} "
               f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
@@ -1496,8 +1548,7 @@ def relational_path(torch, card, check, phase):
     """Phase 17: fig9's join, group-by and DISTINCT at n = N_REL through
     the public relational entry points, each exact against a table-free
     reference and timed.  The counters are zeroed just before and read just
-    after.  Returns ``(launches, {g: keys and values} of the fewest and the
-    most groups)``."""
+    after.  Returns ``(launches, {g: keys and values} of each group-by)``."""
     from repro_torch.core import hashing
     from repro_torch.core.common import as_u32, as_word
     from repro_torch.kernels.cops import contract, ops
@@ -1552,10 +1603,7 @@ def relational_path(torch, card, check, phase):
                          f"{n / statistics.median(t) / 1e6:.3f} G rows/s "
                          f"(sort-based reference {spread(ref_t)})")
             del gk, out, live, table, uk, ref, lk, lo
-        if g in (REL_GROUPS[0], REL_GROUPS[-1]):
-            batches[g] = (keys, vals)
-        else:
-            del keys, vals
+        batches[g] = (keys, vals)
     dk = torch.randint(1, n // 8, (n,), dtype=torch.int32, generator=gen,
                        device="cuda")
     t, (u, n_u, fresh) = timed(torch, lambda: distinct.distinct(
@@ -1571,7 +1619,7 @@ def relational_path(torch, card, check, phase):
                  f"(unique {m})")
     del dk, u, fresh, ref_u, ref_fresh
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = path_counts(ops)
     for name in ("cops_update", "cops_append", "cops_retrieve",
                  "cops_insert"):
         check(f"{name} launched on the relational path", launches[name] > 0)
@@ -1641,7 +1689,7 @@ def composite_path(torch, card, check, phase):
           and torch.equal(fr_c, fr_p)
           and torch.equal(pack((uh, ul), gbits), up))
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = path_counts(ops)
     for name in ("cops_update64", "cops_append64", "cops_retrieve64",
                  "cops_insert64"):
         check(f"{name} launched on the composite path", launches[name] > 0)
@@ -1684,14 +1732,19 @@ def update_kernel(torch, card, check, phase, cases, launches, name):
     into the table it filled (every representative matches and folds).
     Each run against its plain version under the update contract, timed
     (a fresh copy of the table per run, outside the timing), with its byte
-    bound from its own statuses.  Returns the kernel record of the first
-    case's first run."""
+    bound from its own statuses and, beside it, this design's own traffic:
+    the bound's plus the acc scratch (filled, read by the walk, and above
+    R groups a 32-byte sector read and written per row it combines); and
+    the CUDA kernels of one more call, named with their times by
+    ``torch.profiler``.  Returns the kernel record of the first case's
+    first run."""
     from repro_torch.core import bulk
     from repro_torch.core.common import STATUS_INSERTED, STATUS_UPDATED
     from repro_torch.kernels.cops import contract, ops
     from repro_torch.relational import groupby
     fold = ("add", "add")
     kernel = getattr(ops, "update" if name == "cops_update" else "update64")
+    shared = ops.shared_groups()
     record = None
     for label, keys, vals, groups in cases:
         since = len(check.failed)
@@ -1738,11 +1791,23 @@ def update_kernel(torch, card, check, phase, cases, launches, name):
                                             kw["seed"], kw["scheme"],
                                             kw["max_probes"])
             bound = nbytes / HBM_BYTES_PER_S * 1e3
+            acc_bytes = 2 * reps * len(fold) * 4 + (
+                (n - reps) * 64 if reps > shared else 0)
+            split = device_kernels(torch, lambda pl=tuple(
+                p.clone() for p in start["kernel"]): kernel(
+                    *pl, rkeys, x, claim, rest, payload, ops=fold,
+                    count=count, **kw))
             lines.append(f"into the {run} table {spread(k_t)}, plain "
                          f"{p_t[0]:.3f} ms, bound {bound:.3f} ms by bytes "
-                         f"({nbytes} B; {per_walk:.4f} windows per walk)")
+                         f"({nbytes} B; {per_walk:.4f} windows per walk); "
+                         f"this design's traffic {nbytes + acc_bytes} B "
+                         f"({(nbytes + acc_bytes) / HBM_BYTES_PER_S * 1e3:.3f}"
+                         f" ms; the acc scratch {acc_bytes} B, combined in "
+                         f"{'shared' if reps <= shared else 'device'} memory)"
+                         f"; the kernels of one call: {split}")
             if record is None:
-                record = kernel_record(name, launches, None, k_t, p_t, nbytes)
+                record = kernel_record(name, launches, None, k_t, p_t, nbytes,
+                                       elements=n)
             start = {"kernel": kpl, "plain": ppl}
         print(f"phase {phase} {name} alone, {label}: {n} rows -> {reps} "
               f"groups (sum, capacity {table.capacity}, W={WINDOW}): "
@@ -2122,7 +2187,7 @@ def elastic_path(torch, card, check, phase):
               and elastic.count(svc) == live_k.numel())
     shutil.rmtree(path, ignore_errors=True)
     torch.cuda.synchronize()
-    launches = {**ops.LAUNCHES, **bloom_ops.LAUNCHES}
+    launches = path_counts(ops, bloom_ops)
     for name in ("bloom_insert", "bloom_query", "cops_insert", "cops_lookup"):
         check(f"{name} launched on the elastic path", launches[name] > 0)
     print(f"phase {phase} save / load / reshard at capacity_per_shard="
@@ -2215,9 +2280,11 @@ def bloom_kernels(torch, card, check, phase, launches, err_before):
           f"{(32 * per_key + 5 * N_BLOOM) * ms:.3f} ms; false-positive rate "
           f"on {N_BLOOM} absent keys {fp:.6f}; card {card}", flush=True)
     return [kernel_record("bloom_insert", launches, err, ins_t, ins_p_t,
-                          ins_bytes, source=BLOOM_SOURCE, bound_ops=ops_),
+                          ins_bytes, elements=N_BLOOM, source=BLOOM_SOURCE,
+                          bound_ops=ops_),
             kernel_record("bloom_query", launches, err, q_t, q_p_t, q_bytes,
-                          source=BLOOM_SOURCE, bound_ops=ops_)]
+                          elements=N_BLOOM, source=BLOOM_SOURCE,
+                          bound_ops=ops_)]
 
 
 def flash_inputs(torch, seed, b, s, sk, h, hkv, hd, dtype):
@@ -2334,7 +2401,7 @@ def flash_path(torch, card, check, phase, err_before):
     outs = {name: fl.flash_attention(*cells[name], causal=True)
             for name, *_ in FLASH_MAIN}
     torch.cuda.synchronize()
-    launches = dict(fl.LAUNCHES)
+    launches = path_counts(fl)
     check(f"phase{phase} flash_fwd launched on the path",
           launches["flash_fwd"] == len(FLASH_MAIN))
     record, err = None, err_before
@@ -2387,15 +2454,17 @@ def flash_path(torch, card, check, phase, err_before):
               f"{med / statistics.median(lib_t):.1f}x SDPA; card {card}",
               flush=True)
         if record is None:
-            record = (t, plain_t, nbytes, flops, FLOPS_PER_S[dtype], lib_t)
+            record = (t, plain_t, nbytes, flops, FLOPS_PER_S[dtype], lib_t,
+                      b * h * s * s)
         del q, k, v
         torch.cuda.empty_cache()
     print(f"phase {phase} flash main path: {check.status(since)}, launches "
           f"{launches}", flush=True)
-    t, plain_t, nbytes, flops, rate, lib_t = record
+    t, plain_t, nbytes, flops, rate, lib_t, scores = record
     return kernel_record("flash_fwd", launches, err, t, plain_t, nbytes,
-                         source=FLASH_SOURCE, bound_flops=flops,
-                         flops_rate=rate, library_times=lib_t)
+                         elements=scores, source=FLASH_SOURCE,
+                         bound_flops=flops, flops_rate=rate,
+                         library_times=lib_t)
 
 
 def main() -> int:
@@ -2482,8 +2551,7 @@ def main() -> int:
     cmp_launches, (gc, gv) = composite_path(torch, card, check, 18)
     records.append(update_kernel(
         torch, card, check, 18,
-        [(f"g={g}", *batches.pop(g), g) for g in (REL_GROUPS[-1],
-                                                   REL_GROUPS[0])],
+        [(f"g={g}", *batches.pop(g), g) for g in REL_GROUPS[::-1]],
         rel_launches, "cops_update"))
     torch.cuda.empty_cache()
     from repro_torch.core.hashing import pack_columns

@@ -41,14 +41,15 @@ same dedup (``update_front``) picks one representative per distinct live
 key, the group's first live element, and maps every other live element to
 its representative (``rest_rep``).  ``kernels.cops.ops.update`` /
 ``update64`` (the ``cops_update`` / ``cops_update64`` kernel, or on a CPU
-table ``update_plain``) then walks the representatives: a present key's
-value words take the representative's operand through the fold
+table ``update_plain``) then combines every other live element's operand
+into its representative's (``fold_rest``) and walks the representatives:
+a present key's value words take that operand through the fold
 (``fold_words``: ``add``, ``min``, ``max``, ``sat_add`` per word), an
-absent key claims a slot holding the representative's ``init``; and every
-other live element folds its own operand into its representative's slot.
-The folds commute on u32, so the result is the sequential chain's, and
-equals the JAX engine's pre-aggregated ``fold(old, combine(operands))``
-wherever its combiner meets its contract.  Two-word keys take the same
+absent key claims a slot holding the representative's ``init`` folded
+with the combined rest.  The folds are associative and commutative on
+u32, so the result is the sequential chain's, and equals the JAX engine's
+pre-aggregated ``fold(old, combine(operands))`` wherever its combiner
+meets its contract.  Two-word keys take the same
 lane (their groups and claim priority are those of the JAX engine's
 ``_update_general``).
 
@@ -504,8 +505,8 @@ def update_front(keys, values, init, mask=None):
     and its ``init`` ((n, V)), the value it claims a slot with.
     ``rest_rep`` ((n,) int32, or None when the batch holds no duplicate)
     maps every other live element to its representative's position, and
-    the representatives and masked elements to -1: their operands fold
-    into the representative's slot after the walk.  ``groups`` as in
+    the representatives and masked elements to -1: their operands are
+    combined into the representative's before the walk.  ``groups`` as in
     ``dedup``.
     """
     n = keys.shape[0]

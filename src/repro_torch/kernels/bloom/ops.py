@@ -8,9 +8,10 @@ wpb)`` or a stack of filters ``(P, num_blocks, wpb)`` with a plane index
 per key (``planes``; None means plane 0).  On CUDA tensors they launch
 ``bloom_insert`` / ``bloom_query`` (``csrc/bloom.cu``, built by
 ``kernels.build``) on the current stream, add one to ``LAUNCHES`` and
-raise if the launch reports a CUDA error; on CPU tensors they run the
-plain versions below; on any other device they raise.  There is no
-fallback: a CUDA tensor launches the kernel or raises.
+their keys to ``ELEMENTS``, and raise if the launch reports a CUDA error;
+on CPU tensors they run the plain versions below; on any other device
+they raise.  There is no fallback: a CUDA tensor launches the kernel or
+raises.
 
 Unlike the reference, the insert updates ``words`` **in place** (and
 returns it): a filter of the card's size is never copied per batch.  A
@@ -35,6 +36,8 @@ from repro_torch.kernels.bloom import ref
 
 #: launches of each kernel since the last ``reset_launches``
 LAUNCHES = {"bloom_insert": 0, "bloom_query": 0}
+#: the keys those launches took
+ELEMENTS = dict.fromkeys(LAUNCHES, 0)
 
 #: keys per pass of the plain versions (bounds their (n, k) temporaries)
 PLAIN_CHUNK = 1 << 22
@@ -42,7 +45,7 @@ PLAIN_CHUNK = 1 << 22
 
 def reset_launches() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = ELEMENTS[name] = 0
 
 
 @functools.cache
@@ -108,6 +111,7 @@ def _launch(name, words, keys, args, k_hashes, seed) -> None:
             k_hashes, seed & 0xFFFFFFFF,
             torch.cuda.current_stream().cuda_stream)
     LAUNCHES[name] += 1
+    ELEMENTS[name] += keys.shape[0]
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 

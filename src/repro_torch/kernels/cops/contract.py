@@ -454,23 +454,31 @@ def run_case(n: int, *, window: int, scheme: str, device, rho: float = 0.9,
     return checks
 
 
-#: the read-modify-writes the cases drive: name -> (fold, operand of plane
-#: 0: the element's value or 1); the group-by's aggregates carry (operand,
-#: 1) per element, the counting table 1
+#: the read-modify-writes the cases drive: name -> (fold, operands: the
+#: element's value or 1 in plane 0 and 1 in plane 1, or "high", a value of
+#: at least 2^31 in both planes); the group-by's aggregates carry (operand,
+#: 1) per element, the counting table 1; "saturating" makes a group's rows
+#: saturate the counter and wrap the sum, so a claim saturates through
+#: its other rows only
 UPDATES = {"sum": (("add", "add"), "value"),
            "mean": (("add", "add"), "value"),
            "count": (("add", "add"), "one"),
            "min": (("min", "add"), "value"),
            "max": (("max", "add"), "value"),
-           "counting": (("sat_add",), "one")}
+           "counting": (("sat_add",), "one"),
+           "saturating": (("sat_add", "add"), "high")}
 
 
 def update_batch(keys, salt, what):
     """(n, V) operands of ``UPDATES[what]`` for the batch ``keys``: a
     value word per element (``values_for``) or 1 in plane 0, 1 in plane
-    1."""
+    1; or for "high", values of at least 2^31 in both planes."""
     fold, operand = UPDATES[what]
     n, dev = keys.shape[0], keys.device
+    if operand == "high":
+        top = as_word(torch.tensor(1 << 31, device=dev))
+        return torch.stack([values_for(keys, salt) | top,
+                            values_for(keys, salt + 1) | top], dim=1)
     ones = torch.ones((n,), dtype=torch.int32, device=dev)
     first = values_for(keys, salt) if operand == "value" else ones
     return torch.stack([first, ones][:len(fold)], dim=1)
@@ -479,6 +487,7 @@ def update_batch(keys, salt, what):
 def run_update_case(n: int, *, window: int, scheme: str, device,
                     what: str = "sum", groups: int | None = None,
                     rho: float = 0.9, key_words: int = 1,
+                    cover: bool = False,
                     seed: int = 0x9E3779B9) -> dict[str, bool]:
     """Hold ``cops_update`` (two-word keys: ``cops_update64``; on the CPU,
     whatever the wrapper runs) against ``update_plain``, and
@@ -489,7 +498,9 @@ def run_update_case(n: int, *, window: int, scheme: str, device,
     default n / 4; groups / ``rho`` slots, so ``rho`` > 1 fills the table
     and reports FULL), 1/16 masked, through the torch front end
     (``bulk.update_front``: one representative per key, the other rows
-    folded into its slot).  Then 1/8 of the
+    folded into its slot); with ``cover`` every one of the groups in a
+    live row, so that batch 1 has exactly ``groups`` representatives
+    (checked as ``batch1_covers``).  Then 1/8 of the
     groups are erased (tombstones); for ``"counting"`` 64 counters are set
     to 0xFFFFFFF0.  Batch 2: n/4 elements, half of present groups, half
     drawn from groups / 8 new keys (and for ``"counting"`` each of those
@@ -552,6 +563,14 @@ def run_update_case(n: int, *, window: int, scheme: str, device,
 
     pick = torch.randint(0, groups, (n,), generator=gen, device=device)
     live = torch.arange(n, device=device) % 16 != 5
+    if cover:
+        every = torch.nonzero(live).squeeze(1)[:groups]
+        if every.shape[0] < groups:
+            raise ValueError(f"{n} rows cannot cover {groups} groups")
+        pick[every] = torch.randperm(groups, generator=gen,
+                                     device=device)
+        checks["batch1_covers"] = (torch.unique(pick[live]).shape[0]
+                                   == groups)
     rmw("batch1", keys[pick], live)
     gone = keys[: groups // 8]
     hot = keys[groups // 8: groups // 8 + 64]

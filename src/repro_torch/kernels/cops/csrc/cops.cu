@@ -97,30 +97,59 @@
 // of a batch into the value planes: fold_p(old, operand_p) per value plane
 // p (add, min, max or the counting table's saturating add, all on u32).
 // The torch front end picks one representative per distinct key (the
-// group's first live element) and maps every other live row to it.  The
-// update then runs two launches:
-//   1. the walk, over the representatives: the upsert's walk (the
-//      two-plane insert's two passes for two-plane keys), where a match
-//      folds the representative's own operand into the slot and a claim
-//      writes its init value; each records its slot (-1 when FULL);
-//   2. the fold, one thread per row of the batch: every other live row
-//      folds its operand into its representative's slot with an atomic
-//      (atomicAdd, atomicMin, atomicMax on unsigned words; an atomicCAS
-//      loop for the saturating add).  Rows of a FULL representative fold
-//      nowhere.
-// The folds commute on u32, so the order of the atomics cannot change the
-// result, and the walk's keys are distinct, so one group writes each slot
-// in launch 1.  Walking the batch undeduplicated would save the front end,
-// but then which duplicate reports INSERTED would follow the race, not the
-// batch order; the statuses fan out to the batch in torch.  The value
-// planes, and what a walk writes into them, are a `Values` descriptor, a
-// template over the plane count and store-or-fold: the upsert and its
-// two-plane claim pass store (one plane, or none for a hash set), the
-// update folds into one or two planes.  What bounds the update is the
-// walk, as for the insert, one 32-byte sector per value plane per
-// representative, written on a claim and read and written on a match, and
-// the rows' streams; the atomics of a group's rows hit the sectors its
-// representative already holds in L2.
+// group's first live element) and maps every other live row to it
+// (rest_rep).  The update combines each group's rows first and then walks
+// each group once, in two launches:
+//   1. the combine (combine_kernel): acc[r], an (n_reps, V) scratch that
+//      the wrapper fills with each op's identity, takes the fold of the
+//      operands of the rows that rest_rep maps to r, one atomic per row
+//      and plane (atomicAdd, atomicMin, atomicMax on unsigned words; an
+//      atomicCAS loop for the saturating add).  Up to kSharedGroups
+//      groups, each block folds into a dense copy of acc in shared
+//      memory, indexed by rest_rep, and when its rows are done adds each
+//      entry that is not the identity to acc with one global atomic per
+//      plane; a few blocks per SM stride over the rows, so that flush
+//      stays small.  Above it, every row's atomics go to acc in device
+//      memory, both planes of a group in one 8-byte entry: one random
+//      sector per row.  A warp whose 32 rows all belong to one group (a
+//      batch of one key, or sorted by key) folds them first with
+//      __reduce_{add,min,max}_sync (the saturating add: the exact sum of
+//      two 16-bit halves, saturated) and applies one atomic per plane, so
+//      one group's rows do not queue on one word.  Other warps do not
+//      combine: __match_any_sync on every warp's rows made the shared
+//      combine 8x slower on the card (tools/probe_cops_update.py), and at
+//      random keys the lanes of a warp seldom share a group.
+//   2. the walk, over the representatives (the two-plane insert's two
+//      passes for two-plane keys; for 1-word keys at W >= 32
+//      update_walk_kernel, which walks kUpdateKeys keys per warp): a match
+//      folds fold(operand, acc) into the slot and a claim writes
+//      fold(claimv, acc) (`Values::load`).
+// This is exact: add, min and max on u32, and the saturating add on
+// unsigned words, are associative and commutative, so folding a group's
+// combined rows in once equals folding each row in turn, in any order.  A
+// FULL representative writes nothing, and its rows with it.  The walk's
+// keys are distinct, so one group writes each slot.  Walking the batch
+// undeduplicated would save the front end, but then which duplicate
+// reports INSERTED would follow the race, not the batch order; the
+// statuses fan out to the batch in torch.  The value planes, and what a
+// walk writes into them, are a `Values` descriptor, a template over the
+// plane count and store-or-fold: the upsert and its two-plane claim pass
+// store (one plane, or none for a hash set), the update folds into one or
+// two planes.
+// What bounds the update: the rows' streams (rest_rep and the operands,
+// 12 bytes a row at V = 2), which the combine reads at the streaming rate
+// while the groups fit in shared memory; above kSharedGroups, one random
+// 32-byte sector of acc read and written per row (acc exceeds the 50 MB L2
+// from ~6M groups).  Then the walk, as for the insert: per representative
+// its windows, one sector per value plane written on a claim or read and
+// written on a match, and its entry of acc.  A walk's windows depend on
+// each other, so one walk per warp leaves the card's memory system mostly
+// idle (a few thousand dependent reads in flight); update_walk_kernel
+// issues the window reads of its kUpdateKeys keys together, one lane per
+// key holding that key's state, and CASes their claims from kUpdateKeys
+// lanes at once.  A key stops walking when it has finished; a claim that
+// loses its CAS is walked on by the whole warp (`claim`), one key at a
+// time.  cops_insert keeps one key per warp.
 //
 // The append (cops_append, cops_append64) has no dedup front end, and a
 // multi-value batch holds its duplicates in runs (Fig. 7 appends each key
@@ -193,6 +222,20 @@ constexpr int kAdd = 0;
 constexpr int kMin = 1;
 constexpr int kMax = 2;
 constexpr int kSatAdd = 3;
+// The update's combine keeps acc in shared memory up to this many groups
+// (R; see the header): 224 KiB at two value planes, the most that one
+// block's 227 KB hold in round figures.  On the card the shared combine
+// beat the one into device memory at every count of groups where both
+// apply, by 4x at 2^14 (tools/probe_cops_update.py measures it).
+constexpr int kSharedGroups = 28672;
+// ... with at most this many blocks per SM, each loading this many rows a
+// thread before it folds them
+constexpr int kCombineBlocksPerSm = 4;
+constexpr int kCombineUnroll = 4;
+// keys per warp of the update's walk at W >= 32 (K; see the header): of
+// 1, 2, 4, 8 and 16 keys, 8 walked 2^25 keys a third faster than one on
+// the card and 16 no faster than 8 (tools/probe_cops_update.py).
+constexpr int kUpdateKeys = 8;
 
 struct Walk {
   uint32_t num_rows;
@@ -301,9 +344,10 @@ struct Row {
 // The V value planes of a store (V = 0, 1 or 2) and what a kernel writes
 // into them for a batch element at flat slot `at`: on a match plane p
 // becomes fold(op_p, old, operand[p]) (FOLD) or operand[p] (a store), on a
-// claim it takes claimv[p].  V and FOLD are compile-time, so the upserts
-// compile as they would with one value plane written in place.
-// Written by the group's lane 0 only.  A kernel loads a Row where it needs
+// claim it takes claimv[p]; the update's combined rows acc[p] are folded
+// into both when the Row is loaded.  V and FOLD are compile-time, so the
+// upserts compile as they would with one value plane written in place.
+// Written by one lane per key.  A kernel loads a Row where it needs
 // it (after the match, or just before the CAS, whose latency hides the
 // load): a Row held across the walk costs registers the walk needs.
 template <int V, bool FOLD>
@@ -313,7 +357,7 @@ struct Values {
   int ops;                   // op of plane p in bits 4p .. 4p + 3 (FOLD)
   const uint32_t* operand;   // (n, V)
   const uint32_t* claimv;    // (n, V)
-  long long* slot;           // (n,) slot of each key, -1 FULL (FOLD; or null)
+  const uint32_t* acc;       // (n, V) combined rows (FOLD; null: none)
 
   __device__ Row<V> load(long long q) const {
     Row<V> r;
@@ -321,6 +365,12 @@ struct Values {
     for (int p = 0; p < V; ++p) {
       r.operand[p] = operand[q * V + p];
       r.claimv[p] = FOLD ? claimv[q * V + p] : r.operand[p];
+      if (FOLD && acc) {
+        const int op = (ops >> (4 * p)) & 15;
+        const uint32_t a = acc[q * V + p];
+        r.operand[p] = fold(op, r.operand[p], a);
+        r.claimv[p] = fold(op, r.claimv[p], a);
+      }
     }
     return r;
   }
@@ -336,10 +386,6 @@ struct Values {
 #pragma unroll
     for (int p = 0; p < V; ++p) tv[p * plane + at] = r.claimv[p];
   }
-  // the slot key q landed in (matched or claimed), -1 when FULL
-  __device__ void record(long long q, long long at) const {
-    if (FOLD && slot) slot[q] = at;
-  }
 };
 
 // fold(op, *at, x) as one atomic read-modify-write
@@ -353,6 +399,27 @@ __device__ __forceinline__ void atomic_fold(int op, uint32_t* at, uint32_t x) {
       while (seen != 0xFFFFFFFFu &&
              (old = atomicCAS(at, seen, fold(kSatAdd, seen, x))) != seen)
         seen = old;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t identity(int op) {
+  return op == kMin ? 0xFFFFFFFFu : 0u;
+}
+
+// fold(op) of x over the lanes of `peers`, which all call it with the same
+// mask and get the result
+__device__ __forceinline__ uint32_t warp_fold(int op, unsigned peers,
+                                              uint32_t x) {
+  switch (op) {
+    case kAdd: return __reduce_add_sync(peers, x);
+    case kMin: return __reduce_min_sync(peers, x);
+    case kMax: return __reduce_max_sync(peers, x);
+    default: {  // kSatAdd: the exact sum of two 16-bit halves, saturated
+      const unsigned long long s =
+          ((unsigned long long)__reduce_add_sync(peers, x >> 16) << 16) +
+          __reduce_add_sync(peers, x & 0xFFFFu);
+      return s > 0xFFFFFFFFull ? 0xFFFFFFFFu : (uint32_t)s;
     }
   }
 }
@@ -465,8 +532,8 @@ __device__ long long claim(uint32_t* tk, const Walk& w, const Group& g,
 }
 
 // The u32 single-value upsert in one walk (see the header), and the
-// read-modify-write: a match folds into the slot's values, a claim writes
-// the claim value.
+// read-modify-write at W < 32: a match folds into the slot's values, a
+// claim writes the claim value.
 template <int V, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
 upsert_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
@@ -521,10 +588,7 @@ upsert_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
       st = kInserted;
     }
   }
-  if (g.lane == 0) {
-    status[q] = st;
-    vals.record(q, at);
-  }
+  if (g.lane == 0) status[q] = st;
 }
 
 // Pass 1 of the two-plane upsert and update: write (or fold into) the
@@ -543,7 +607,6 @@ match_kernel(const uint32_t* __restrict__ tk, Values<V, FOLD> vals,
   if (g.lane == 0) {
     if (hit >= 0) vals.matched(vals.load(q), (size_t)hit);
     status[q] = hit >= 0 ? kUpdated : kFull;
-    vals.record(q, hit);
   }
 }
 
@@ -568,7 +631,6 @@ claim_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
   if (g.lane == 0) {
     if (at >= 0) vals.claimed(r, (size_t)at);
     status[q] = at >= 0 ? kInserted : kFull;
-    vals.record(q, at);
   }
 }
 
@@ -660,23 +722,176 @@ append_kernel(uint32_t* __restrict__ tk, uint32_t* __restrict__ tv,
   if (mine) status[q] = st;
 }
 
-// Launch 2 of the update: row i of the batch folds its operand into the
-// slot of its representative rest_rep[i] (-1: a representative or a
-// masked row, which fold nothing here), unless that one is FULL.
-template <int V>
+// Launch 1 of the update (see the header): acc[r] (n_reps, V), filled with
+// each op's identity, takes the fold of the operands of the rows that
+// rest_rep maps to r (-1: a representative or a masked row, folded
+// nowhere).  SHARED: through a dense copy of acc in this block's shared
+// memory, added to acc when the block's rows are done.
+template <int V, bool SHARED>
 __global__ void __launch_bounds__(kThreads)
-fold_kernel(Values<V, true> vals, const int* __restrict__ rest_rep,
-            const uint32_t* __restrict__ rest_operand, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int r = rest_rep[i];
-  if (r < 0) return;
-  const long long at = vals.slot[r];
-  if (at < 0) return;
+combine_kernel(const int* __restrict__ rest_rep,
+               const uint32_t* __restrict__ operand, uint32_t* acc,
+               long long n_rest, int n_reps, int ops) {
+  extern __shared__ uint32_t sacc[];
+  uint32_t* const into = SHARED ? sacc : acc;
+  if (SHARED) {
+    for (int i = threadIdx.x; i < n_reps * V; i += blockDim.x)
+      sacc[i] = identity((ops >> (4 * (i % V))) & 15);
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const long long tile = (long long)kThreads * kCombineUnroll;
+  // base is the same in every thread of a block: whole warps stay in step
+  for (long long base = (long long)blockIdx.x * tile; base < n_rest;
+       base += (long long)gridDim.x * tile) {
+    int r[kCombineUnroll];
+    uint32_t x[kCombineUnroll][V];
 #pragma unroll
-  for (int p = 0; p < V; ++p)
-    atomic_fold((vals.ops >> (4 * p)) & 15, vals.tv + p * vals.plane + at,
-                rest_operand[i * V + p]);
+    for (int u = 0; u < kCombineUnroll; ++u) {
+      const long long i = base + u * kThreads + threadIdx.x;
+      const bool in = i < n_rest;
+      r[u] = in ? __ldg(rest_rep + i) : -1;
+#pragma unroll
+      for (int p = 0; p < V; ++p)
+        x[u][p] = in ? __ldg(operand + i * V + p) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kCombineUnroll; ++u) {
+      // a warp whose rows all belong to one group folds them first
+      const int r0 = __shfl_sync(0xFFFFFFFFu, r[u], 0);
+      const bool one = __all_sync(0xFFFFFFFFu, r[u] == r0);
+#pragma unroll
+      for (int p = 0; p < V; ++p) {
+        const int op = (ops >> (4 * p)) & 15;
+        if (one) {
+          const uint32_t v = warp_fold(op, 0xFFFFFFFFu, x[u][p]);
+          if (lane == 0 && r0 >= 0)
+            atomic_fold(op, into + (size_t)r0 * V + p, v);
+        } else if (r[u] >= 0) {
+          atomic_fold(op, into + (size_t)r[u] * V + p, x[u][p]);
+        }
+      }
+    }
+  }
+  if (SHARED) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_reps * V; i += blockDim.x) {
+      const int op = (ops >> (4 * (i % V))) & 15;
+      if (sacc[i] != identity(op)) atomic_fold(op, acc + i, sacc[i]);
+    }
+  }
+}
+
+// Launch 2 of the update for 1-word keys at W >= 32 (see the header): a
+// warp walks K representatives, lane j < K holding key first + j's walk.
+// Each round reads the current window of every key still walking, all K
+// loads issued before the first ballot; a key leaves the walk at its match
+// (fold into the slot) or at a window holding an EMPTY (claim its earliest
+// free lane) or at the budget.  The claims CAS from their K lanes at once;
+// one that loses is walked on by the whole warp (`claim`).
+template <int V, int K>
+__global__ void __launch_bounds__(kThreads)
+update_walk_kernel(uint32_t* __restrict__ tk, Values<V, true> vals,
+                   const uint32_t* __restrict__ keys, int* __restrict__ status,
+                   long long n, Walk w) {
+  static_assert(K >= 1 && K <= 32, "a lane per key");
+  const long long first =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32 * K;
+  if (first >= n) return;  // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const long long q = first + lane;
+  const bool mine = lane < K && q < n;
+  const uint32_t k0 = mine ? keys[q] : 0u;
+  const uint32_t step = mine ? row_step(w, k0) : 0u;
+  uint32_t row = mine ? first_row(w, k0) : 0u;
+  long long attempt = 0;
+  int st = kFull;
+  uint32_t cand_row = 0, cand_seen = 0;
+  int cand_lane = -1;
+  long long cand_attempt = 0;
+  bool walking = mine;
+  unsigned act;
+  while ((act = __ballot_sync(0xFFFFFFFFu, walking)) != 0) {
+    int mlane = -1, flane = -1;
+    uint32_t fseen = 0;
+    bool any_empty = false;
+    for (uint32_t c = 0; c < w.window; c += 32) {
+      uint32_t x[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const uint32_t rj = __shfl_sync(0xFFFFFFFFu, row, j);
+        if ((act >> j) & 1u)
+          x[j] = load_volatile(tk + (size_t)rj * w.window + c + lane);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (!((act >> j) & 1u)) continue;  // the same in every lane
+        const uint32_t kj = __shfl_sync(0xFFFFFFFFu, k0, j);
+        const unsigned mb = __ballot_sync(0xFFFFFFFFu, x[j] == kj);
+        const unsigned eb = __ballot_sync(0xFFFFFFFFu, x[j] == kEmpty);
+        const unsigned fb =
+            eb | __ballot_sync(0xFFFFFFFFu, x[j] == kTombstone);
+        if (lane == j) {
+          if (mlane < 0 && mb) mlane = (int)c + __ffs(mb) - 1;
+          if (flane < 0 && fb) {
+            const int f = __ffs(fb) - 1;
+            flane = (int)c + f;
+            fseen = (eb >> f) & 1u ? kEmpty : kTombstone;
+          }
+          any_empty |= eb != 0;
+        }
+      }
+    }
+    if (!walking) continue;
+    if (mlane >= 0) {
+      vals.matched(vals.load(q), (size_t)row * w.window + mlane);
+      st = kUpdated;
+      walking = false;
+      continue;
+    }
+    if (cand_lane < 0 && flane >= 0) {
+      cand_row = row;
+      cand_lane = flane;
+      cand_attempt = attempt;
+      cand_seen = fseen;
+    }
+    if (any_empty || ++attempt >= w.max_probes)
+      walking = false;
+    else
+      row = next_row(w, row, step);
+  }
+
+  const bool claiming = st != kUpdated && cand_lane >= 0;
+  Row<V> r;
+  long long at = -1;
+  bool won = false;
+  if (claiming) {
+    r = vals.load(q);
+    at = (long long)cand_row * w.window + cand_lane;
+    won = atomicCAS(tk + at, cand_seen, k0) == cand_seen;
+  }
+  unsigned lost = __ballot_sync(0xFFFFFFFFu, claiming && !won);
+  const Group g = make_group(32);
+  while (lost) {
+    const int j = __ffs(lost) - 1;
+    lost &= lost - 1u;
+    const uint32_t kj = __shfl_sync(0xFFFFFFFFu, k0, j);
+    const uint32_t sj = __shfl_sync(0xFFFFFFFFu, step, j);
+    uint32_t rj = __shfl_sync(0xFFFFFFFFu, cand_row, j);
+    long long aj = __shfl_sync(0xFFFFFFFFu, cand_attempt, j);
+    // the same window first, then the following rows of the walk
+    const int fl = next_free(tk, w, g, rj, aj, sj);
+    const long long got = claim<1>(tk, w, g, rj, fl, aj, sj, {kj, 0u, kj});
+    if (lane == j) {
+      at = got;
+      won = got >= 0;
+    }
+  }
+  if (won) {
+    vals.claimed(r, (size_t)at);
+    st = kInserted;
+  }
+  if (mine) status[q] = st;
 }
 
 // VALUES: read the value of each key found (false: a hash set, no value
@@ -809,16 +1024,16 @@ int lookup(const void* table_keys, const void* table_values, const void* keys,
 // The write-back of a launch: the V value planes at `table_values`, folded
 // into (FOLD) or stored, from the (n, V) `operand` and `claimv` batches;
 // for the update, the (n_rest,) `rest_rep` and (n_rest, V) `rest_operand`
-// rows that fold in after the walk, through the (n,) `slot` scratch the
-// walk records (all null, and n_rest 0, for a batch with no such row).
+// rows that launch 1 combines into the (n, V) `acc` scratch, which the walk
+// folds in (all null, and n_rest 0, for a batch with no such row).
 struct Writes {
   void* table_values;
   int ops;
   const void* operand;
   const void* claimv;
-  void* slot;
   const void* rest_rep;
   const void* rest_operand;
+  void* acc;
   long long n_rest;
 };
 
@@ -830,31 +1045,69 @@ Values<V, FOLD> make_values(const Writes& wr, unsigned num_rows, int window) {
   v.ops = wr.ops;
   v.operand = (const uint32_t*)wr.operand;
   v.claimv = (const uint32_t*)wr.claimv;
-  v.slot = (long long*)wr.slot;
+  v.acc = (const uint32_t*)wr.acc;
   return v;
 }
 
-// Launch 2 of the update (see the header), after the walk on one stream.
+// Launch 1 of the update (see the header) for n representatives: in shared
+// memory up to kSharedGroups of them, else into acc directly; a few blocks
+// per SM, striding over the rows.
 template <int V>
-int fold_rest(const Writes& wr, unsigned num_rows, int window, void* stream) {
+int combine(const Writes& wr, long long n, void* stream) {
   if (wr.n_rest <= 0) return 0;
-  fold_kernel<V><<<(unsigned)((wr.n_rest + kThreads - 1) / kThreads),
-                   kThreads, 0, (cudaStream_t)stream>>>(
-      make_values<V, true>(wr, num_rows, window), (const int*)wr.rest_rep,
-      (const uint32_t*)wr.rest_operand, wr.n_rest);
+  const bool shared = n <= kSharedGroups;
+  const size_t smem = shared ? (size_t)n * V * sizeof(uint32_t) : 0;
+  void (*kernel)(const int*, const uint32_t*, uint32_t*, long long, int,
+                 int) = shared ? combine_kernel<V, true>
+                               : combine_kernel<V, false>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tile = (long long)kThreads * kCombineUnroll;
+  const long long need = (wr.n_rest + tile - 1) / tile;
+  const int per = per_sm < 1 ? 1
+                  : per_sm < kCombineBlocksPerSm ? per_sm
+                                                 : kCombineBlocksPerSm;
+  const long long most = (long long)sms * per;
+  kernel<<<(unsigned)(need < most ? need : most), kThreads, smem,
+           (cudaStream_t)stream>>>(
+      (const int*)wr.rest_rep, (const uint32_t*)wr.rest_operand,
+      (uint32_t*)wr.acc, wr.n_rest, shared ? (int)n : 0, wr.ops);
   return (int)cudaGetLastError();
 }
 
-// One walk per 1-word key: the upsert (a store) or the update (FOLD).
+// One walk per 1-word key: the upsert (a store) or the update (FOLD); the
+// update at W >= 32 walks kUpdateKeys keys per warp.
 template <int V, bool FOLD>
 int upsert(void* table_keys, const Writes& wr, const void* keys,
            void* status, long long n, unsigned num_rows, int window,
            unsigned seed, int linear, long long max_probes, void* stream) {
+  const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
+  if constexpr (FOLD) {
+    if (window >= 32) {
+      const long long threads = (n + kUpdateKeys - 1) / kUpdateKeys * 32;
+      update_walk_kernel<V, kUpdateKeys>
+          <<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
+             (cudaStream_t)stream>>>(
+              (uint32_t*)table_keys,
+              make_values<V, true>(wr, num_rows, window),
+              (const uint32_t*)keys, (int*)status, n, w);
+      return (int)cudaGetLastError();
+    }
+  }
   upsert_kernel<V, FOLD><<<blocks_for(n, window), kThreads, 0,
                            (cudaStream_t)stream>>>(
       (uint32_t*)table_keys, make_values<V, FOLD>(wr, num_rows, window),
-      (const uint32_t*)keys, (int*)status, n,
-      make_walk(num_rows, window, seed, linear, max_probes));
+      (const uint32_t*)keys, (int*)status, n, w);
   return (int)cudaGetLastError();
 }
 
@@ -885,27 +1138,26 @@ int two_pass(void* table_keys, const Writes& wr, const void* keys,
 
 // The walk of V value planes: of 1-word keys in one pass (`upsert`), of
 // two-plane keys in two (`two_pass`; `match_pass` is read only there); for
-// the update (FOLD), then launch 2, the rows' folds.
+// the update (FOLD), after launch 1, the combine of the rows.
 template <int KW, int V, bool FOLD>
 int walk(void* table_keys, const Writes& wr, const void* keys, void* status,
          long long n, unsigned num_rows, int window, unsigned seed,
          int linear, long long max_probes, int match_pass, void* stream) {
-  int rc;
-  if constexpr (KW == 1)
-    rc = upsert<V, FOLD>(table_keys, wr, keys, status, n, num_rows, window,
-                         seed, linear, max_probes, stream);
-  else
-    rc = two_pass<KW, V, FOLD>(table_keys, wr, keys, status, n, num_rows,
-                               window, seed, linear, max_probes,
-                               match_pass > 0, stream);
   if constexpr (FOLD) {
-    if (rc == 0) return fold_rest<V>(wr, num_rows, window, stream);
+    const int rc = combine<V>(wr, n, stream);
+    if (rc != 0) return rc;
   }
-  return rc;
+  if constexpr (KW == 1)
+    return upsert<V, FOLD>(table_keys, wr, keys, status, n, num_rows, window,
+                           seed, linear, max_probes, stream);
+  else
+    return two_pass<KW, V, FOLD>(table_keys, wr, keys, status, n, num_rows,
+                                 window, seed, linear, max_probes,
+                                 match_pass > 0, stream);
 }
 
 // The instantiation for `value_words` planes (0 only with a null
-// `table_values`: a hash set) and FOLD.
+// `table_values`: a hash set, which the update does not take) and FOLD.
 template <int KW, bool FOLD>
 int launch(void* table_keys, const Writes& wr, int value_words,
            const void* keys, void* status, long long n, unsigned num_rows,
@@ -913,9 +1165,12 @@ int launch(void* table_keys, const Writes& wr, int value_words,
            int match_pass, void* stream) {
   if (n <= 0) return 0;
   const int v = wr.table_values ? value_words : 0;
-  if (v == 0) return walk<KW, 0, FOLD>(table_keys, wr, keys, status, n,
-                                       num_rows, window, seed, linear,
-                                       max_probes, match_pass, stream);
+  if (v == 0) {
+    if constexpr (FOLD) return (int)cudaErrorInvalidValue;
+    else return walk<KW, 0, false>(table_keys, wr, keys, status, n, num_rows,
+                                   window, seed, linear, max_probes,
+                                   match_pass, stream);
+  }
   if (v == 1) return walk<KW, 1, FOLD>(table_keys, wr, keys, status, n,
                                        num_rows, window, seed, linear,
                                        max_probes, match_pass, stream);
@@ -994,43 +1249,48 @@ extern "C" int cops_insert64(void* table_keys, void* table_values,
 // representatives with their (n, value_words) `operand` and `claimv`
 // (init) words; `table_values` is `value_words` (1 or 2) (p, W) planes;
 // `ops` holds the fold of value plane p in bits 4p .. 4p + 3 (0 add, 1
-// min, 2 max, 3 saturating add, all u32).  Then the batch's (n_rest,)
-// `rest_rep` (the representative of each other live row, -1 for none)
-// and (n_rest, value_words) `rest_operand` fold in, through the (n,) int64
-// `slot` scratch; with n_rest = 0 these three may be null.
+// min, 2 max, 3 saturating add, all u32).  The batch's (n_rest,)
+// `rest_rep` (the representative of each other live row, -1 for none) and
+// (n_rest, value_words) `rest_operand` are combined into `acc`, (n,
+// value_words) words that the caller filled with each op's identity (0;
+// 0xFFFFFFFF for min), which the walk then folds in; with n_rest = 0 these
+// three may be null.
 extern "C" int cops_update(void* table_keys, void* table_values,
                            const void* keys, const void* operand,
-                           const void* claimv, void* status, void* slot,
+                           const void* claimv, void* status,
                            const void* rest_rep, const void* rest_operand,
-                           long long n, unsigned num_rows, int window,
-                           unsigned seed, int linear, long long max_probes,
-                           int value_words, int ops, long long n_rest,
-                           void* stream) {
+                           void* acc, long long n, unsigned num_rows,
+                           int window, unsigned seed, int linear,
+                           long long max_probes, int value_words, int ops,
+                           long long n_rest, void* stream) {
   return launch<1, true>(
       table_keys,
-      {table_values, ops, operand, claimv, slot, rest_rep, rest_operand,
+      {table_values, ops, operand, claimv, rest_rep, rest_operand, acc,
        n_rest},
       value_words, keys, status, n, num_rows, window, seed, linear,
       max_probes, -1, stream);
 }
 
-// cops_update for two-plane keys: its walk is the two passes of
+// cops_update for two-plane keys: the same combine, then the two passes of
 // cops_insert64.
 extern "C" int cops_update64(void* table_keys, void* table_values,
                              const void* keys, const void* operand,
-                             const void* claimv, void* status, void* slot,
+                             const void* claimv, void* status,
                              const void* rest_rep, const void* rest_operand,
-                             long long n, unsigned num_rows, int window,
-                             unsigned seed, int linear, long long max_probes,
-                             int value_words, int ops, long long n_rest,
-                             int match_pass, void* stream) {
+                             void* acc, long long n, unsigned num_rows,
+                             int window, unsigned seed, int linear,
+                             long long max_probes, int value_words, int ops,
+                             long long n_rest, int match_pass, void* stream) {
   return launch<2, true>(
       table_keys,
-      {table_values, ops, operand, claimv, slot, rest_rep, rest_operand,
+      {table_values, ops, operand, claimv, rest_rep, rest_operand, acc,
        n_rest},
       value_words, keys, status, n, num_rows, window, seed, linear,
       max_probes, match_pass, stream);
 }
+
+// The most representatives whose combine runs in shared memory (R).
+extern "C" int cops_update_shared_groups() { return kSharedGroups; }
 
 extern "C" int cops_lookup(const void* table_keys, const void* table_values,
                            const void* keys, void* values, void* found,

@@ -19,11 +19,11 @@ word, which holds the sentinels):
 - ``bucket_walk`` (the bucket list's chain walk over its value pool: the
   (query, rank) pool arena of pre-probed handles) -> ``cops_bucket_walk``;
 - ``update`` / ``update64`` (the read-modify-write behind the counting
-  table and the group-by: the walk of distinct representatives folds each
-  one's operand into a present key's value planes, or claims a slot
-  holding its claim value; then every other row of the batch folds its
-  operand into its representative's slot) -> ``cops_update`` /
-  ``cops_update64``.
+  table and the group-by: every other row of the batch is first combined
+  into its representative's entry of a scratch, then the walk of distinct
+  representatives folds each one's operand and combined rows into a
+  present key's value planes, or claims a slot holding its claim value
+  folded with them) -> ``cops_update`` / ``cops_update64``.
 
 ``insert`` and ``lookup`` (and their twins) also take a table with no
 value plane (``table_values=None``, a hash set): the insert then takes no
@@ -31,7 +31,8 @@ values, and the lookup returns None for them.
 
 On **CUDA** tensors a wrapper checks dtype, shape, device and contiguity,
 launches its kernel (``csrc/cops.cu``, built by ``kernels.build``) on the
-current stream, adds one to ``LAUNCHES``, and raises if the launch
+current stream, adds one to ``LAUNCHES`` and the elements it took (keys,
+rows, pairs or queries) to ``ELEMENTS``, and raises if the launch
 reports a CUDA error.  On **CPU** tensors it runs its plain version below,
 one for each pair of twins, over (p, W) or (kw, p, W) key planes:
 ``insert_plain`` (the bulk engine's lane: probe -> virtual-fill placement
@@ -40,8 +41,9 @@ one for each pair of twins, over (p, W) or (kw, p, W) key planes:
 ``repro.core.bulk.insert_multi``), ``retrieve_walk_plain`` (the port of
 ``repro.core.bulk_retrieve.fused_walk``), ``bucket_walk_plain`` (the
 port of ``repro.core.bucket_list.chain_arena``) and ``update_plain``
-(probe -> placement -> ``bulk.fold_words``, then the rows' folds through
-``bulk.fold_rest``; with ``bulk.update_front`` bit-exact against
+(``bulk.fold_rest`` of the rows, folded into each representative's
+operand and claim value by ``bulk.fold_words``, then probe -> placement
+-> ``bulk.fold_words``; with ``bulk.update_front`` bit-exact against
 ``repro.core.bulk.update_single``), each bit-exact against the JAX
 engine.  A match holds on every key plane; the walk's row and step come
 from the key's probe word (``single_value.key_hash_word``).  On any other
@@ -70,6 +72,7 @@ from repro_torch.core.common import (
     STATUS_UPDATED,
     SUPPORTED_WINDOWS,
     as_u32,
+    as_word,
 )
 from repro_torch.core.single_value import key_hash_word
 
@@ -78,6 +81,9 @@ LAUNCHES = {"cops_insert": 0, "cops_lookup": 0, "cops_append": 0,
             "cops_retrieve": 0, "cops_insert64": 0, "cops_lookup64": 0,
             "cops_append64": 0, "cops_retrieve64": 0, "cops_bucket_walk": 0,
             "cops_update": 0, "cops_update64": 0}
+#: the elements those launches took: keys (insert, lookup), pairs
+#: (append), queries (retrieve, bucket walk), the batch's rows (update)
+ELEMENTS = dict.fromkeys(LAUNCHES, 0)
 
 #: keys per walk of the plain versions (bounds their (n, W) temporaries)
 PLAIN_CHUNK = 1 << 22
@@ -87,7 +93,7 @@ _SCHEMES = ("cops", "linear")
 
 def reset_launches() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = ELEMENTS[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -118,15 +124,13 @@ def _upsert_plain(table_keys, table_values, keys, operand, claimv, fold, *,
     """The bulk engine's lane over DISTINCT keys, in place: a matched key's
     value words become ``fold(old, operand)`` (``fold`` None: the
     operand), a placed claimer writes ``claimv``; (m, V) words each.
-    Returns (status (m,) int32: INSERTED / UPDATED / FULL, the flat slot
-    (m,) int64 each key landed in, -1 when FULL)."""
+    Returns status (m,) int32: INSERTED / UPDATED / FULL."""
     kps = _planes(table_keys)
     vps = _value_planes(table_values, kps)
     tstat = _tstatic(kps, scheme, seed, max_probes, vps.shape[0])
     ops = tstat[0]
     store = {"keys": kps, "values": vps}
     status = torch.empty(keys.shape[:1], dtype=torch.int32, device=keys.device)
-    slot = torch.empty(keys.shape[:1], dtype=torch.int64, device=keys.device)
     for s in range(0, keys.shape[0], PLAIN_CHUNK):
         k = keys[s:s + PLAIN_CHUNK]
         x, c = operand[s:s + PLAIN_CHUNK], claimv[s:s + PLAIN_CHUNK]
@@ -144,10 +148,7 @@ def _upsert_plain(table_keys, table_values, keys, operand, claimv, fold, *,
         status[s:s + PLAIN_CHUNK] = torch.where(
             matched, STATUS_UPDATED,
             torch.where(placed, STATUS_INSERTED, STATUS_FULL))
-        slot[s:s + PLAIN_CHUNK] = torch.where(
-            matched, mrow * ops.window + mlane,
-            torch.where(placed, crow * ops.window + clane, -1))
-    return status, slot
+    return status
 
 
 def insert_plain(table_keys, table_values, keys, values, *, seed, scheme,
@@ -160,7 +161,7 @@ def insert_plain(table_keys, table_values, keys, values, *, seed, scheme,
          else values[:, None])
     return _upsert_plain(table_keys, table_values, keys, v, v, None,
                          seed=seed, scheme=scheme, max_probes=max_probes,
-                         count=count)[0]
+                         count=count)
 
 
 def update_plain(table_keys, table_values, keys, operand, claimv,
@@ -168,23 +169,23 @@ def update_plain(table_keys, table_values, keys, operand, claimv,
                  max_probes, count):
     """The read-modify-write over the (V, p, W) value planes, in place.
 
-    The DISTINCT ``keys`` walk first: a present key's value word w becomes
-    ``ops[w](old, operand[:, w])`` (``bulk.FOLD_OPS``), an absent key
-    claims a slot holding ``claimv``.  Then row i of ``rest_operand``
-    ((N, V) words) folds into the slot of key ``rest_rep[i]`` ((N,) int32,
-    -1 for none), unless that key is FULL.  Status (m,) int32 (INSERTED /
-    UPDATED / FULL)."""
+    Every present DISTINCT key's value word w becomes ``ops[w](old,
+    operand[:, w])`` (``bulk.FOLD_OPS``), an absent key claims a slot
+    holding ``claimv``; and row i of ``rest_operand`` ((N, V) words) folds
+    into the slot of key ``rest_rep[i]`` ((N,) int32, -1 for none), unless
+    that key is FULL.  In the kernel's order: the rows are combined per
+    key first (``bulk.fold_rest``) and folded into its operand and claim
+    value, then the keys walk once.  The folds are associative and
+    commutative, so this is the row-by-row chain.  Status (m,) int32
+    (INSERTED / UPDATED / FULL)."""
     ops = tuple(ops)
-    status, slot = _upsert_plain(table_keys, table_values, keys, operand,
-                                 claimv, ops, seed=seed, scheme=scheme,
-                                 max_probes=max_probes, count=count)
     if rest_rep is not None:
-        vps = _value_planes(table_values, table_keys).view(len(ops), -1)
-        landed = slot >= 0
         red = bulk.fold_rest(ops, rest_rep, rest_operand, keys.shape[0])
-        at = slot[landed]
-        vps[:, at] = bulk.fold_words(ops, vps[:, at].T, red[landed]).T
-    return status
+        operand = bulk.fold_words(ops, operand, red)
+        claimv = bulk.fold_words(ops, claimv, red)
+    return _upsert_plain(table_keys, table_values, keys, operand, claimv, ops,
+                         seed=seed, scheme=scheme, max_probes=max_probes,
+                         count=count)
 
 
 def lookup_plain(table_keys, table_values, keys, *, seed, scheme, max_probes,
@@ -347,6 +348,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args + [vp]
         fn.restype = ctypes.c_int
+    lib.cops_update_shared_groups.argtypes = []
+    lib.cops_update_shared_groups.restype = ctypes.c_int
     lib.cops_bucket_walk.argtypes = [vp] * 9 + [ll, vp]
     lib.cops_bucket_walk.restype = ctypes.c_int
     return lib
@@ -405,10 +408,11 @@ def _check_geometry(key_words, table_keys, keys, planes, batches, scheme):
 
 
 def _launch(name, table_keys, n, seed, scheme, max_probes, *args,
-            extra=()):
+            extra=(), elements=None):
     """Launch kernel ``name`` on the current stream with the tensors
     ``args`` (pointers; None for a null one), the walk's parameters and
-    ``extra`` ints; count it and raise on a CUDA error."""
+    ``extra`` ints; count it and its ``elements`` (default ``n``) and raise
+    on a CUDA error."""
     num_rows, window = table_keys.shape[-2:]
     with torch.cuda.device(table_keys.device):
         rc = getattr(_lib(), name)(
@@ -416,6 +420,7 @@ def _launch(name, table_keys, n, seed, scheme, max_probes, *args,
             num_rows, window, seed & 0xFFFFFFFF, int(scheme == "linear"),
             max_probes, *extra, torch.cuda.current_stream().cuda_stream)
     LAUNCHES[name] += 1
+    ELEMENTS[name] += n if elements is None else elements
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
@@ -584,7 +589,7 @@ def _update(key_words, table_keys, table_values, keys, operand, claimv,
         raise ValueError(f"rest rows: (N,) int32 representatives beside "
                          f"(N, {vw}) operands, or neither")
     if rest and rest_rep.numel():
-        # the fold launch indexes the representatives' slots with them
+        # the combine launch indexes the representatives' scratch with them
         lo, hi = (int(v) for v in torch.aminmax(rest_rep))
         if lo < -1 or hi >= keys.shape[0]:
             raise ValueError(f"rest representatives in [-1, {keys.shape[0]}),"
@@ -599,19 +604,31 @@ def _update(key_words, table_keys, table_values, keys, operand, claimv,
     status = torch.empty((n,), dtype=torch.int32, device=keys.device)
     if n:
         n_rest = rest_rep.shape[0] if rest else 0
-        # where each representative landed, for the rows' folds
-        slot = (torch.empty((n,), dtype=torch.int64, device=keys.device)
-                if n_rest else None)
+        # each representative's other rows, combined by launch 1 from each
+        # op's identity, folded in by the walk
+        acc = None
+        if n_rest:
+            ident = [bulk._FOLD_REDUCE[op][0] for op in ops]
+            acc = as_word(torch.tensor(ident, device=keys.device)).repeat(n, 1)
         codes = sum(bulk.FOLD_OPS.index(op) << 4 * w for w, op in enumerate(ops))
         # the two-plane update's first pass, as the insert's
         extra = (vw, codes, n_rest) + (() if key_words == 1
                                        else (int(count > 0),))
         _launch("cops_update" if key_words == 1 else "cops_update64",
                 table_keys, n, seed, scheme, max_probes, table_keys,
-                table_values, keys, operand, claimv, status, slot,
+                table_values, keys, operand, claimv, status,
                 rest_rep if n_rest else None,
-                rest_operand if n_rest else None, extra=extra)
+                rest_operand if n_rest else None, acc, extra=extra,
+                elements=n_rest or n)
     return status
+
+
+def shared_groups() -> int:
+    """R: the most representatives whose rows ``cops_update`` /
+    ``cops_update64`` combine in shared memory (``csrc/cops.cu``:
+    ``kSharedGroups``); above it they combine in device memory.  Loads the
+    kernels, so it needs nvcc."""
+    return _lib().cops_update_shared_groups()
 
 
 def update(table_keys, table_values, keys, operand, claimv, rest_rep=None,
@@ -658,6 +675,7 @@ def bucket_walk(pool, ptr, cnt, bidx, active, sizes, cum):
                                          cum, qa, ra)),
                 n, torch.cuda.current_stream().cuda_stream)
         LAUNCHES["cops_bucket_walk"] += 1
+        ELEMENTS["cops_bucket_walk"] += n
         if rc != 0:
             raise RuntimeError(f"cops_bucket_walk launch failed with CUDA "
                                f"error {rc}")

@@ -8,10 +8,11 @@ queries' dtype (f32 or bf16), query head h reading KV head h // (H / Hkv).
 (BH, S, hd) panels.  On CUDA tensors both launch ``flash_fwd``
 (``csrc/flash.cu``, built by ``kernels.build``) on the current stream,
 reading the strided tensors where they lie (no repeat of the KV heads, no
-transposes), add one to ``LAUNCHES`` and raise if the launch reports a CUDA
-error; on CPU tensors they run the plain versions, ``ref.gqa_attention`` /
-``ref.attention``; on any other device they raise.  There is no fallback:
-a CUDA tensor launches the kernel or raises.  numpy inputs go to the card.
+transposes), add one to ``LAUNCHES`` and their scores (B * H * S * Sk) to
+``ELEMENTS``, and raise if the launch reports a CUDA error; on CPU tensors
+they run the plain versions, ``ref.gqa_attention`` / ``ref.attention``; on
+any other device they raise.  There is no fallback: a CUDA tensor
+launches the kernel or raises.  numpy inputs go to the card.
 
 ``tq`` / ``tk`` keep the reference's contract (``tq = min(tq, S)``,
 ``tk = min(tk, Sk)``, each sequence a multiple of its tile, else
@@ -44,11 +45,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the kernel since the last ``reset_launches``
 LAUNCHES = {"flash_fwd": 0}
+#: the (query, key) scores of every head those launches took, B * H * S * Sk
+ELEMENTS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = ELEMENTS[name] = 0
 
 
 @functools.cache
@@ -135,6 +138,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
             int(causal), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream)
     LAUNCHES["flash_fwd"] += 1
+    ELEMENTS["flash_fwd"] += b * heads * seq * seq_k
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {rc}")
     return out

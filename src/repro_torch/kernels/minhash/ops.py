@@ -3,13 +3,14 @@
 ``kmer_hashes`` replaces ``repro.kernels.minhash.ops.kmer_hashes``: on a
 CUDA tensor it launches ``kmer_hash`` (``csrc/minhash.cu``, built by
 ``kernels.build``) on the current stream, adds one to ``LAUNCHES`` and
-raises if the launch reports a CUDA error; on a CPU tensor it runs the
-plain version, ``ref.kmer_hashes``; on any other device it raises.
-``sketch_reads`` is the front half of the metagenomics pipeline (paper
-§V-C): reads -> canonical k-mer hashes -> each read's minhash sketch
-(``ref.minhash_sketch``, the s smallest distinct hashes), whose hashes a
-bucket list then takes as keys.  Both run on the CUDA card unless the
-caller passes ``device="cpu"``, and raise without a card.
+its k-mers to ``ELEMENTS``, and raises if the launch reports a CUDA error;
+on a CPU tensor it runs the plain version, ``ref.kmer_hashes``; on any
+other device it raises.  ``sketch_reads`` is the front half of the
+metagenomics pipeline (paper §V-C): reads -> canonical k-mer hashes ->
+each read's minhash sketch (``ref.minhash_sketch``, the s smallest
+distinct hashes), whose hashes a bucket list then takes as keys.  Both
+run on the CUDA card unless the caller passes ``device="cpu"``, and raise
+without a card.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from repro_torch.kernels.minhash import ref
 
 #: launches of each kernel since the last ``reset_launches``
 LAUNCHES = {"kmer_hash": 0}
+#: the k-mers those launches hashed
+ELEMENTS = dict.fromkeys(LAUNCHES, 0)
 
 #: the largest k the kernel's shared-memory tile (256 + k - 1 bytes) takes
 MAX_K = 48 * 1024 - 255
@@ -32,7 +35,7 @@ MAX_K = 48 * 1024 - 255
 
 def reset_launches() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = ELEMENTS[name] = 0
 
 
 @functools.cache
@@ -79,6 +82,7 @@ def kmer_hash(bases: torch.Tensor, k: int) -> torch.Tensor:
                                   length, k,
                                   torch.cuda.current_stream().cuda_stream)
         LAUNCHES["kmer_hash"] += 1
+        ELEMENTS["kmer_hash"] += out.numel()
         if rc != 0:
             raise RuntimeError(f"kmer_hash launch failed with CUDA error {rc}")
     return out

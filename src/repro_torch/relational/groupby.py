@@ -5,9 +5,10 @@ words: plane 0 the aggregate's accumulator, plane 1 the group's
 cardinality.  ``update`` folds a batch in through
 ``single_value.update_values``: the bulk engine picks one representative
 per distinct key in torch, and the ``cops_update`` kernel on the card
-(``cops_update64`` for two-word keys) walks the representatives, each
-folding its operand into its group's slot or claiming a slot for a new
-group, then folds every other row's operand into its group's slot.  ``mean`` finalizes as float32 accumulator / count;
+(``cops_update64`` for two-word keys) first combines every other row's
+operand into its group's representative, then walks the representatives,
+each folding the combined operand into its group's slot or claiming a
+slot for a new group.  ``mean`` finalizes as float32 accumulator / count;
 ``sum`` wraps mod 2^32, like the u32 arithmetic it is built on.
 
 Group keys may be composite: a tuple of u32 columns, an (n, key_words)

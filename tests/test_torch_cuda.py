@@ -421,6 +421,35 @@ def test_update_kernels_hold_to_plain(window, scheme, key_words):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("window", [8, 32, 64])
+@pytest.mark.parametrize("groups", ["R - 1", "R", "R + 1", "one key"])
+def test_update_combines_on_both_sides_of_shared_memory(groups, window,
+                                                        key_words):
+    """The update's combine keeps a block's groups in shared memory up to R
+    (``ops.shared_groups``) representatives and goes to device memory
+    above: R - 1, R and R + 1 groups, every one in batch 1, and a batch
+    whose rows all share one key, under the update contract for each fold
+    op (add, min, max, the saturating add, the last also saturating a new
+    key through its other rows only), into an empty table and then into
+    the filled one; and a table too small for its groups (FULL)."""
+    _need_card()
+    n_groups = {"R - 1": -1, "R": 0, "R + 1": 1}
+    if groups == "one key":
+        g, rho = 1, 1 / 256
+    else:
+        g, rho = ops.shared_groups() + n_groups[groups], 0.9
+    n = max(1 << 14, 2 * g)
+    for what, r in [(w, rho) for w in ("sum", "min", "max", "counting",
+                                       "saturating")] + [("sum", 1.2)]:
+        checks = contract.run_update_case(
+            n, window=window, scheme="cops", device="cuda", what=what,
+            groups=g, rho=r, key_words=key_words, cover=True)
+        torch.cuda.synchronize()
+        assert all(checks.values()), (what, g, r, checks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
 @pytest.mark.parametrize("window", [1, 4, 32])
 def test_update_claims_race_beside_a_present_key(window, key_words):
     """Every key of the batch starts its walk on one row: the claims of
@@ -534,6 +563,10 @@ def test_relational_layer_on_card_goes_through_kernels():
         out[dev] = res
     torch.cuda.synchronize()
     assert ops.LAUNCHES["cops_update"] == 11 and ops.LAUNCHES["cops_update64"] == 10
+    # each update counts its batch's rows: 5 aggregates x (5000 + 1000),
+    # and the counting table's 5000
+    assert ops.ELEMENTS["cops_update"] == 5 * 6000 + 5000
+    assert ops.ELEMENTS["cops_update64"] == 5 * 6000
     assert ops.LAUNCHES["cops_append"] == 4 and ops.LAUNCHES["cops_insert"] == 1
     assert ops.LAUNCHES["cops_insert64"] == 1
     gpu, cpu = out["cuda"], out["cpu"]

@@ -351,6 +351,42 @@ def test_update_folds_every_row_in_batch_order(fold):
     assert not bool((st == STATUS_FULL).any())
 
 
+@pytest.mark.parametrize("fold", sorted(_FOLDS))
+def test_combining_each_groups_rows_first_is_the_chain(fold):
+    """The update combines each representative's other rows first
+    (``bulk.fold_rest``, the kernel's launch 1) and its walk folds the
+    result in once: ``fold(old, fold(operand, rest))`` on a match and
+    ``fold(claimv, rest)`` on a claim equal the row-by-row chain, for
+    operands anywhere in u32, near 0xFFFFFFFF (sums wrap mod 2^32, the
+    counter saturates) and small."""
+    from repro_torch.core import bulk
+    rng = np.random.default_rng(23)
+    m, n = 40, 900
+    for lo, hi in ((0, 2 ** 32), (0xFFFFFF00, 2 ** 32), (0, 256)):
+        old, operand, claimv = (rng.integers(lo, hi, m, dtype=np.uint64)
+                                for _ in range(3))
+        rest_rep = rng.integers(-1, m, n).astype(np.int32)
+        rows = rng.integers(lo, hi, n, dtype=np.uint64)
+        matched = [_FOLDS[fold](int(a), int(b)) for a, b in zip(old, operand)]
+        claimed = [int(c) for c in claimv]
+        for r, v in zip(rest_rep.tolist(), rows.tolist()):
+            if r >= 0:
+                matched[r] = _FOLDS[fold](matched[r], v)
+                claimed[r] = _FOLDS[fold](claimed[r], v)
+
+        def words(x):
+            return torch.from_numpy(np.asarray(x, dtype=np.uint32)
+                                    .view(np.int32).reshape(-1, 1).copy())
+
+        spec = (fold,)
+        rest = bulk.fold_rest(spec, torch.from_numpy(rest_rep), words(rows), m)
+        got_m = bulk.fold_words(spec, words(old),
+                                bulk.fold_words(spec, words(operand), rest))
+        got_c = bulk.fold_words(spec, words(claimv), rest)
+        assert to_numpy_u32(got_m[:, 0]).tolist() == matched, (fold, lo)
+        assert to_numpy_u32(got_c[:, 0]).tolist() == claimed, (fold, lo)
+
+
 def test_update_refuses_out_of_range_representatives():
     """The fold's representatives index the walk's slots: the wrapper
     refuses any outside [-1, m)."""
