@@ -15,7 +15,8 @@ status line each:
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``src/repro_torch/kernels/*/csrc``;
 2. kernel vs plain at 2^20 distinct keys, rho = 0.9, for W = 32 cops,
-   W = 1 cops and W = 1 linear: a fresh build, then a batch of present,
+   W = 1 cops, W = 1 linear and W = 128 linear (the 8-key walk's 32-lane
+   chunks and the linear step): a fresh build, then a batch of present,
    new and duplicate keys onto a store holding tombstones; the lookup
    bit-exact, the insert under the four-part contract
    (``repro_torch/kernels/cops/contract.py``);
@@ -27,7 +28,11 @@ status line each:
    zeroed just before this phase and read just after it;
 4. each kernel's wrapper and its plain version on the main path's inputs
    (2^28 keys), compared and timed, with the least time the card could
-   take for the same bytes (3.35 TB/s);
+   take for the same bytes (3.35 TB/s); ``cops_insert`` both as the build
+   and as the upsert of every key into the table it built (all UPDATED,
+   under the four-part contract), and the kernels of one build and of one
+   upsert named with their times by ``torch.profiler`` in a child process
+   (``--upsert-launches``);
 5. multi-value kernels vs plain at 2^20 pairs, for wc-oa (W = 32 cops,
    r = 1, 8, 32 and 100 in a row; at r = 8 also the runs rolled by 3
    pairs, two keys interleaved and the pairs shuffled,
@@ -73,7 +78,9 @@ status line each:
     The counters are zeroed just before it and read just after it;
 11. each two-plane kernel alone and its plain version at the shapes of
     phases 9 and 10 (``cops_insert64`` both as the build and as the
-    upsert of every key), compared and timed, with their byte bounds;
+    upsert of every key, the upsert's match and claim passes split by
+    ``torch.profiler`` as in phase 4), compared and timed, with their byte
+    bounds;
     ``cops_append64`` also at r = 1, r = 32 and shuffled, as in phase 7;
 12. ``cops_bucket_walk`` vs plain (identical arenas) on bucket lists of
     2^20 pairs for Fig. 7's wc-bl-1 (growth 1.1, s0 1) and wc-bl-2
@@ -230,6 +237,8 @@ MV_CASES = (("wc-oa", 32, "cops", 1, None, "runs"),
             ("wc-oa", 32, "cops", 100, None, "runs"),
             ("lp-oa", 1, "linear", 8, 8192, "runs"))
 FULL_CASES = ((32, "cops"), (2, "linear"), (128, "cops"))  # near-full
+# phases 2 and 8: (W, scheme) of the single-value kernel-vs-plain cases
+SINGLE_CASES = ((32, "cops"), (1, "cops"), (1, "linear"), (128, "linear"))
 R_WIDE = 32               # phase 7's r = 32 variant: 2^23 keys
 SHUFFLE_SEED = 7          # phase 7's shuffled variant
 N_BL = 2 ** 28            # fig7 wc-bl: 2^25 keys x r = 8, as phase 6
@@ -546,7 +555,7 @@ def single_cases(torch, check, phase, key_words):
     """Phases 2 and 8: the single-value kernels vs plain at N_CHECK keys."""
     from repro_torch.kernels.cops import contract
     what = "kernel" if key_words == 1 else "64-bit kernel"
-    for window, scheme in ((32, "cops"), (1, "cops"), (1, "linear")):
+    for window, scheme in SINGLE_CASES:
         t0 = time.perf_counter()
         checks = contract.run_case(N_CHECK, window=window, scheme=scheme,
                                    device="cuda", rho=RHO,
@@ -691,8 +700,11 @@ def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
                          launches):
     """Phases 4 and 11: the insert and lookup kernels (u32 or two-plane)
     and their plain versions on the main path's inputs, compared and
-    timed, with their byte bounds; for two-plane keys also the upsert of
-    every key.  Returns their two kernel records."""
+    timed, with their byte bounds; the insert both as the build and as
+    the upsert of every key into the table it built, whose launches one
+    call names with their times (``torch.profiler``: for two-plane keys
+    the match pass and the claim pass).  Returns their two kernel
+    records."""
     from repro_torch.core.common import STATUS_UPDATED
     from repro_torch.kernels.cops import contract, ops
     key_words, suffix = width(keys)
@@ -710,22 +722,21 @@ def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
     for part, ok in contract.check_insert(planes(built_k), planes(built_p),
                                           kst, pst, **kw).items():
         check(f"phase{phase} insert{suffix} {part}", ok)
-    upsert = ""
-    if key_words == 2:
-        # the upsert of every key: pass 1 finds them all, pass 2 claims
-        # nothing
-        vals2 = contract.values_for(keys, 2)
-        ups_t, ust = timed(torch, lambda: insert(
-            *planes(built_k), keys, vals2, count=N_MAIN, **kw))
-        ups_p_t, upst = timed(torch, lambda: ops.insert_plain(
-            *planes(built_p), keys, vals2, count=N_MAIN, **kw), reps=1,
-            warmup=0)
-        check(f"phase{phase} insert64 upsert all UPDATED",
-              bool((ust == STATUS_UPDATED).all()))
-        for part, ok in contract.check_insert(
-                planes(built_k), planes(built_p), ust, upst, **kw).items():
-            check(f"phase{phase} insert64 upsert {part}", ok)
-        del vals2, ust, upst
+    # the upsert of every key: each walk ends at its match (two-plane
+    # keys: pass 1 finds them all, pass 2 claims nothing)
+    vals2 = contract.values_for(keys, 2)
+    ups_t, ust = timed(torch, lambda: insert(
+        *planes(built_k), keys, vals2, count=N_MAIN, **kw))
+    ups_p_t, upst = timed(torch, lambda: ops.insert_plain(
+        *planes(built_p), keys, vals2, count=N_MAIN, **kw), reps=1,
+        warmup=0)
+    check(f"phase{phase} insert{suffix} upsert all UPDATED",
+          bool((ust == STATUS_UPDATED).all()))
+    for part, ok in contract.check_insert(
+            planes(built_k), planes(built_p), ust, upst, **kw).items():
+        check(f"phase{phase} insert{suffix} upsert {part}", ok)
+    split = upsert_launches(key_words)
+    del vals2, ust, upst
     _, pv, _ = contract.live_map(*planes(built_p))
     _, kv, _ = contract.live_map(*planes(built_k))
     ins_err = (int((kv - pv).abs().max()) if kv.shape == pv.shape
@@ -751,19 +762,22 @@ def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
                  + N_MAIN * (32 * key_words + 4 * key_words + 8))
     look_bytes = (windows * win_bytes + p1 * 32
                   + N_MAIN * (32 + 4 * key_words + 5))
-    if key_words == 2:
-        ups_bytes = windows * win_bytes + p1 * 32 + N_MAIN * (32 + 16)
-        upsert = (f"; upsert {spread(ups_t)}, plain {ups_p_t[0]:.3f} ms, "
-                  f"bound {ups_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    # the upsert: the walks to each match + the value's written sector +
+    # the streams (key, value, status)
+    ups_bytes = (windows * win_bytes + p1 * 32
+                 + N_MAIN * (32 + 4 * key_words + 8))
     print(f"phase {phase} {'64-bit single-value ' if key_words == 2 else ''}"
           f"kernels at n={N_MAIN}: {check.status(since)}; mean windows per "
           f"walk {windows / N_MAIN:.4f}"
           f"{f', plane-1 sectors per walk {p1 / N_MAIN:.4f}' if key_words == 2 else ''}"
           f"; cops_insert{suffix} {spread(ins_t)}, plain {ins_p_t[0]:.3f} ms,"
-          f" bound {ins_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms{upsert}; "
-          f"cops_lookup{suffix} {spread(look_t)}, plain {look_p_t[0]:.3f} "
-          f"ms, bound {look_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card "
-          f"{card}", flush=True)
+          f" bound {ins_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; upsert "
+          f"{spread(ups_t)}, plain {ups_p_t[0]:.3f} ms, bound "
+          f"{ups_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; the kernels of one "
+          f"{split}; cops_lookup{suffix} {spread(look_t)}, plain "
+          f"{look_p_t[0]:.3f} ms, bound "
+          f"{look_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card {card}",
+          flush=True)
     return [kernel_record("cops_insert" + suffix, launches, ins_err, ins_t,
                           ins_p_t, ins_bytes, elements=N_MAIN),
             kernel_record("cops_lookup" + suffix, launches, look_err, look_t,
@@ -2363,6 +2377,52 @@ def flash_cases(torch, check, phase):
     return max(e for e, _, _ in worst.values())
 
 
+def upsert_launches(key_words) -> str:
+    """Phases 4 and 11: the kernels of one build and of one upsert of every
+    key at the main path's shape, by device time, as a child process
+    (``python3 chip_smoke.py --upsert-launches KEY_WORDS``) names them.
+    The profiler sees the card's kernels in a process's first sessions,
+    but not after it has run the card for a while since one (it then
+    reports no device time), so the child profiles them and phase 18's
+    splits stay this process's first sessions."""
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--upsert-launches", str(key_words)],
+                         capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        return (f"build / upsert: not measured (the child exited "
+                f"{res.returncode}: {res.stderr.strip()[-300:]})")
+    return lines[-1]
+
+
+def upsert_launches_main(key_words) -> int:
+    """The child of ``upsert_launches``: N_MAIN distinct keys of
+    ``key_words`` words into ``create(N_MAIN / RHO)``, W = 32, cops, once
+    as the build and once as the upsert of every key, each profiled."""
+    import torch
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.core import bulk, single_value as sv
+    from repro_torch.kernels.cops import contract, ops
+    if key_words == 1:
+        keys = contract.distinct_keys(0, N_MAIN, "cuda")
+    else:
+        keys = contract.distinct_keys64(0, N_MAIN, "cuda")
+    vals = contract.values_for(keys, 1)
+    table = sv.create(int(N_MAIN / RHO), window=WINDOW, device="cuda",
+                      key_words=key_words)
+    kw = dict(seed=table.seed, scheme=table.scheme,
+              max_probes=bulk._tstatic(table)[3])
+    planes = contract.table_planes(table)
+    insert = ops.insert if key_words == 1 else ops.insert64
+    build = device_kernels(torch, lambda: insert(*planes, keys, vals,
+                                                 count=0, **kw))
+    upsert = device_kernels(torch, lambda: insert(*planes, keys, vals,
+                                                  count=N_MAIN, **kw))
+    print(f"build: {build}; of one upsert of every key: {upsert}",
+          flush=True)
+    return 0
+
+
 def device_kernels(torch, fn) -> str:
     """The CUDA kernels that one call of ``fn`` runs, by device time, as
     ``torch.profiler`` names them ("not measured" where it sees none)."""
@@ -2588,4 +2648,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--upsert-launches"]:
+        sys.exit(upsert_launches_main(int(sys.argv[2])))
     sys.exit(main())

@@ -21,6 +21,9 @@ The single-value insert (``check_insert``):
 4. retrieve parity on the store it built (the caller compares the lookup
    kernel with ``lookup_plain`` there).
 
+``run_case`` holds it at a table's scale, ``run_insert_race_case`` where
+every key starts its walk on one row, so that the claims race.
+
 The multi-value append (``check_append``):
 
 1. the same multiset of live (key, value) pairs;
@@ -129,7 +132,9 @@ def _lexsort(keys, values):
 
 def _slot_values(table_values, slots):
     """u32 values (int64) at flat ``slots``: (m,) of a (p, W) plane,
-    (m, V) of (V, p, W) planes."""
+    (m, V) of (V, p, W) planes, (m, 0) of None (a hash set)."""
+    if table_values is None:
+        return slots.new_zeros((slots.shape[0], 0))
     if table_values.ndim == 2:
         return as_u32(table_values.reshape(-1)[slots])
     return as_u32(table_values.reshape(table_values.shape[0], -1)[:, slots].T)
@@ -164,7 +169,8 @@ def _before_first_empty(kernel_keys, kslots, kw):
 def check_insert(kernel_planes, plain_planes, kernel_status, plain_status, *,
                  seed, scheme, max_probes) -> dict[str, bool]:
     """Parts 1-3 for one batch; ``*_planes`` are (keys, values) pairs of
-    (p, W) int32 tensors after the batch.  Returns ``{part: holds}``."""
+    (p, W) int32 tensors after the batch (values None for a hash set).
+    Returns ``{part: holds}``."""
     kw = dict(seed=seed, scheme=scheme, max_probes=max_probes)
     same_map, kslots = _same_map(kernel_planes, plain_planes)
     full = bool((kernel_status == STATUS_FULL).any()
@@ -451,6 +457,85 @@ def run_case(n: int, *, window: int, scheme: str, device, rho: float = 0.9,
     live = torch.arange(batch.shape[0], device=device) % 16 != 5
     rkeys, rvals, _ = bulk.dedup(batch, values_for(batch, 2), live)
     upsert(rkeys, rvals, count, "batch2")
+    return checks
+
+
+def run_insert_race_case(*, window: int, device, key_words: int = 1,
+                         values: bool = True, rounds: int = 60,
+                         batch: int | None = None, rows: int = 13,
+                         seed: int = 0x9E3779B9) -> dict[str, bool]:
+    """Hold ``cops_insert`` / ``cops_insert64`` (on the CPU, whatever the
+    wrapper runs) against ``insert_plain`` where their claims race: every
+    key starts its walk on row 0 of a table of ``rows`` rows (with
+    ``values`` False a hash set: no value plane).
+
+    Each of ``rounds`` rounds starts from an empty table and upserts two
+    overlapping batches of distinct keys (``case_keys``), in a new order
+    each round: by default the first half of up to rows * W / 2 such keys,
+    then the last three quarters, so that the second batch's first third
+    is present (its values are stored) while its other keys race one
+    another for row 0's lanes and the rows after it; with ``batch``, the
+    first ``batch`` keys, then ``batch`` keys from the middle of those.
+    On alternate rounds the last quarter of the first batch is erased
+    before the second (tombstones, which the second batch re-inserts).
+    After each batch contract parts 1-3 (``check_insert``) and the lookup
+    of the batch and of absent keys on the kernel-built store, bit-exact
+    against ``lookup_plain``.  Returns ``{f"batch{b}_{part}": holds in
+    every round}``.
+    """
+    from repro_torch.core import single_value
+
+    def fresh():
+        t = single_value.create(rows * window, window=window, seed=seed,
+                                device=device, key_words=key_words)
+        planes = table_planes(t)
+        return t, (planes[0], planes[1] if values else None)
+
+    t, (table_keys, _) = fresh()
+    kw = dict(seed=seed, scheme=t.scheme, max_probes=bulk._tstatic(t)[3])
+    insert, lookup = twin(ops.insert, table_keys), twin(ops.lookup, table_keys)
+    pool = case_keys(key_words, 1 << 16, device)
+    on0 = probing.initial_row(key_hash_word(pool), t.num_rows, seed) == 0
+    same, absent = pool[on0][: t.num_rows * window // 2], pool[~on0][:64]
+    n = same.shape[0]
+    checks = {"enough_keys": n >= (3 * batch // 2 if batch else 4)}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2 * window + key_words)
+
+    def note(tag, parts):
+        for part, ok in parts.items():
+            checks[f"{tag}_{part}"] = checks.get(f"{tag}_{part}", True) and ok
+
+    for rnd in range(rounds):
+        t, kernel = fresh()
+        plain = tuple(None if x is None else x.clone() for x in kernel)
+        keys = same[torch.randperm(n, generator=gen, device=device)]
+        if batch:
+            first, second = keys[:batch], keys[batch // 2: batch // 2 + batch]
+        else:
+            first, second = keys[: n // 2], keys[n // 4:]
+        count = 0
+        for step, bk in enumerate((first, second)):
+            tag = f"batch{step + 1}"
+            v = values_for(bk, 2 * rnd + step) if values else None
+            ks = insert(*kernel, bk, v, count=count, **kw)
+            ps = ops.insert_plain(*plain, bk, v, count=count, **kw)
+            note(tag, check_insert(kernel, plain, ks, ps, **kw))
+            queries = torch.cat([bk, absent])
+            got = lookup(*kernel, queries, slots=True, **kw)
+            want = ops.lookup_plain(*kernel, queries, slots=True, **kw)
+            note(tag, {"lookup_exact": all(
+                (a is None and b is None) or torch.equal(a, b)
+                for a, b in zip(got, want))})
+            count += int((ks == STATUS_INSERTED).sum())
+            if step == 0 and rnd % 2:
+                gone = first[first.shape[0] * 3 // 4:]
+                for planes in (kernel, plain):
+                    _, f, slot = ops.lookup_plain(planes[0], None, gone,
+                                                  slots=True, **kw)
+                    kps = ops._planes(planes[0])
+                    kps.view(kps.shape[0], -1)[:, slot[f]] = TOMBSTONE_WORD
+                count = _live_slots(kernel[0]).shape[0]
     return checks
 
 

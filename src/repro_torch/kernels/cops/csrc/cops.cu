@@ -44,24 +44,35 @@
 // sector per such window, not a second line.  A walk's windows depend on
 // each other, so the work is latency- and sector-bound, far from the card's
 // 3.35 TB/s on sequential streams.  The design:
-//   - one group of G = min(W, 32) lanes walks one key (the append: one run
-//     of equal keys, below): at W = 32 a warp reads a whole window in one
-//     coalesced 128-byte load, and votes on it with __ballot_sync + __ffs
-//     (the paper's cooperative-group probe, §IV-B.2); for W < 32 a warp
-//     walks 32 / W keys at once, each group voting on its own lanes; for
-//     W > 32 a warp walks the window in 32-lane chunks;
-//   - thousands of independent walks are in flight per SM (8 warps per
-//     block, no shared memory) to hide the latency of the dependent loads;
+//   - a warp reads 32 lanes of a window in one coalesced load (at W = 32
+//     the whole 128-byte line) and votes on it with __ballot_sync + __ffs
+//     (the paper's cooperative-group probe, §IV-B.2); W > 32 is walked in
+//     32-lane chunks;
+//   - at W < 32 one group of G = W lanes walks one key, so a warp walks
+//     32 / W keys at once, each group voting on its own lanes;
+//   - at W >= 32 the upsert, the update and both two-plane passes
+//     (walk_kernel) walk K = kWalkKeys keys a warp: lane j holds key j's
+//     walk state, and each round reads the current chunk of every walking
+//     key's window, all K loads issued before the first ballot, so a warp
+//     keeps K chains of dependent reads in flight where it kept one.  The
+//     lookup, the retrieve and the append (one run of equal keys, below)
+//     still walk one key a warp there;
+//   - thousands of walks are in flight per SM (8 warps per block, no
+//     shared memory) to hide the latency of the dependent loads;
 //   - the key, value and status streams are read and written once,
-//     coalesced, by lane 0 of each group (the append: by every lane).
+//     coalesced, by lane 0 of each group (walk_kernel: lane j for key j;
+//     the append: by every lane).
 //
 // The u32 insert takes DISTINCT keys (the caller's dedup front end): a key
 // absent at the start of the batch can then be claimed by no other group,
 // so the walk's absence proof holds while other groups write.  A walk
 // remembers the earliest EMPTY / TOMBSTONE lane it sees and runs on to a
 // match (UPDATED: store the value) or a window holding an EMPTY; it then
-// claims the remembered slot with atomicCAS(slot, observed sentinel, k).
-// A lost CAS re-reads the same window and takes its next free lane, and
+// claims the remembered slot with atomicCAS(slot, observed sentinel, k):
+// walk_kernel CASes from its K lanes at once, each against the sentinel
+// its window read saw, with no second read of the slot (upsert_kernel, at
+// W < 32, re-reads the slot first).  A lost CAS is walked on by the whole
+// warp (group): it re-reads the same window and takes its next free lane, and
 // goes on to the following rows of the walk only when that window has none
 // left, so no free slot still before the key's first EMPTY window is
 // skipped.  Every live key thus stays at or before the first EMPTY window
@@ -91,7 +102,13 @@
 // else's view (the keys are distinct), and the first window holding a free
 // lane is the earliest candidate at or before the key's first EMPTY
 // window, so pass 2 lands where the one-pass walk would.  On an empty store
-// the wrapper skips pass 1.
+// the wrapper skips pass 1.  At W >= 32 both passes are walk_kernel, K keys
+// a warp: pass 1 reads the K keys' plane-0 windows together and the 32-byte
+// plane-1 sector only in the lanes whose plane 0 holds a key's low word;
+// pass 2 skips the keys pass 1 found, reads the others' windows together,
+// stops each key at the first window holding a free lane, and CASes from
+// K lanes at once; a winner writes plane 1 after its CAS, then the value.
+// At W < 32 they are match_kernel and claim_kernel, one key a group.
 //
 // The read-modify-write (cops_update, cops_update64) folds every live row
 // of a batch into the value planes: fold_p(old, operand_p) per value plane
@@ -120,10 +137,9 @@
 //      combine 8x slower on the card (tools/probe_cops_update.py), and at
 //      random keys the lanes of a warp seldom share a group.
 //   2. the walk, over the representatives (the two-plane insert's two
-//      passes for two-plane keys; for 1-word keys at W >= 32
-//      update_walk_kernel, which walks kUpdateKeys keys per warp): a match
-//      folds fold(operand, acc) into the slot and a claim writes
-//      fold(claimv, acc) (`Values::load`).
+//      passes for two-plane keys, the 1-word upsert's walk for 1-word
+//      keys; at W >= 32 both walk_kernel): a match folds fold(operand, acc)
+//      into the slot and a claim writes fold(claimv, acc) (`Values::load`).
 // This is exact: add, min and max on u32, and the saturating add on
 // unsigned words, are associative and commutative, so folding a group's
 // combined rows in once equals folding each row in turn, in any order.  A
@@ -144,12 +160,8 @@
 // its windows, one sector per value plane written on a claim or read and
 // written on a match, and its entry of acc.  A walk's windows depend on
 // each other, so one walk per warp leaves the card's memory system mostly
-// idle (a few thousand dependent reads in flight); update_walk_kernel
-// issues the window reads of its kUpdateKeys keys together, one lane per
-// key holding that key's state, and CASes their claims from kUpdateKeys
-// lanes at once.  A key stops walking when it has finished; a claim that
-// loses its CAS is walked on by the whole warp (`claim`), one key at a
-// time.  cops_insert keeps one key per warp.
+// idle (a few thousand dependent reads in flight); walk_kernel keeps K of
+// them in flight per warp (see the design above).
 //
 // The append (cops_append, cops_append64) has no dedup front end, and a
 // multi-value batch holds its duplicates in runs (Fig. 7 appends each key
@@ -232,10 +244,17 @@ constexpr int kSharedGroups = 28672;
 // thread before it folds them
 constexpr int kCombineBlocksPerSm = 4;
 constexpr int kCombineUnroll = 4;
-// keys per warp of the update's walk at W >= 32 (K; see the header): of
-// 1, 2, 4, 8 and 16 keys, 8 walked 2^25 keys a third faster than one on
-// the card and 16 no faster than 8 (tools/probe_cops_update.py).
-constexpr int kUpdateKeys = 8;
+// keys per warp of every walk_kernel at W >= 32 (K; see the header): of
+// 1, 2, 4, 8 and 16 keys, 8 walked the update's 2^25 keys in 55% of the
+// time of one and built fig5's u32 table in half of it; 16 was 3% faster
+// on the u32 insert and 4% slower on the u64 upsert
+// (tools/probe_cops_update.py).
+constexpr int kWalkKeys = 8;
+constexpr unsigned kAll = 0xFFFFFFFFu;  // every lane of a warp
+// walk_kernel's outcomes besides a lane to claim (none: -1): the walk
+// ended at its key; the lane walks no key
+constexpr int kMatched = -2;
+constexpr int kIdle = -3;
 
 struct Walk {
   uint32_t num_rows;
@@ -481,8 +500,8 @@ __device__ long long find(const uint32_t* tk, const Walk& w, const Group& g,
 
 // Lowest EMPTY / TOMBSTONE lane of a window of plane 0 as it stands now,
 // -1 if none.
-__device__ int free_lane(const uint32_t* tk, const Walk& w, uint32_t row,
-                         const Group& g) {
+__device__ __forceinline__ int free_lane(const uint32_t* tk, const Walk& w,
+                                         uint32_t row, const Group& g) {
   const uint32_t* win = tk + (size_t)row * w.window;
   for (uint32_t c = 0; c < w.window; c += g.size) {
     const uint32_t x = load_volatile(win + c + g.lane);
@@ -495,8 +514,9 @@ __device__ int free_lane(const uint32_t* tk, const Walk& w, uint32_t row,
 // From `row` (walk attempt `attempt`) on, the first window of the walk that
 // holds an EMPTY / TOMBSTONE lane: returns that lane and leaves `row` and
 // `attempt` there; -1 when the budget runs out first.
-__device__ int next_free(const uint32_t* tk, const Walk& w, const Group& g,
-                         uint32_t& row, long long& attempt, uint32_t step) {
+__device__ __forceinline__ int next_free(const uint32_t* tk, const Walk& w,
+                                         const Group& g, uint32_t& row,
+                                         long long& attempt, uint32_t step) {
   int lane = free_lane(tk, w, row, g);
   while (lane < 0 && ++attempt < w.max_probes) {
     row = next_row(w, row, step);
@@ -505,25 +525,27 @@ __device__ int next_free(const uint32_t* tk, const Walk& w, const Group& g,
   return lane;
 }
 
-// Claim `lane` of `row` for k with atomicCAS(plane-0 slot, observed
-// sentinel, k0), then write plane 1 (KW == 2) beside it.  A lost CAS
-// re-reads the same window first, then the following rows of the walk.
+// Claim `lane` of `row` for the key (k0, k1) with atomicCAS(plane-0 slot,
+// observed sentinel, k0), then write plane 1 (KW == 2) beside it.  A lost
+// CAS re-reads the same window first, then the following rows of the walk.
 // Returns the flat slot claimed (the same in every lane of the group), or
 // -1 when the budget runs out; the caller writes the values.
 template <int KW>
-__device__ long long claim(uint32_t* tk, const Walk& w, const Group& g,
-                           uint32_t row, int lane, long long attempt,
-                           uint32_t step, const Key& k) {
+__device__ __forceinline__ long long claim(uint32_t* tk, const Walk& w,
+                                           const Group& g, uint32_t row,
+                                           int lane, long long attempt,
+                                           uint32_t step, uint32_t k0,
+                                           uint32_t k1) {
   while (lane >= 0) {
     const size_t at = (size_t)row * w.window + lane;
     int won = 0;
     if (g.lane == 0) {
       const uint32_t seen = load_volatile(tk + at);
       if (seen == kEmpty || seen == kTombstone)
-        won = atomicCAS(tk + at, seen, k.k0) == seen;
+        won = atomicCAS(tk + at, seen, k0) == seen;
     }
     if (g.broadcast(won)) {
-      if (KW == 2 && g.lane == 0) tk[w.plane + at] = k.k1;
+      if (KW == 2 && g.lane == 0) tk[w.plane + at] = k1;
       return (long long)at;
     }
     lane = next_free(tk, w, g, row, attempt, step);
@@ -535,10 +557,10 @@ __device__ long long claim(uint32_t* tk, const Walk& w, const Group& g,
 // read-modify-write at W < 32: a match folds into the slot's values, a
 // claim writes the claim value.
 template <int V, bool FOLD>
-__global__ void __launch_bounds__(kThreads)
-upsert_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
-              const uint32_t* __restrict__ keys, int* __restrict__ status,
-              long long n, Walk w) {
+__global__ void upsert_kernel(uint32_t* __restrict__ tk,
+                              Values<V, FOLD> vals,
+                              const uint32_t* __restrict__ keys,
+                              int* __restrict__ status, long long n, Walk w) {
   const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (q >= n) return;  // whole groups leave together
@@ -582,7 +604,8 @@ upsert_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
 
   if (st != kUpdated && cand_lane >= 0) {
     const Row<V> r = vals.load(q);
-    at = claim<1>(tk, w, g, cand_row, cand_lane, cand_attempt, step, k);
+    at = claim<1>(tk, w, g, cand_row, cand_lane, cand_attempt, step, k.k0,
+                   k.k1);
     if (at >= 0) {
       if (g.lane == 0) vals.claimed(r, (size_t)at);
       st = kInserted;
@@ -627,7 +650,8 @@ claim_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
   long long attempt = 0;
   const int lane = next_free(tk, w, g, row, attempt, step);
   const Row<V> r = vals.load(q);
-  const long long at = claim<KW>(tk, w, g, row, lane, attempt, step, k);
+  const long long at =
+      claim<KW>(tk, w, g, row, lane, attempt, step, k.k0, k.k1);
   if (g.lane == 0) {
     if (at >= 0) vals.claimed(r, (size_t)at);
     status[q] = at >= 0 ? kInserted : kFull;
@@ -782,116 +806,207 @@ combine_kernel(const int* __restrict__ rest_rep,
   }
 }
 
-// Launch 2 of the update for 1-word keys at W >= 32 (see the header): a
-// warp walks K representatives, lane j < K holding key first + j's walk.
-// Each round reads the current window of every key still walking, all K
-// loads issued before the first ballot; a key leaves the walk at its match
-// (fold into the slot) or at a window holding an EMPTY (claim its earliest
-// free lane) or at the budget.  The claims CAS from their K lanes at once;
-// one that loses is walked on by the whole warp (`claim`).
-template <int V, int K>
-__global__ void __launch_bounds__(kThreads)
-update_walk_kernel(uint32_t* __restrict__ tk, Values<V, true> vals,
-                   const uint32_t* __restrict__ keys, int* __restrict__ status,
-                   long long n, Walk w) {
+// walk_kernel's key of this lane (lane j of each warp walks the warp's
+// key j), read anew from the special registers wherever it is used, so
+// that no register holds a 64-bit index across the walk.
+template <int K>
+__device__ __forceinline__ long long key_index() {
+  unsigned tid, cta;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(cta));
+  return ((long long)cta * kThreads + tid) / 32 * K + (tid & 31);
+}
+
+// The probe word of the key (k0, k1): load_key's, recomputed where a walk
+// needs it (its first row, a step), so that no register holds it between.
+template <int KW>
+__device__ __forceinline__ uint32_t probe_word(uint32_t k0, uint32_t k1) {
+  return KW == 1 ? k0 : combine_planes(k1, k0);
+}
+
+// The row of walk attempt `a` of the key with probe word `word`: `a` steps
+// from its first row.
+__device__ __forceinline__ uint32_t row_at(const Walk& w, uint32_t word,
+                                           int a) {
+  return (uint32_t)(((unsigned long long)first_row(w, word) +
+                     (unsigned long long)a * row_step(w, word)) %
+                    w.num_rows);
+}
+
+// The walk at W >= 32 (see the header): a warp walks K keys of the batch,
+// lane j < K holding key j's walk.  Each round reads the current window of
+// every key still walking, all K loads issued before the first ballot.
+// With MATCH a key leaves its walk at a lane holding it (store or fold its
+// values: UPDATED) or after a window holding an EMPTY, and with CLAIM as
+// well it remembers its earliest free lane on the way; with CLAIM alone
+// (the two-plane claim pass, which tests no match) it leaves at the first
+// window holding a free lane; any walk ends at the budget.  The claims CAS
+// from their K lanes at once against the sentinel the read saw; one that
+// loses is walked on by the whole warp (`claim`), the same window first.
+// Three walks:
+//   <1, V, FOLD, K, true, true>   the 1-word upsert (a store) and update;
+//   <2, V, FOLD, K, true, false>  pass 1 of the two-plane upsert and update;
+//   <2, V, FOLD, K, false, true>  pass 2: the keys pass 1 did not find
+//                                 (`after_match`), or every key.
+// A walk holds only what it cannot recompute: its key's words, its row
+// and attempt (32 bits: after num_rows windows a walk meets only rows it
+// has read, and a claim never frees a lane, so the budget is clamped
+// there) and its outcome (`out`: kIdle, kMatched, none (-1) or the lane
+// to claim, with the attempt and sentinel it was seen at).  The key's
+// index, its probe word, the step and the candidate's row are recomputed
+// where needed; few walks take a step (at fig5's load a walk reads 1.046
+// windows).  No __launch_bounds__ here or on upsert_kernel:
+// under __launch_bounds__(kThreads) ptxas moved values live across the
+// walk to local memory to reach a lower register count
+// (tools/probe_cops_update.py, variant "bounds").
+template <int KW, int V, bool FOLD, int K, bool MATCH, bool CLAIM>
+__global__ void walk_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
+                            const uint32_t* __restrict__ keys,
+                            int* __restrict__ status, long long n, Walk w,
+                            int after_match) {
   static_assert(K >= 1 && K <= 32, "a lane per key");
-  const long long first =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32 * K;
-  if (first >= n) return;  // whole warps leave together
+  static_assert(KW == 1 ? MATCH && CLAIM : MATCH != CLAIM,
+                "a two-plane walk that claims tests no match (the header)");
   const int lane = threadIdx.x & 31;
-  const long long q = first + lane;
-  const bool mine = lane < K && q < n;
-  const uint32_t k0 = mine ? keys[q] : 0u;
-  const uint32_t step = mine ? row_step(w, k0) : 0u;
-  uint32_t row = mine ? first_row(w, k0) : 0u;
-  long long attempt = 0;
-  int st = kFull;
-  uint32_t cand_row = 0, cand_seen = 0;
-  int cand_lane = -1;
-  long long cand_attempt = 0;
-  bool walking = mine;
+  if (key_index<K>() - lane >= n) return;  // whole warps leave together
+  int out = lane < K && key_index<K>() < n ? -1 : kIdle;
+  if (!MATCH && after_match && out == -1 &&
+      status[key_index<K>()] == kUpdated)
+    out = kIdle;
+  uint32_t k0 = 0, k1 = 0, row = 0;
+  if (out == -1) {
+    const Key k = load_key<KW>(keys, key_index<K>());
+    k0 = k.k0;
+    k1 = k.k1;
+    row = first_row(w, k.word);
+  }
+  const int budget =
+      (int)(w.max_probes < (long long)w.num_rows ? w.max_probes
+                                                 : w.num_rows);
+  int attempt = 0, cand_attempt = 0;
+  bool cand_tomb = false;  // the lane to claim held a TOMBSTONE
+  bool walking = out == -1;
   unsigned act;
-  while ((act = __ballot_sync(0xFFFFFFFFu, walking)) != 0) {
+  while ((act = __ballot_sync(kAll, walking)) != 0) {
     int mlane = -1, flane = -1;
-    uint32_t fseen = 0;
+    bool ftomb = false;
     bool any_empty = false;
     for (uint32_t c = 0; c < w.window; c += 32) {
       uint32_t x[K];
 #pragma unroll
       for (int j = 0; j < K; ++j) {
-        const uint32_t rj = __shfl_sync(0xFFFFFFFFu, row, j);
-        if ((act >> j) & 1u)
-          x[j] = load_volatile(tk + (size_t)rj * w.window + c + lane);
+        const uint32_t rj = __shfl_sync(kAll, row, j);
+        if ((act >> j) & 1u) {
+          const uint32_t* at = tk + (size_t)rj * w.window + c + lane;
+          // pass 1 reads key planes that no one writes while it runs
+          x[j] = CLAIM ? load_volatile(at) : __ldg(at);
+        }
       }
+      // the votes on plane 0, after which x is dead (a two-plane match
+      // pass then holds its plane-1 words in its registers instead)
+      unsigned hit = 0;  // bit j: this lane holds key j (plane 0 alone)
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         if (!((act >> j) & 1u)) continue;  // the same in every lane
-        const uint32_t kj = __shfl_sync(0xFFFFFFFFu, k0, j);
-        const unsigned mb = __ballot_sync(0xFFFFFFFFu, x[j] == kj);
-        const unsigned eb = __ballot_sync(0xFFFFFFFFu, x[j] == kEmpty);
+        if (MATCH) hit |= (unsigned)(x[j] == __shfl_sync(kAll, k0, j)) << j;
+        const unsigned eb = __ballot_sync(kAll, x[j] == kEmpty);
         const unsigned fb =
-            eb | __ballot_sync(0xFFFFFFFFu, x[j] == kTombstone);
+            CLAIM ? eb | __ballot_sync(kAll, x[j] == kTombstone) : 0u;
         if (lane == j) {
-          if (mlane < 0 && mb) mlane = (int)c + __ffs(mb) - 1;
           if (flane < 0 && fb) {
             const int f = __ffs(fb) - 1;
             flane = (int)c + f;
-            fseen = (eb >> f) & 1u ? kEmpty : kTombstone;
+            ftomb = !((eb >> f) & 1u);
           }
           any_empty |= eb != 0;
+        }
+      }
+      if (MATCH && KW == 2) {
+        // plane 1 only where plane 0 holds the key's low word: a sector
+        uint32_t y[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          if (!((act >> j) & 1u)) continue;
+          const uint32_t rj = __shfl_sync(kAll, row, j);
+          if ((hit >> j) & 1u)
+            y[j] = __ldg(tk + w.plane + (size_t)rj * w.window + c + lane);
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          if (!((act >> j) & 1u)) continue;
+          const uint32_t kj = __shfl_sync(kAll, k1, j);
+          if (((hit >> j) & 1u) && y[j] != kj) hit &= ~(1u << j);
+        }
+      }
+      if (MATCH) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          if (!((act >> j) & 1u)) continue;
+          const unsigned mb = __ballot_sync(kAll, (hit >> j) & 1u);
+          if (lane == j && mlane < 0 && mb) mlane = (int)c + __ffs(mb) - 1;
         }
       }
     }
     if (!walking) continue;
     if (mlane >= 0) {
-      vals.matched(vals.load(q), (size_t)row * w.window + mlane);
-      st = kUpdated;
+      vals.matched(vals.load(key_index<K>()),
+                   (size_t)row * w.window + mlane);
+      out = kMatched;
       walking = false;
       continue;
     }
-    if (cand_lane < 0 && flane >= 0) {
-      cand_row = row;
-      cand_lane = flane;
+    if (out < 0 && flane >= 0) {
+      out = flane;
       cand_attempt = attempt;
-      cand_seen = fseen;
+      cand_tomb = ftomb;
     }
-    if (any_empty || ++attempt >= w.max_probes)
+    if ((MATCH ? any_empty : out >= 0) || ++attempt >= budget)
       walking = false;
     else
-      row = next_row(w, row, step);
+      row = next_row(w, row, row_step(w, probe_word<KW>(k0, k1)));
   }
 
-  const bool claiming = st != kUpdated && cand_lane >= 0;
-  Row<V> r;
-  long long at = -1;
   bool won = false;
-  if (claiming) {
-    r = vals.load(q);
-    at = (long long)cand_row * w.window + cand_lane;
-    won = atomicCAS(tk + at, cand_seen, k0) == cand_seen;
-  }
-  unsigned lost = __ballot_sync(0xFFFFFFFFu, claiming && !won);
-  const Group g = make_group(32);
-  while (lost) {
-    const int j = __ffs(lost) - 1;
-    lost &= lost - 1u;
-    const uint32_t kj = __shfl_sync(0xFFFFFFFFu, k0, j);
-    const uint32_t sj = __shfl_sync(0xFFFFFFFFu, step, j);
-    uint32_t rj = __shfl_sync(0xFFFFFFFFu, cand_row, j);
-    long long aj = __shfl_sync(0xFFFFFFFFu, cand_attempt, j);
-    // the same window first, then the following rows of the walk
-    const int fl = next_free(tk, w, g, rj, aj, sj);
-    const long long got = claim<1>(tk, w, g, rj, fl, aj, sj, {kj, 0u, kj});
-    if (lane == j) {
-      at = got;
-      won = got >= 0;
+  if constexpr (CLAIM) {
+    const bool claiming = out >= 0;
+    Row<V> r;
+    long long at = -1;
+    if (claiming) {
+      r = vals.load(key_index<K>());
+      // the claim pass stops at the window it claims in; the one-pass
+      // walk may have walked past it
+      if (MATCH) {
+        attempt = cand_attempt;
+        row = row_at(w, probe_word<KW>(k0, k1), attempt);
+      }
+      at = (long long)row * w.window + out;
+      const uint32_t seen = cand_tomb ? kTombstone : kEmpty;
+      won = atomicCAS(tk + at, seen, k0) == seen;
+      if (KW == 2 && won) tk[w.plane + at] = k1;
     }
+    unsigned lost = __ballot_sync(kAll, claiming && !won);
+    const Group g = make_group(32);
+    while (lost) {
+      const int j = __ffs(lost) - 1;
+      lost &= lost - 1u;
+      const uint32_t kj0 = __shfl_sync(kAll, k0, j);
+      const uint32_t kj1 = __shfl_sync(kAll, k1, j);
+      const uint32_t sj = row_step(w, probe_word<KW>(kj0, kj1));
+      uint32_t rj = __shfl_sync(kAll, row, j);
+      long long aj = __shfl_sync(kAll, attempt, j);  // the full budget
+      // the same window first, then the following rows of the walk
+      const int fl = next_free(tk, w, g, rj, aj, sj);
+      const long long got = claim<KW>(tk, w, g, rj, fl, aj, sj, kj0, kj1);
+      if (lane == j) {
+        at = got;
+        won = got >= 0;
+      }
+    }
+    if (won) vals.claimed(r, (size_t)at);
   }
-  if (won) {
-    vals.claimed(r, (size_t)at);
-    st = kInserted;
-  }
-  if (mine) status[q] = st;
+  if (out != kIdle)
+    status[key_index<K>()] =
+        out == kMatched ? kUpdated : won ? kInserted : kFull;
 }
 
 // VALUES: read the value of each key found (false: a hash set, no value
@@ -999,6 +1114,12 @@ unsigned blocks_for(long long n, int window) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
+// blocks of walk_kernel for n keys: a warp per kWalkKeys of them
+unsigned walk_blocks(long long n) {
+  const long long threads = (n + kWalkKeys - 1) / kWalkKeys * 32;
+  return (unsigned)((threads + kThreads - 1) / kThreads);
+}
+
 
 template <int KW>
 int lookup(const void* table_keys, const void* table_values, const void* keys,
@@ -1085,35 +1206,30 @@ int combine(const Writes& wr, long long n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// One walk per 1-word key: the upsert (a store) or the update (FOLD); the
-// update at W >= 32 walks kUpdateKeys keys per warp.
+// One walk per 1-word key: the upsert (a store) or the update (FOLD); at
+// W >= 32 walk_kernel, kWalkKeys keys a warp.
 template <int V, bool FOLD>
 int upsert(void* table_keys, const Writes& wr, const void* keys,
            void* status, long long n, unsigned num_rows, int window,
            unsigned seed, int linear, long long max_probes, void* stream) {
   const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
-  if constexpr (FOLD) {
-    if (window >= 32) {
-      const long long threads = (n + kUpdateKeys - 1) / kUpdateKeys * 32;
-      update_walk_kernel<V, kUpdateKeys>
-          <<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
-             (cudaStream_t)stream>>>(
-              (uint32_t*)table_keys,
-              make_values<V, true>(wr, num_rows, window),
-              (const uint32_t*)keys, (int*)status, n, w);
-      return (int)cudaGetLastError();
-    }
-  }
-  upsert_kernel<V, FOLD><<<blocks_for(n, window), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (uint32_t*)table_keys, make_values<V, FOLD>(wr, num_rows, window),
-      (const uint32_t*)keys, (int*)status, n, w);
+  const Values<V, FOLD> vals = make_values<V, FOLD>(wr, num_rows, window);
+  if (window >= 32)
+    walk_kernel<1, V, FOLD, kWalkKeys, true, true>
+        <<<walk_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+            (uint32_t*)table_keys, vals, (const uint32_t*)keys,
+            (int*)status, n, w, 0);
+  else
+    upsert_kernel<V, FOLD><<<blocks_for(n, window), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        (uint32_t*)table_keys, vals, (const uint32_t*)keys, (int*)status, n,
+        w);
   return (int)cudaGetLastError();
 }
 
 // The two passes of the two-plane upsert or update; `match_pass` = 0 runs
 // pass 2 alone (the wrappers pass 0 on an empty store, which holds no key
-// to find).
+// to find).  At W >= 32 both are walk_kernel, kWalkKeys keys a warp.
 template <int KW, int V, bool FOLD>
 int two_pass(void* table_keys, const Writes& wr, const void* keys,
              void* status, long long n, unsigned num_rows, int window,
@@ -1121,18 +1237,28 @@ int two_pass(void* table_keys, const Writes& wr, const void* keys,
              void* stream) {
   const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
   const Values<V, FOLD> vals = make_values<V, FOLD>(wr, num_rows, window);
+  uint32_t* const tk = (uint32_t*)table_keys;
+  const uint32_t* const kk = (const uint32_t*)keys;
+  int* const out = (int*)status;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool many = window >= 32;
   if (match_pass) {
-    match_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        (const uint32_t*)table_keys, vals, (const uint32_t*)keys,
-        (int*)status, n, w);
+    if (many)
+      walk_kernel<KW, V, FOLD, kWalkKeys, true, false>
+          <<<walk_blocks(n), kThreads, 0, s>>>(tk, vals, kk, out, n, w, 0);
+    else
+      match_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0, s>>>(
+          tk, vals, kk, out, n, w);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  claim_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (uint32_t*)table_keys, vals, (const uint32_t*)keys, (int*)status, n, w,
-      match_pass);
+  if (many)
+    walk_kernel<KW, V, FOLD, kWalkKeys, false, true>
+        <<<walk_blocks(n), kThreads, 0, s>>>(tk, vals, kk, out, n, w,
+                                             match_pass);
+  else
+    claim_kernel<KW, V, FOLD><<<blocks_for(n, window), kThreads, 0, s>>>(
+        tk, vals, kk, out, n, w, match_pass);
   return (int)cudaGetLastError();
 }
 
@@ -1174,8 +1300,11 @@ int launch(void* table_keys, const Writes& wr, int value_words,
   if (v == 1) return walk<KW, 1, FOLD>(table_keys, wr, keys, status, n,
                                        num_rows, window, seed, linear,
                                        max_probes, match_pass, stream);
-  return walk<KW, 2, FOLD>(table_keys, wr, keys, status, n, num_rows, window,
-                           seed, linear, max_probes, match_pass, stream);
+  // the inserts store one value plane
+  if constexpr (!FOLD) return (int)cudaErrorInvalidValue;
+  else return walk<KW, 2, true>(table_keys, wr, keys, status, n, num_rows,
+                                window, seed, linear, max_probes, match_pass,
+                                stream);
 }
 
 template <int KW>

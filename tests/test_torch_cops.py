@@ -310,6 +310,39 @@ def test_contract_catches_broken_stores():
     assert res["same_map"] and not res["before_first_empty"], res
 
 
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("values", [True, False], ids=["values", "hash-set"])
+@pytest.mark.parametrize("window, batch", [(1, None), (32, None),
+                                           (128, None), (32, 9)])
+def test_insert_race_case_runs_on_cpu(window, batch, values, key_words):
+    """The card's race of claims on one row (every key starts its walk on
+    row 0), run where both sides are the plain versions: every check
+    holds."""
+    checks = contract.run_insert_race_case(
+        window=window, device="cpu", key_words=key_words, values=values,
+        rounds=4, batch=batch)
+    assert len(checks) == 9 and all(checks.values()), checks
+
+
+def test_insert_race_case_catches_a_lost_value(monkeypatch):
+    """The race case fails when the insert stores a wrong value for a key
+    it claims."""
+    real = ops.insert
+
+    def insert(table_keys, table_values, keys, values, **kw):
+        status = real(table_keys, table_values, keys, values, **kw)
+        _, _, slot = ops.lookup_plain(table_keys, None, keys[:1], slots=True,
+                                      seed=kw["seed"], scheme=kw["scheme"],
+                                      max_probes=kw["max_probes"])
+        table_values.view(-1)[slot] ^= 1
+        return status
+
+    monkeypatch.setattr(ops, "insert", insert)
+    checks = contract.run_insert_race_case(window=4, device="cpu", rounds=1)
+    assert not checks["batch1_same_map"], checks
+    assert checks["batch1_same_status"], checks
+
+
 #: every window and scheme in Fig. 7's layout (the ids these cases always
 #: had), the other layouts at W = 2, 32 and 128
 _MULTI_CPU_CASES = (

@@ -505,6 +505,42 @@ def test_update_claims_race_beside_a_present_key(window, key_words):
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", [True, False], ids=["values", "hash-set"])
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("window", [1, 4, 32, 64, 128])
+def test_insert_claims_race_on_one_row(window, key_words, values):
+    """``cops_insert`` / ``cops_insert64`` where every key of the batch
+    starts its walk on one row: the claims of new keys race for its lanes
+    (and the rows after it) while present keys match in the same row; a
+    value plane and none (the hash set); 60 rounds, on alternate ones
+    onto tombstones; the insert contract and the lookup must hold every
+    time (``contract.run_insert_race_case``)."""
+    _need_card()
+    checks = contract.run_insert_race_case(window=window, device="cuda",
+                                           key_words=key_words,
+                                           values=values)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 33])
+def test_insert_batch_sizes_around_the_walks_keys(batch, key_words):
+    """At W = 32 a warp walks 8 keys: batches of 1, 7, 8, 9 and 33 keys
+    (partial warps, a warp with one key) race on one row as in
+    ``test_insert_claims_race_on_one_row``, with a value plane and
+    without."""
+    _need_card()
+    for values in (True, False):
+        checks = contract.run_insert_race_case(
+            window=32, device="cuda", key_words=key_words, values=values,
+            batch=batch)
+        torch.cuda.synchronize()
+        assert all(checks.values()), (values, checks)
+
+
 def _same_rows(a, b):
     """A join's output rows as (probe_idx, build_idx) pairs, sorted: the
     card's append may place a key's pairs in another order."""

@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Probe the constants of ``cops_update`` on a CUDA card.
+"""Probe the constants of the COPS walks and of ``cops_update`` on a CUDA
+card.
 
     python3 tools/probe_cops_update.py
 
 Builds variants of ``src/repro_torch/kernels/cops/csrc/cops.cu`` that
 differ from the source in one choice each, into ``build/probe/``:
 
-- ``kUpdateKeys`` (K, the keys a warp walks at W >= 32) at 1, 2, 4, 8, 16;
+- ``kWalkKeys`` (K, the keys a warp walks at W >= 32 in the upsert, the
+  update and the two-plane passes) at 1, 2, 4, 8, 16;
+- "bounds": the walks (``walk_kernel``, ``upsert_kernel``) under
+  ``__launch_bounds__(kThreads)``, which the source leaves out;
 - ``kSharedGroups`` (R) at 0, so every combine goes to device memory;
 - the combine's per-warp step: "match" folds the rows of each group that
   a warp holds first (``__match_any_sync``, then a warp reduction), "plain"
   never folds in the warp; the source folds only a warp whose rows all
   belong to one group.
 
+It prints ptxas's registers and spill bytes of every walk kernel of
+each variant.  Then it times, under the source, each K and "bounds",
+``ops.insert`` and ``ops.insert64`` at fig5's shape (``INSERT_KEYS``
+distinct keys into ``create(n / 0.9)``, W = 32, cops): the build into an
+empty table and the upsert of every key into the table it built, the
+two-plane upsert's two launches named with their times
+(``torch.profiler``).
 Then it times ``ops.update`` (a sum of two value words, as the group-by's
 ``aggregate`` runs it) of 2^27 rows with keys uniform in [1, g] for each
 g of ``GROUPS`` into an empty table, under each variant that differs from
 the source where that g reaches (K only at the largest g, the combine at
-all), and names the kernels of one call with their times
+all; "bounds" as K), and names the kernels of one call with their times
 (``torch.profiler``).  Prints one line per (g, variant) and the card's
 name and power limit.  Needs one card and nvcc; imports no JAX.
 """
@@ -34,6 +45,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 2 ** 27                    # fig9's rows (phase 17 of chip_smoke.py)
+INSERT_KEYS = 2 ** 28          # fig5's keys (phases 3 and 9 of chip_smoke.py)
 GROUPS = (1, 64, 1024, 2 ** 14, 2 ** 16, 2 ** 25)
 KEYS = (1, 2, 4, 8, 16)
 # the per-warp step of the combine in the source, and the two it replaced
@@ -61,18 +73,38 @@ STEPS = {
 
 def variants(text):
     """{name: source} of the variants, the source itself as "source"."""
-    keys = int(re.search(r"kUpdateKeys = (\d+);", text)[1])
+    keys = int(re.search(r"kWalkKeys = (\d+);", text)[1])
     out = {"source": text}
     for k in KEYS:
         if k != keys:
-            out[f"K={k}"] = re.sub(r"kUpdateKeys = \d+;",
-                                   f"kUpdateKeys = {k};", text)
+            out[f"K={k}"] = re.sub(r"kWalkKeys = \d+;",
+                                   f"kWalkKeys = {k};", text)
+    walks = re.compile(r"(\n__global__ void )((?:walk|upsert)_kernel\()")
+    assert len(walks.findall(text)) == 2, "the walks' declarations moved"
+    out["bounds"] = walks.sub(r"\1__launch_bounds__(kThreads)\n\2", text)
     out["R=0"] = re.sub(r"kSharedGroups = \d+;", "kSharedGroups = 0;", text)
     assert STEP.search(text), "the combine's per-warp step moved"
     for name, step in STEPS.items():
         out[name] = STEP.sub(lambda _: "      " + step, text)
         out[f"{name}, R=0"] = STEP.sub(lambda _: "      " + step,
                                        out["R=0"])
+    return out
+
+
+def walk_registers(log):
+    """``kernel<args> R registers, S bytes of spill stores`` for every walk
+    kernel in ptxas's ``-v`` report ``log``."""
+    out = []
+    for name, spill, regs in re.findall(
+            r"Compiling entry function '(\S+)'.*?\n.*?\n\s+\d+ bytes stack "
+            r"frame, (\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
+            log):
+        m = re.search(r"\d+((?:walk|upsert|match|claim)_kernel)I(.*?)EEvP",
+                      name)
+        if m:
+            args = ", ".join(v for _, v in re.findall(r"L(i|b)(\d+)E",
+                                                      m[2]))
+            out.append(f"{m[1]}<{args}> {regs} registers, {spill} B spilled")
     return out
 
 
@@ -98,14 +130,18 @@ def main() -> int:
         tag = re.sub(r"[^A-Za-z0-9]+", "_", name)
         src, lib = out_dir / f"cops_{tag}.cu", out_dir / f"libcops_{tag}.so"
         src.write_text(text)
-        subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                        str(src)], check=True, capture_output=True)
-        return name, lib
+        res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-Xptxas",
+                              "-v", "-o", str(lib), str(src)], check=True,
+                             capture_output=True, text=True)
+        return name, lib, res.stdout + res.stderr
 
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = dict(pool.map(compile_one,
-                             variants(build.sources()["cops"].read_text())
-                             .items()))
+        built = list(pool.map(compile_one,
+                              variants(build.sources()["cops"].read_text())
+                              .items()))
+    libs = {name: lib for name, lib, _ in built}
+    for name, _, log in built:
+        print(f"ptxas {name}: " + "; ".join(walk_registers(log)), flush=True)
 
     def use(lib):
         ops._lib.cache_clear()
@@ -117,6 +153,75 @@ def main() -> int:
             build.library = real
 
     from torch.profiler import ProfilerActivity, profile
+
+    def median_ms(fn, setup=lambda: ()):
+        """(median ms of 5 runs of ``fn(*setup())`` after one, the runs)"""
+        times = []
+        for rep in range(6):
+            args = setup()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            if rep:
+                times.append(start.elapsed_time(end))
+        return statistics.median(times), times
+
+    def kernels_of(fn):
+        """{kernel: ms} of one call of ``fn``, by the profiler"""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {re.search(r"(\w+_kernel<[^>]*>)", e.key)[1]:
+                e.device_time_total / 1e3
+                for e in prof.key_averages() if "_kernel<" in e.key}
+
+    from repro_torch.core import single_value
+    for key_words in (1, 2):
+        if key_words == 1:
+            keys = contract.distinct_keys(0, INSERT_KEYS, "cuda")
+        else:
+            keys = contract.distinct_keys64(0, INSERT_KEYS, "cuda")
+        vals = contract.values_for(keys, 1)
+        table = single_value.create(int(INSERT_KEYS / 0.9), window=32,
+                                    device="cuda", key_words=key_words)
+        kw = dict(seed=table.seed, scheme=table.scheme,
+                  max_probes=bulk._tstatic(table)[3])
+        empty = contract.table_planes(table)
+        insert = ops.insert if key_words == 1 else ops.insert64
+        for name, lib in libs.items():
+            if name not in ("source", "bounds") and not name.startswith("K="):
+                continue
+            use(lib)
+            built = []
+
+            def build_one(planes):
+                insert(*planes, keys, vals, count=0, **kw)
+                built[:] = [planes]
+
+            build_ms, bt = median_ms(
+                build_one, lambda: (tuple(p.clone() for p in empty),))
+            planes = built[0]
+            upsert_ms, ut = median_ms(lambda: insert(
+                *planes, keys, vals, count=INSERT_KEYS, **kw))
+            split = kernels_of(lambda: insert(*planes, keys, vals,
+                                              count=INSERT_KEYS, **kw))
+            print(f"insert fig5 u{32 * key_words} n={INSERT_KEYS} W=32 "
+                  f"{name}: build {build_ms:.3f} ms (median of 5; min "
+                  f"{min(bt):.3f}, max {max(bt):.3f}); upsert of every key "
+                  f"{upsert_ms:.3f} ms (min {min(ut):.3f}, max {max(ut):.3f});"
+                  f" the upsert's kernels: "
+                  + "; ".join(f"{k} {v:.3f} ms"
+                              for k, v in sorted(split.items())),
+                  flush=True)
+            del planes, built
+        del keys, vals, table, empty
+        torch.cuda.empty_cache()
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
     fold = ("add", "add")
@@ -132,7 +237,7 @@ def main() -> int:
                   max_probes=bulk._tstatic(table)[3], count=0)
         empty = (contract.table_planes(table)[0], table.store["values"])
         for name, lib in libs.items():
-            if name.startswith("K=") and g != GROUPS[-1]:
+            if (name.startswith("K=") or name == "bounds") and g != GROUPS[-1]:
                 continue
             use(lib)
             times = []
