@@ -30,9 +30,11 @@ status line each:
    (2^28 keys), compared and timed, with the least time the card could
    take for the same bytes (3.35 TB/s); ``cops_insert`` both as the build
    and as the upsert of every key into the table it built (all UPDATED,
-   under the four-part contract), and the kernels of one build and of one
-   upsert named with their times by ``torch.profiler`` in a child process
-   (``--upsert-launches``);
+   under the four-part contract); ``cops_lookup`` of every key and of
+   phase 3's 2^24 absent keys, each bit-exact (values, found, slots) and
+   timed with its bound; and the kernels of one build, one upsert and
+   both lookups named with their times by ``torch.profiler`` in a child
+   process (``--upsert-launches``);
 5. multi-value kernels vs plain at 2^20 pairs, for wc-oa (W = 32 cops,
    r = 1, 8, 32 and 100 in a row; at r = 8 also the runs rolled by 3
    pairs, two keys interleaved and the pairs shuffled,
@@ -79,8 +81,9 @@ status line each:
 11. each two-plane kernel alone and its plain version at the shapes of
     phases 9 and 10 (``cops_insert64`` both as the build and as the
     upsert of every key, the upsert's match and claim passes split by
-    ``torch.profiler`` as in phase 4), compared and timed, with their byte
-    bounds;
+    ``torch.profiler`` as in phase 4; ``cops_lookup64`` of every key and
+    of phase 9's absent keys, as in phase 4), compared and timed, with
+    their byte bounds;
     ``cops_append64`` also at r = 1, r = 32 and shuffled, as in phase 7;
 12. ``cops_bucket_walk`` vs plain (identical arenas) on bucket lists of
     2^20 pairs for Fig. 7's wc-bl-1 (growth 1.1, s0 1) and wc-bl-2
@@ -696,15 +699,17 @@ def single_value_path(torch, card, check, phase, keys, vals, absent):
     return launches, kw, fresh
 
 
-def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
-                         launches):
+def single_value_kernels(torch, card, check, phase, keys, vals, absent, kw,
+                         fresh, launches):
     """Phases 4 and 11: the insert and lookup kernels (u32 or two-plane)
     and their plain versions on the main path's inputs, compared and
     timed, with their byte bounds; the insert both as the build and as
-    the upsert of every key into the table it built, whose launches one
-    call names with their times (``torch.profiler``: for two-plane keys
-    the match pass and the claim pass).  Returns their two kernel
-    records."""
+    the upsert of every key into the table it built; the lookup of every
+    key and of the ``absent`` keys, each bit-exact (values, found, slots).
+    The launches of a build, an upsert and both lookups are named with
+    their times by ``torch.profiler`` in a child process (for two-plane
+    keys the upsert's match pass and claim pass).  Returns the insert's
+    and the lookup's kernel records."""
     from repro_torch.core.common import STATUS_UPDATED
     from repro_torch.kernels.cops import contract, ops
     key_words, suffix = width(keys)
@@ -744,13 +749,30 @@ def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
     del built_p, pst, pv, kv, kst
     look_t, kout = timed(torch, lambda: lookup(*planes(built_k), keys, **kw))
     look_p_t, pout = timed(torch, lambda: ops.lookup_plain(
-        *planes(built_k), keys, **kw), reps=1, warmup=0)
+        *planes(built_k), keys, slots=True, **kw), reps=1, warmup=0)
     look_err = int((kout[0].long() - pout[0].long()).abs().max())
+    kslot = lookup(*planes(built_k), keys, slots=True, **kw)[2]
     check(f"phase{phase} lookup{suffix} bit-exact",
-          torch.equal(kout[0], pout[0]) and torch.equal(kout[1], pout[1]))
-    del kout, pout
+          torch.equal(kout[0], pout[0]) and torch.equal(kout[1], pout[1])
+          and torch.equal(kslot, pout[2]))
+    del kout, pout, kslot
+    # the absent keys: each walk ends after its first window holding an
+    # EMPTY
+    abs_t, kout = timed(torch, lambda: lookup(*planes(built_k), absent, **kw))
+    abs_p_t, pout = timed(torch, lambda: ops.lookup_plain(
+        *planes(built_k), absent, slots=True, **kw), reps=1, warmup=0)
+    kslot = lookup(*planes(built_k), absent, slots=True, **kw)[2]
+    check(f"phase{phase} absent lookup{suffix} bit-exact",
+          torch.equal(kout[0], pout[0]) and torch.equal(kout[1], pout[1])
+          and torch.equal(kslot, pout[2]))
+    check(f"phase{phase} absent lookup{suffix} none found",
+          not bool(kout[1].any()))
+    del kout, pout, kslot
     windows, p1 = walk_windows(torch, planes(built_k)[0], keys, kw["seed"],
                                kw["scheme"], kw["max_probes"])
+    abs_windows, abs_p1 = walk_windows(torch, planes(built_k)[0], absent,
+                                       kw["seed"], kw["scheme"],
+                                       kw["max_probes"])
     del built_k
     # each walk's windows (128-byte lines of plane 0) + the plane-1 sectors
     # it reads + the value's 32-byte sector; a claim also writes its slot's
@@ -762,6 +784,10 @@ def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
                  + N_MAIN * (32 * key_words + 4 * key_words + 8))
     look_bytes = (windows * win_bytes + p1 * 32
                   + N_MAIN * (32 + 4 * key_words + 5))
+    # an absent key reads no value sector
+    n_abs = absent.shape[0]
+    abs_bytes = (abs_windows * win_bytes + abs_p1 * 32
+                 + n_abs * (4 * key_words + 5))
     # the upsert: the walks to each match + the value's written sector +
     # the streams (key, value, status)
     ups_bytes = (windows * win_bytes + p1 * 32
@@ -776,7 +802,11 @@ def single_value_kernels(torch, card, check, phase, keys, vals, kw, fresh,
           f"{ups_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; the kernels of one "
           f"{split}; cops_lookup{suffix} {spread(look_t)}, plain "
           f"{look_p_t[0]:.3f} ms, bound "
-          f"{look_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card {card}",
+          f"{look_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; of {n_abs} absent "
+          f"keys (windows per walk {abs_windows / n_abs:.4f}"
+          f"{f', plane-1 sectors per walk {abs_p1 / n_abs:.4f}' if key_words == 2 else ''}"
+          f") {spread(abs_t)}, plain {abs_p_t[0]:.3f} ms, bound "
+          f"{abs_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card {card}",
           flush=True)
     return [kernel_record("cops_insert" + suffix, launches, ins_err, ins_t,
                           ins_p_t, ins_bytes, elements=N_MAIN),
@@ -2378,8 +2408,9 @@ def flash_cases(torch, check, phase):
 
 
 def upsert_launches(key_words) -> str:
-    """Phases 4 and 11: the kernels of one build and of one upsert of every
-    key at the main path's shape, by device time, as a child process
+    """Phases 4 and 11: the kernels of one build, of one upsert of every
+    key and of one lookup of every key and of N_SIDE absent keys at the
+    main path's shape, by device time, as a child process
     (``python3 chip_smoke.py --upsert-launches KEY_WORDS``) names them.
     The profiler sees the card's kernels in a process's first sessions,
     but not after it has run the card for a while since one (it then
@@ -2398,15 +2429,18 @@ def upsert_launches(key_words) -> str:
 def upsert_launches_main(key_words) -> int:
     """The child of ``upsert_launches``: N_MAIN distinct keys of
     ``key_words`` words into ``create(N_MAIN / RHO)``, W = 32, cops, once
-    as the build and once as the upsert of every key, each profiled."""
+    as the build and once as the upsert of every key, then the lookup of
+    every key and of the main path's absent keys, each profiled."""
     import torch
     sys.path.insert(0, str(HERE / "src"))
     from repro_torch.core import bulk, single_value as sv
     from repro_torch.kernels.cops import contract, ops
     if key_words == 1:
         keys = contract.distinct_keys(0, N_MAIN, "cuda")
+        absent = contract.distinct_keys(N_MAIN + 2, N_SIDE, "cuda")
     else:
         keys = contract.distinct_keys64(0, N_MAIN, "cuda")
+        absent = contract.distinct_keys64(2 * N_MAIN, N_SIDE, "cuda")
     vals = contract.values_for(keys, 1)
     table = sv.create(int(N_MAIN / RHO), window=WINDOW, device="cuda",
                       key_words=key_words)
@@ -2414,11 +2448,15 @@ def upsert_launches_main(key_words) -> int:
               max_probes=bulk._tstatic(table)[3])
     planes = contract.table_planes(table)
     insert = ops.insert if key_words == 1 else ops.insert64
+    lookup = ops.lookup if key_words == 1 else ops.lookup64
     build = device_kernels(torch, lambda: insert(*planes, keys, vals,
                                                  count=0, **kw))
     upsert = device_kernels(torch, lambda: insert(*planes, keys, vals,
                                                   count=N_MAIN, **kw))
-    print(f"build: {build}; of one upsert of every key: {upsert}",
+    present = device_kernels(torch, lambda: lookup(*planes, keys, **kw))
+    gone = device_kernels(torch, lambda: lookup(*planes, absent, **kw))
+    print(f"build: {build}; of one upsert of every key: {upsert}; of one "
+          f"lookup of every key: {present}; of {N_SIDE} absent keys: {gone}",
           flush=True)
     return 0
 
@@ -2556,8 +2594,8 @@ def main() -> int:
     absent = contract.distinct_keys(N_MAIN + 2, N_SIDE, dev)
     launches, kw, fresh = single_value_path(torch, card, check, 3, keys, vals,
                                             absent)
-    records = single_value_kernels(torch, card, check, 4, keys, vals, kw,
-                                   fresh, launches)
+    records = single_value_kernels(torch, card, check, 4, keys, vals, absent,
+                                   kw, fresh, launches)
     del keys, vals, absent
 
     # -- phases 5-7: the u32 multi-value path (fig7 wc-oa, r = 8) ----------
@@ -2580,13 +2618,12 @@ def main() -> int:
     absent = contract.distinct_keys64(2 * N_MAIN, N_SIDE, dev)
     sv_launches, sv_kw, sv_fresh = single_value_path(
         torch, card, check, 9, keys, vals, absent)
-    del absent
     pool = contract.distinct_keys64(0, n_keys + N_MV_ABSENT, dev)
     mv_launches, mv_kw, mv_fresh, mkeys, mvals = multi_value_path(
         torch, card, check, 10, pool[:n_keys], pool[n_keys:])
     records += single_value_kernels(torch, card, check, 11, keys, vals,
-                                    sv_kw, sv_fresh, sv_launches)
-    del keys, vals
+                                    absent, sv_kw, sv_fresh, sv_launches)
+    del keys, vals, absent
     records += multi_value_kernels(torch, card, check, 11, pool[:n_keys],
                                    mkeys, mvals, mv_kw, mv_fresh, mv_launches)
     del pool, mkeys, mvals

@@ -24,6 +24,13 @@ The single-value insert (``check_insert``):
 ``run_case`` holds it at a table's scale, ``run_insert_race_case`` where
 every key starts its walk on one row, so that the claims race.
 
+The lookup writes nothing, so ``cops_lookup`` / ``cops_lookup64`` are held
+bit-exact to ``lookup_plain`` (values, found and slots): after every batch
+of the cases above, and in ``run_lookup_case`` where walks are long and
+cut short — a table near full, whole windows of tombstones to step past,
+budgets of one and two windows, sentinel words as queries, and batches
+smaller than a warp's keys.
+
 The multi-value append (``check_append``):
 
 1. the same multiset of live (key, value) pairs;
@@ -95,6 +102,8 @@ LAYOUT_SEED = 19   # "shuffled": the permutation's seed
 FULL_LOAD = 0.85   # the near-full case's fill, and its budget in windows:
 FULL_PROBES = 2
 FULL_RUNS = 64     # and the most runs it appends
+LOOKUP_LOAD = 0.97      # the lookup case's fill, and the small budgets
+LOOKUP_BUDGETS = (1, 2)  # (windows) it walks with beside the table's
 
 
 def twin(fn, table_keys):
@@ -121,6 +130,12 @@ def _live_slots(table_keys):
     plane0 = ops._planes(table_keys)[0].reshape(-1)
     return torch.nonzero((plane0 != EMPTY_WORD)
                          & (plane0 != TOMBSTONE_WORD)).squeeze(1)
+
+
+def _tombstone(planes, slots):
+    """Write TOMBSTONE into every key plane at the flat ``slots``."""
+    kps = ops._planes(planes)
+    kps.view(kps.shape[0], -1)[:, slots] = TOMBSTONE_WORD
 
 
 def _lexsort(keys, values):
@@ -448,8 +463,7 @@ def run_case(n: int, *, window: int, scheme: str, device, rho: float = 0.9,
     gone = keys[: n // 8]
     for planes in (kernel, plain):
         _, found, slot = ops.lookup_plain(*planes, gone, slots=True, **kw)
-        kps = ops._planes(planes[0])
-        kps.view(kps.shape[0], -1)[:, slot[found]] = TOMBSTONE_WORD
+        _tombstone(planes[0], slot[found])
     count -= gone.shape[0]
     batch = torch.cat([keys[n // 8: n // 8 + m], new])
     dups = batch.shape[0] // 8
@@ -533,9 +547,125 @@ def run_insert_race_case(*, window: int, device, key_words: int = 1,
                 for planes in (kernel, plain):
                     _, f, slot = ops.lookup_plain(planes[0], None, gone,
                                                   slots=True, **kw)
-                    kps = ops._planes(planes[0])
-                    kps.view(kps.shape[0], -1)[:, slot[f]] = TOMBSTONE_WORD
+                    _tombstone(planes[0], slot[f])
                 count = _live_slots(kernel[0]).shape[0]
+    return checks
+
+
+def _sentinel_queries(key_words: int, device) -> torch.Tensor:
+    """Queries made of the sentinel words: EMPTY and TOMBSTONE as 1-word
+    keys; as two-word keys, either one on plane 0 with EMPTY, TOMBSTONE or
+    0 on plane 1."""
+    s = torch.tensor([EMPTY_WORD, TOMBSTONE_WORD], dtype=torch.int64)
+    if key_words == 2:
+        hi = torch.tensor([EMPTY_WORD, TOMBSTONE_WORD, 0], dtype=torch.int64)
+        s = torch.stack([s.repeat_interleave(3), hi.repeat(2)], dim=1)
+    return as_word(s).to(device)
+
+
+def _passes_tombstones(planes, keys, found, slot, *, seed, scheme,
+                       max_probes):
+    """Does the walk of a found key read a window that holds only
+    TOMBSTONEs before the window of its match?"""
+    plane0 = ops._planes(planes)[0]
+    num_rows, window = plane0.shape
+    dead = (plane0 == TOMBSTONE_WORD).all(dim=1)
+    words = key_hash_word(keys)
+    row = probing.initial_row(words, num_rows, seed)
+    step = probing.row_step(scheme, words, num_rows, seed)
+    walking = found.clone()
+    target = torch.where(found, slot // window, -1)
+    passed = torch.zeros_like(found)
+    for _ in range(max_probes):
+        walking &= row != target
+        passed |= walking & dead[row]
+        if not bool(walking.any()):
+            break
+        row = probing.advance_row(row, step, num_rows)
+    return passed
+
+
+def run_lookup_case(*, window: int, scheme: str = "cops", device,
+                    key_words: int = 1, capacity: int = 1 << 12,
+                    batch: int | None = None,
+                    seed: int = 0x9E3779B9) -> dict[str, bool]:
+    """Hold ``cops_lookup`` / ``cops_lookup64`` (on the CPU, whatever the
+    wrapper runs) bit-exact against ``lookup_plain`` — values, found and
+    slots — where walks are long and cut short.
+
+    A table of ``capacity`` slots is filled by ``insert_plain`` to
+    ``LOOKUP_LOAD`` of its capacity (keys that find no free lane within the
+    budget stay out); then every third row that holds no EMPTY lane is
+    tombstoned whole (a window of TOMBSTONEs only, which a walk steps
+    past), and one in eight of the other keys is erased.  The queries:
+    every key of the fill (present, erased or left out), as many absent
+    keys, and ``_sentinel_queries``; with ``batch``, only ``batch`` keys,
+    a present key and an absent one in turn.  Each is looked up with the
+    table's budget and with budgets of ``LOOKUP_BUDGETS`` windows, on a
+    value plane and on none (a hash set), with slots and without.
+
+    Returns ``{check: holds}``: each lookup bit-exact (``exact_*``); and,
+    without ``batch``, that the case reaches what it is for: a walk that
+    steps past a TOMBSTONE-only window to its match, a walk that a small
+    budget ends before the match the table's budget finds, a sentinel
+    query that is found.
+    """
+    from repro_torch.core import single_value
+    table = single_value.create(capacity, window=window, scheme=scheme,
+                                seed=seed, device=device, key_words=key_words)
+    planes = table_planes(table)
+    budget = bulk._tstatic(table)[3]
+    n = int(table.capacity * LOOKUP_LOAD)
+    pool = case_keys(key_words, 2 * n, device)
+    keys, absent = pool[:n], pool[n:]
+    ops.insert_plain(*planes, keys, values_for(keys, 1), count=0,
+                     seed=seed, scheme=scheme, max_probes=budget)
+    plane0 = ops._planes(planes[0])[0]
+    full_rows = torch.nonzero(~(plane0 == EMPTY_WORD).any(dim=1)).squeeze(1)
+    dead = full_rows[::3]
+    slots = (dead[:, None] * window
+             + torch.arange(window, device=device)).reshape(-1)
+    _tombstone(planes[0], slots)
+    _, found, slot = ops.lookup_plain(planes[0], None, keys[::8], slots=True,
+                                      seed=seed, scheme=scheme,
+                                      max_probes=budget)
+    _tombstone(planes[0], slot[found])
+    if batch:
+        live = ops.lookup_plain(planes[0], None, keys, seed=seed,
+                                scheme=scheme, max_probes=budget)[1]
+        pick = torch.stack([keys[live][:batch], absent[:batch]], dim=1)
+        queries = pick.reshape(-1, *keys.shape[1:])[:batch]
+    else:
+        sentinels = _sentinel_queries(key_words, device)
+        queries = torch.cat([keys, absent, sentinels])
+    lookup = twin(ops.lookup, planes[0])
+    checks = {}
+    for probes in (budget, *LOOKUP_BUDGETS):
+        kw = dict(seed=seed, scheme=scheme, max_probes=probes)
+        for values in (planes[1], None):
+            for with_slots in (True, False):
+                got = lookup(planes[0], values, queries, slots=with_slots,
+                             **kw)
+                want = ops.lookup_plain(planes[0], values, queries,
+                                        slots=with_slots, **kw)
+                tag = (f"exact_b{probes}_"
+                       f"{'set' if values is None else 'values'}_"
+                       f"{'slots' if with_slots else 'noslots'}")
+                checks[tag] = all(
+                    (a is None and b is None) or (
+                        a is not None and b is not None and torch.equal(a, b))
+                    for a, b in zip(got, want))
+    if batch:
+        return checks
+    kw = dict(seed=seed, scheme=scheme)
+    _, found, slot = ops.lookup_plain(planes[0], None, queries, slots=True,
+                                      max_probes=budget, **kw)
+    short = ops.lookup_plain(planes[0], None, queries,
+                             max_probes=LOOKUP_BUDGETS[0], **kw)[1]
+    checks["reaches_past_tombstones"] = bool(_passes_tombstones(
+        planes[0], queries, found, slot, max_probes=budget, **kw).any())
+    checks["reaches_the_budget"] = bool((found & ~short).any())
+    checks["reaches_a_sentinel"] = bool(found[-sentinels.shape[0]:].any())
     return checks
 
 
@@ -663,8 +793,7 @@ def run_update_case(n: int, *, window: int, scheme: str, device,
     for planes in (kernel, plain):
         _, found, slot = ops.lookup_plain(planes[0], None, gone, slots=True,
                                           **kw)
-        kps = ops._planes(planes[0])
-        kps.view(kps.shape[0], -1)[:, slot[found]] = TOMBSTONE_WORD
+        _tombstone(planes[0], slot[found])
         if what == "counting":
             slot = ops.lookup_plain(planes[0], None, hot, slots=True, **kw)[2]
             planes[1].view(-1)[slot] = as_word(

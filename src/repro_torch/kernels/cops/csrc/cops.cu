@@ -50,18 +50,19 @@
 //     32-lane chunks;
 //   - at W < 32 one group of G = W lanes walks one key, so a warp walks
 //     32 / W keys at once, each group voting on its own lanes;
-//   - at W >= 32 the upsert, the update and both two-plane passes
-//     (walk_kernel) walk K = kWalkKeys keys a warp: lane j holds key j's
-//     walk state, and each round reads the current chunk of every walking
-//     key's window, all K loads issued before the first ballot, so a warp
-//     keeps K chains of dependent reads in flight where it kept one.  The
-//     lookup, the retrieve and the append (one run of equal keys, below)
-//     still walk one key a warp there;
+//   - at W >= 32 the upsert, the update, both two-plane passes
+//     (walk_kernel) and the lookup (lookup_walk_kernel) walk K = kWalkKeys
+//     keys a warp: lane j holds key j's walk state, and each round
+//     (window_round, one function for all of them) reads the current
+//     chunk of every walking key's window, all K loads issued before the
+//     first ballot, so a warp keeps K chains of dependent reads in flight
+//     where it kept one.  The retrieve and the append (one run of equal
+//     keys, below) still walk one key a warp there;
 //   - thousands of walks are in flight per SM (8 warps per block, no
 //     shared memory) to hide the latency of the dependent loads;
 //   - the key, value and status streams are read and written once,
-//     coalesced, by lane 0 of each group (walk_kernel: lane j for key j;
-//     the append: by every lane).
+//     coalesced, by lane 0 of each group (walk_kernel and
+//     lookup_walk_kernel: lane j for key j; the append: by every lane).
 //
 // The u32 insert takes DISTINCT keys (the caller's dedup front end): a key
 // absent at the start of the batch can then be claimed by no other group,
@@ -89,9 +90,10 @@
 // reused TOMBSTONE (plane 1 has no sentinel restriction, so a user key may
 // hold either).  X would overwrite Y's value, report UPDATED, and be lost.
 // So cops_insert64 runs two passes over the DISTINCT keys:
-//   1. the match walk (the lookup's): read-only on the key planes as they
-//      were before the batch, it writes the value of every key found and
-//      marks it UPDATED;
+//   1. the match walk: read-only on the key planes as they were before
+//      the batch (the lookup walks the same rounds and reads the value
+//      where this pass writes it), it writes the value of every key found
+//      and marks it UPDATED;
 //   2. the claim walk of the keys not found: it reads only
 //      plane 0, for free lanes, and claims the lowest free lane of the
 //      first window that has one with the CAS on plane 0, then writes
@@ -833,9 +835,93 @@ __device__ __forceinline__ uint32_t row_at(const Walk& w, uint32_t word,
                     w.num_rows);
 }
 
+// What one round of a K-key walk (below) tells lane j of key j's window.
+struct Round {
+  int mlane;       // the lowest lane holding the key (MATCH), -1 if none
+  int flane;       // the lowest EMPTY / TOMBSTONE lane (CLAIM), -1 if none
+  bool ftomb;      // ... which held a TOMBSTONE
+  bool any_empty;  // the window holds an EMPTY
+};
+
+// One round of the walks at W >= 32, walk_kernel's and
+// lookup_walk_kernel's: lane j < K holds key j (its words k0, k1 and its
+// current row), and `act` has bit j set while key j walks (the same in
+// every lane).  The round reads the window of every walking key, chunk by
+// 32-lane chunk, all K loads of a chunk issued before the first ballot,
+// so that a warp keeps K chains of dependent reads in flight.  A
+// two-plane MATCH reads plane 1 only in the lanes whose plane 0 holds the
+// key's low word (a 32-byte sector).  The whole window is read before any
+// verdict, so a match in a later chunk wins over an EMPTY in an earlier
+// one, and the lowest matching lane of the window is the one returned.
+template <int KW, int K, bool MATCH, bool CLAIM>
+__device__ __forceinline__ Round window_round(const uint32_t* tk,
+                                              const Walk& w, unsigned act,
+                                              uint32_t row, uint32_t k0,
+                                              uint32_t k1) {
+  const int lane = threadIdx.x & 31;
+  Round r = {-1, -1, false, false};
+  for (uint32_t c = 0; c < w.window; c += 32) {
+    uint32_t x[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const uint32_t rj = __shfl_sync(kAll, row, j);
+      if ((act >> j) & 1u) {
+        const uint32_t* at = tk + (size_t)rj * w.window + c + lane;
+        // the walks that claim nothing read planes no one writes
+        x[j] = CLAIM ? load_volatile(at) : __ldg(at);
+      }
+    }
+    // the votes on plane 0, after which x is dead (a two-plane match
+    // pass then holds its plane-1 words in its registers instead)
+    unsigned hit = 0;  // bit j: this lane holds key j (plane 0 alone)
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (!((act >> j) & 1u)) continue;  // the same in every lane
+      if (MATCH) hit |= (unsigned)(x[j] == __shfl_sync(kAll, k0, j)) << j;
+      const unsigned eb = __ballot_sync(kAll, x[j] == kEmpty);
+      const unsigned fb =
+          CLAIM ? eb | __ballot_sync(kAll, x[j] == kTombstone) : 0u;
+      if (lane == j) {
+        if (r.flane < 0 && fb) {
+          const int f = __ffs(fb) - 1;
+          r.flane = (int)c + f;
+          r.ftomb = !((eb >> f) & 1u);
+        }
+        r.any_empty |= eb != 0;
+      }
+    }
+    if (MATCH && KW == 2) {
+      // plane 1 only where plane 0 holds the key's low word: a sector
+      uint32_t y[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (!((act >> j) & 1u)) continue;
+        const uint32_t rj = __shfl_sync(kAll, row, j);
+        if ((hit >> j) & 1u)
+          y[j] = __ldg(tk + w.plane + (size_t)rj * w.window + c + lane);
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (!((act >> j) & 1u)) continue;
+        const uint32_t kj = __shfl_sync(kAll, k1, j);
+        if (((hit >> j) & 1u) && y[j] != kj) hit &= ~(1u << j);
+      }
+    }
+    if (MATCH) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if (!((act >> j) & 1u)) continue;
+        const unsigned mb = __ballot_sync(kAll, (hit >> j) & 1u);
+        if (lane == j && r.mlane < 0 && mb)
+          r.mlane = (int)c + __ffs(mb) - 1;
+      }
+    }
+  }
+  return r;
+}
+
 // The walk at W >= 32 (see the header): a warp walks K keys of the batch,
-// lane j < K holding key j's walk.  Each round reads the current window of
-// every key still walking, all K loads issued before the first ballot.
+// lane j < K holding key j's walk, a window_round for each window.
 // With MATCH a key leaves its walk at a lane holding it (store or fold its
 // values: UPDATED) or after a window holding an EMPTY, and with CLAIM as
 // well it remembers its earliest free lane on the way; with CLAIM alone
@@ -888,79 +974,22 @@ __global__ void walk_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
   bool walking = out == -1;
   unsigned act;
   while ((act = __ballot_sync(kAll, walking)) != 0) {
-    int mlane = -1, flane = -1;
-    bool ftomb = false;
-    bool any_empty = false;
-    for (uint32_t c = 0; c < w.window; c += 32) {
-      uint32_t x[K];
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const uint32_t rj = __shfl_sync(kAll, row, j);
-        if ((act >> j) & 1u) {
-          const uint32_t* at = tk + (size_t)rj * w.window + c + lane;
-          // pass 1 reads key planes that no one writes while it runs
-          x[j] = CLAIM ? load_volatile(at) : __ldg(at);
-        }
-      }
-      // the votes on plane 0, after which x is dead (a two-plane match
-      // pass then holds its plane-1 words in its registers instead)
-      unsigned hit = 0;  // bit j: this lane holds key j (plane 0 alone)
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        if (!((act >> j) & 1u)) continue;  // the same in every lane
-        if (MATCH) hit |= (unsigned)(x[j] == __shfl_sync(kAll, k0, j)) << j;
-        const unsigned eb = __ballot_sync(kAll, x[j] == kEmpty);
-        const unsigned fb =
-            CLAIM ? eb | __ballot_sync(kAll, x[j] == kTombstone) : 0u;
-        if (lane == j) {
-          if (flane < 0 && fb) {
-            const int f = __ffs(fb) - 1;
-            flane = (int)c + f;
-            ftomb = !((eb >> f) & 1u);
-          }
-          any_empty |= eb != 0;
-        }
-      }
-      if (MATCH && KW == 2) {
-        // plane 1 only where plane 0 holds the key's low word: a sector
-        uint32_t y[K];
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          if (!((act >> j) & 1u)) continue;
-          const uint32_t rj = __shfl_sync(kAll, row, j);
-          if ((hit >> j) & 1u)
-            y[j] = __ldg(tk + w.plane + (size_t)rj * w.window + c + lane);
-        }
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          if (!((act >> j) & 1u)) continue;
-          const uint32_t kj = __shfl_sync(kAll, k1, j);
-          if (((hit >> j) & 1u) && y[j] != kj) hit &= ~(1u << j);
-        }
-      }
-      if (MATCH) {
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          if (!((act >> j) & 1u)) continue;
-          const unsigned mb = __ballot_sync(kAll, (hit >> j) & 1u);
-          if (lane == j && mlane < 0 && mb) mlane = (int)c + __ffs(mb) - 1;
-        }
-      }
-    }
+    const Round r =
+        window_round<KW, K, MATCH, CLAIM>(tk, w, act, row, k0, k1);
     if (!walking) continue;
-    if (mlane >= 0) {
+    if (r.mlane >= 0) {
       vals.matched(vals.load(key_index<K>()),
-                   (size_t)row * w.window + mlane);
+                   (size_t)row * w.window + r.mlane);
       out = kMatched;
       walking = false;
       continue;
     }
-    if (out < 0 && flane >= 0) {
-      out = flane;
+    if (out < 0 && r.flane >= 0) {
+      out = r.flane;
       cand_attempt = attempt;
-      cand_tomb = ftomb;
+      cand_tomb = r.ftomb;
     }
-    if ((MATCH ? any_empty : out >= 0) || ++attempt >= budget)
+    if ((MATCH ? r.any_empty : out >= 0) || ++attempt >= budget)
       walking = false;
     else
       row = next_row(w, row, row_step(w, probe_word<KW>(k0, k1)));
@@ -1023,6 +1052,61 @@ lookup_kernel(const uint32_t* __restrict__ tk, const uint32_t* __restrict__ tv,
   const Group g = make_group(G);
   const long long hit = find<KW>(tk, w, g, load_key<KW>(keys, q));
   if (g.lane == 0) {
+    if (VALUES) out[q] = hit >= 0 ? __ldg(tv + hit) : 0u;
+    found[q] = hit >= 0;
+    if (slot_out) slot_out[q] = hit;
+  }
+}
+
+// The lookup at W >= 32 (see the header): a warp walks K keys, lane j < K
+// holding key j's walk, through the rounds of the two-plane match pass
+// (window_round<KW, K, true, false>).  A walk ends at the lowest lane of a
+// window holding its key, after a window holding an EMPTY (a TOMBSTONE
+// does not stop it), or at the budget, clamped to num_rows as walk_kernel
+// clamps it: a read-only walk that has read num_rows windows has read
+// every row of its cycle.  Lane j then reads key j's value sector where it
+// matched and writes key j's outputs.  VALUES as for lookup_kernel.
+template <int KW, bool VALUES, int K>
+__global__ void lookup_walk_kernel(const uint32_t* __restrict__ tk,
+                                   const uint32_t* __restrict__ tv,
+                                   const uint32_t* __restrict__ keys,
+                                   uint32_t* __restrict__ out,
+                                   bool* __restrict__ found,
+                                   long long* __restrict__ slot_out,
+                                   long long n, Walk w) {
+  static_assert(K >= 1 && K <= 32, "a lane per key");
+  const int lane = threadIdx.x & 31;
+  if (key_index<K>() - lane >= n) return;  // whole warps leave together
+  const bool mine = lane < K && key_index<K>() < n;
+  uint32_t k0 = 0, k1 = 0, row = 0;
+  if (mine) {
+    const Key k = load_key<KW>(keys, key_index<K>());
+    k0 = k.k0;
+    k1 = k.k1;
+    row = first_row(w, k.word);
+  }
+  const int budget =
+      (int)(w.max_probes < (long long)w.num_rows ? w.max_probes
+                                                 : w.num_rows);
+  int attempt = 0, mlane = -1;
+  bool walking = mine && budget > 0;
+  unsigned act;
+  while ((act = __ballot_sync(kAll, walking)) != 0) {
+    const Round r = window_round<KW, K, true, false>(tk, w, act, row, k0, k1);
+    if (!walking) continue;
+    if (r.mlane >= 0) {
+      mlane = r.mlane;
+      walking = false;
+    } else if (r.any_empty || ++attempt >= budget) {
+      walking = false;
+    } else {
+      row = next_row(w, row, row_step(w, probe_word<KW>(k0, k1)));
+    }
+  }
+  if (mine) {
+    const long long q = key_index<K>();
+    const long long hit =
+        mlane >= 0 ? (long long)row * w.window + mlane : -1;
     if (VALUES) out[q] = hit >= 0 ? __ldg(tv + hit) : 0u;
     found[q] = hit >= 0;
     if (slot_out) slot_out[q] = hit;
@@ -1121,6 +1205,22 @@ unsigned walk_blocks(long long n) {
 }
 
 
+// The lookup of n keys: at W >= 32 lookup_walk_kernel, kWalkKeys keys a
+// warp; below, lookup_kernel, 32 / W keys a warp.
+template <int KW, bool VALUES>
+void lookup_launch(const Walk& w, const uint32_t* tk, const uint32_t* tv,
+                   const uint32_t* keys, uint32_t* values, bool* found,
+                   long long* slots, long long n, cudaStream_t stream) {
+  if (w.window >= 32)
+    lookup_walk_kernel<KW, VALUES, kWalkKeys>
+        <<<walk_blocks(n), kThreads, 0, stream>>>(tk, tv, keys, values,
+                                                  found, slots, n, w);
+  else
+    lookup_kernel<KW, VALUES><<<blocks_for(n, w.window), kThreads, 0,
+                                stream>>>(tk, tv, keys, values, found, slots,
+                                          n, w);
+}
+
 template <int KW>
 int lookup(const void* table_keys, const void* table_values, const void* keys,
            void* values, void* found, void* slots, long long n,
@@ -1128,17 +1228,10 @@ int lookup(const void* table_keys, const void* table_values, const void* keys,
            long long max_probes, void* stream) {
   if (n <= 0) return 0;
   const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
-  if (table_values)
-    lookup_kernel<KW, true><<<blocks_for(n, window), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-        (const uint32_t*)table_keys, (const uint32_t*)table_values,
-        (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
-        (long long*)slots, n, w);
-  else
-    lookup_kernel<KW, false><<<blocks_for(n, window), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-        (const uint32_t*)table_keys, nullptr, (const uint32_t*)keys,
-        nullptr, (bool*)found, (long long*)slots, n, w);
+  (table_values ? lookup_launch<KW, true> : lookup_launch<KW, false>)(
+      w, (const uint32_t*)table_keys, (const uint32_t*)table_values,
+      (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
+      (long long*)slots, n, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -343,6 +343,46 @@ def test_insert_race_case_catches_a_lost_value(monkeypatch):
     assert checks["batch1_same_status"], checks
 
 
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", [4, 32, 128])
+def test_lookup_case_runs_on_cpu(window, scheme, key_words):
+    """The card's lookup case (a table near full with TOMBSTONE-only
+    windows, budgets of 1 and 2 windows, sentinel queries), run where both
+    sides are the plain versions: every lookup agrees, and the case
+    reaches the walks it is for."""
+    checks = contract.run_lookup_case(window=window, scheme=scheme,
+                                      device="cpu", key_words=key_words)
+    assert len(checks) == 15 and all(checks.values()), checks
+
+
+@pytest.mark.parametrize("fault", ["slot", "budget"])
+def test_lookup_case_catches_a_wrong_lookup(monkeypatch, fault):
+    """The lookup case fails when the lookup reports a found key one lane
+    off ("slot": only the checks with slots fail), or walks past a budget
+    of one window ("budget": only the checks at small budgets fail)."""
+    real = ops.lookup
+
+    def lookup(table_keys, table_values, keys, *, max_probes, slots=False,
+               **kw):
+        if fault == "budget":
+            max_probes = max(max_probes, 3)
+        values, found, slot = real(table_keys, table_values, keys,
+                                   max_probes=max_probes, slots=slots, **kw)
+        if fault == "slot" and slot is not None:
+            slot = torch.where(found, slot ^ 1, slot)
+        return values, found, slot
+
+    monkeypatch.setattr(ops, "lookup", lookup)
+    checks = contract.run_lookup_case(window=32, device="cpu")
+    bad = {k for k, ok in checks.items() if not ok}
+    if fault == "slot":
+        assert bad == {k for k in checks if k.endswith("_slots")}, checks
+    else:
+        assert bad and all(k.startswith(("exact_b1_", "exact_b2_"))
+                           for k in bad), checks
+
+
 #: every window and scheme in Fig. 7's layout (the ids these cases always
 #: had), the other layouts at W = 2, 32 and 128
 _MULTI_CPU_CASES = (

@@ -541,6 +541,47 @@ def test_insert_batch_sizes_around_the_walks_keys(batch, key_words):
         assert all(checks.values()), (values, checks)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", [4, 32, 128])
+def test_lookup_holds_to_plain_on_long_and_cut_walks(window, scheme,
+                                                     key_words):
+    """``cops_lookup`` / ``cops_lookup64`` bit-exact against
+    ``lookup_plain`` (values, found, slots) on a table near full with
+    TOMBSTONE-only windows, at the table's budget and at budgets of 1 and
+    2 windows, with sentinel words as queries, on a value plane and on
+    none (``contract.run_lookup_case``); all 12 lookups launch the
+    kernel."""
+    _need_card()
+    ops.reset_launches()
+    checks = contract.run_lookup_case(window=window, scheme=scheme,
+                                      device="cuda", key_words=key_words)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+    name = "cops_lookup" if key_words == 1 else "cops_lookup64"
+    assert ops.LAUNCHES[name] == 12, ops.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [32, 64, 128])
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 33])
+def test_lookup_batch_sizes_around_the_walks_keys(batch, key_words, window):
+    """At W >= 32 a warp walks 8 keys: lookups of 1, 7, 8, 9 and 33 keys
+    (partial warps, a warp with one key), a present key and an absent one
+    in turn, bit-exact against ``lookup_plain`` with and without a value
+    plane and slots, at three budgets (``contract.run_lookup_case``)."""
+    _need_card()
+    ops.reset_launches()
+    checks = contract.run_lookup_case(window=window, device="cuda",
+                                      key_words=key_words, batch=batch)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+    name = "cops_lookup" if key_words == 1 else "cops_lookup64"
+    assert ops.LAUNCHES[name] == 12, ops.LAUNCHES
+
+
 def _same_rows(a, b):
     """A join's output rows as (probe_idx, build_idx) pairs, sorted: the
     card's append may place a key's pairs in another order."""

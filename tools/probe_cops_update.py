@@ -8,22 +8,25 @@ Builds variants of ``src/repro_torch/kernels/cops/csrc/cops.cu`` that
 differ from the source in one choice each, into ``build/probe/``:
 
 - ``kWalkKeys`` (K, the keys a warp walks at W >= 32 in the upsert, the
-  update and the two-plane passes) at 1, 2, 4, 8, 16;
-- "bounds": the walks (``walk_kernel``, ``upsert_kernel``) under
-  ``__launch_bounds__(kThreads)``, which the source leaves out;
+  update, the two-plane passes and the lookup) at 1, 2, 4, 8, 16;
+- "bounds": the walks (``walk_kernel``, ``upsert_kernel``,
+  ``lookup_walk_kernel``) under ``__launch_bounds__(kThreads)``, which
+  the source leaves out;
 - ``kSharedGroups`` (R) at 0, so every combine goes to device memory;
 - the combine's per-warp step: "match" folds the rows of each group that
   a warp holds first (``__match_any_sync``, then a warp reduction), "plain"
   never folds in the warp; the source folds only a warp whose rows all
   belong to one group.
 
-It prints ptxas's registers and spill bytes of every walk kernel of
-each variant.  Then it times, under the source, each K and "bounds",
-``ops.insert`` and ``ops.insert64`` at fig5's shape (``INSERT_KEYS``
-distinct keys into ``create(n / 0.9)``, W = 32, cops): the build into an
-empty table and the upsert of every key into the table it built, the
-two-plane upsert's two launches named with their times
-(``torch.profiler``).
+It prints ptxas's registers and spill bytes of every walk and lookup
+kernel of each variant.  Then it times, under the source, each K and
+"bounds", ``ops.insert`` and ``ops.insert64`` at fig5's shape
+(``INSERT_KEYS`` distinct keys into ``create(n / 0.9)``, W = 32, cops):
+the build into an empty table and the upsert of every key into the table
+it built, the two-plane upsert's two launches named with their times
+(``torch.profiler``); and ``ops.lookup`` / ``ops.lookup64`` on the table
+it built, of every key and of ``ABSENT_KEYS`` absent ones (as
+``chip_smoke.py`` phases 4 and 11 time them).
 Then it times ``ops.update`` (a sum of two value words, as the group-by's
 ``aggregate`` runs it) of 2^27 rows with keys uniform in [1, g] for each
 g of ``GROUPS`` into an empty table, under each variant that differs from
@@ -46,6 +49,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 N = 2 ** 27                    # fig9's rows (phase 17 of chip_smoke.py)
 INSERT_KEYS = 2 ** 28          # fig5's keys (phases 3 and 9 of chip_smoke.py)
+ABSENT_KEYS = 2 ** 24          # their absent lookups (N_SIDE there)
 GROUPS = (1, 64, 1024, 2 ** 14, 2 ** 16, 2 ** 25)
 KEYS = (1, 2, 4, 8, 16)
 # the per-warp step of the combine in the source, and the two it replaced
@@ -79,8 +83,9 @@ def variants(text):
         if k != keys:
             out[f"K={k}"] = re.sub(r"kWalkKeys = \d+;",
                                    f"kWalkKeys = {k};", text)
-    walks = re.compile(r"(\n__global__ void )((?:walk|upsert)_kernel\()")
-    assert len(walks.findall(text)) == 2, "the walks' declarations moved"
+    walks = re.compile(
+        r"(\n__global__ void )((?:walk|upsert|lookup_walk)_kernel\()")
+    assert len(walks.findall(text)) == 3, "the walks' declarations moved"
     out["bounds"] = walks.sub(r"\1__launch_bounds__(kThreads)\n\2", text)
     out["R=0"] = re.sub(r"kSharedGroups = \d+;", "kSharedGroups = 0;", text)
     assert STEP.search(text), "the combine's per-warp step moved"
@@ -93,14 +98,14 @@ def variants(text):
 
 def walk_registers(log):
     """``kernel<args> R registers, S bytes of spill stores`` for every walk
-    kernel in ptxas's ``-v`` report ``log``."""
+    and lookup kernel in ptxas's ``-v`` report ``log``."""
     out = []
     for name, spill, regs in re.findall(
             r"Compiling entry function '(\S+)'.*?\n.*?\n\s+\d+ bytes stack "
             r"frame, (\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
             log):
-        m = re.search(r"\d+((?:walk|upsert|match|claim)_kernel)I(.*?)EEvP",
-                      name)
+        m = re.search(r"\d+((?:lookup_walk|walk|upsert|match|claim|lookup)"
+                      r"_kernel)I(.*?)EEvP", name)
         if m:
             args = ", ".join(v for _, v in re.findall(r"L(i|b)(\d+)E",
                                                       m[2]))
@@ -184,8 +189,12 @@ def main() -> int:
     for key_words in (1, 2):
         if key_words == 1:
             keys = contract.distinct_keys(0, INSERT_KEYS, "cuda")
+            absent = contract.distinct_keys(INSERT_KEYS + 2, ABSENT_KEYS,
+                                            "cuda")
         else:
             keys = contract.distinct_keys64(0, INSERT_KEYS, "cuda")
+            absent = contract.distinct_keys64(2 * INSERT_KEYS, ABSENT_KEYS,
+                                              "cuda")
         vals = contract.values_for(keys, 1)
         table = single_value.create(int(INSERT_KEYS / 0.9), window=32,
                                     device="cuda", key_words=key_words)
@@ -193,6 +202,7 @@ def main() -> int:
                   max_probes=bulk._tstatic(table)[3])
         empty = contract.table_planes(table)
         insert = ops.insert if key_words == 1 else ops.insert64
+        lookup = ops.lookup if key_words == 1 else ops.lookup64
         for name, lib in libs.items():
             if name not in ("source", "bounds") and not name.startswith("K="):
                 continue
@@ -210,16 +220,25 @@ def main() -> int:
                 *planes, keys, vals, count=INSERT_KEYS, **kw))
             split = kernels_of(lambda: insert(*planes, keys, vals,
                                               count=INSERT_KEYS, **kw))
+            look_ms, lt = median_ms(lambda: lookup(*planes, keys, **kw))
+            gone_ms, gt = median_ms(lambda: lookup(*planes, absent, **kw))
+            found = lookup(*planes, keys, **kw)[1].all()
+            none = not lookup(*planes, absent, **kw)[1].any()
             print(f"insert fig5 u{32 * key_words} n={INSERT_KEYS} W=32 "
                   f"{name}: build {build_ms:.3f} ms (median of 5; min "
                   f"{min(bt):.3f}, max {max(bt):.3f}); upsert of every key "
                   f"{upsert_ms:.3f} ms (min {min(ut):.3f}, max {max(ut):.3f});"
                   f" the upsert's kernels: "
                   + "; ".join(f"{k} {v:.3f} ms"
-                              for k, v in sorted(split.items())),
+                              for k, v in sorted(split.items()))
+                  + f"; lookup of every key {look_ms:.3f} ms (min "
+                  f"{min(lt):.3f}, max {max(lt):.3f}; all found: "
+                  f"{bool(found)}), of {ABSENT_KEYS} absent keys "
+                  f"{gone_ms:.3f} ms (min {min(gt):.3f}, max {max(gt):.3f};"
+                  f" none found: {none})",
                   flush=True)
             del planes, built
-        del keys, vals, table, empty
+        del keys, absent, vals, table, empty
         torch.cuda.empty_cache()
 
     gen = torch.Generator(device="cuda")
