@@ -46,7 +46,13 @@ status line each:
    that meet no other key and go FULL partway in a near-full store with a
    budget of 2 windows, at W = 32 cops, W = 2 linear and W = 128 cops,
    where the append must build the plain version's store exactly
-   (``contract.run_full_case``);
+   (``contract.run_full_case``); and the retrieve walk bit-exact on long
+   and cut walks at W = 32, 64 and 128, cops and linear: runs of 1, 8 and
+   40 equal keys in a store near full of 2^14 slots, TOMBSTONE-only
+   windows, erased pairs, masks that leave whole groups of 8 queries
+   inactive, budgets of 1 and 2 windows, the table's, and num_rows + 3 on
+   a store with no EMPTY window, where walks revisit rows
+   (``contract.run_retrieve_case``);
 6. the multi-value main path, Fig. 7's wc-oa cell at r = 8: 2^28 pairs
    (2^25 distinct keys, 8 in a row, values 0 .. n-1) into
    ``multi_value.create(n / 0.8)``, W = 32, cops — insert, count_values,
@@ -60,13 +66,16 @@ status line each:
    at the same shape the append of 2^28 distinct keys (r = 1), of 2^23
    keys 32 times in a row (r = 32) and of phase 6's pairs shuffled (a
    permutation seeded through ``torch.Generator``), each timed with its
-   byte bound, all INSERTED and its live pairs the batch's;
+   byte bound, all INSERTED and its live pairs the batch's; the retrieve
+   also counts only, and the kernels of one collecting and one counting
+   retrieve named with their times by ``torch.profiler`` in a child
+   process (``--upsert-launches 1 retrieve``);
 8. the two-plane kernels vs plain at 2^20 two-word keys, a quarter of
    them sharing 2^10 plane-0 words, some with plane 1 at 0xFFFFFFFF /
    0xFFFFFFFE: phase 2's single-value cases with ``cops_insert64`` /
    ``cops_lookup64``, and phase 5's wc-oa r = 8 cases (every layout, the
-   keys sharing a plane-0 word side by side) and near-full cases with
-   ``cops_append64`` / ``cops_retrieve64``;
+   keys sharing a plane-0 word side by side), near-full cases and long and
+   cut retrieve walks with ``cops_append64`` / ``cops_retrieve64``;
 9. the u64 single-value main path: 2^28 distinct u64 keys (a bijective
    64-bit mix of ``arange``, ``contract.distinct_keys64``) into
    ``create(n / 0.9, key_words=2)``, W = 32, cops — insert, upsert,
@@ -84,7 +93,9 @@ status line each:
     ``torch.profiler`` as in phase 4; ``cops_lookup64`` of every key and
     of phase 9's absent keys, as in phase 4), compared and timed, with
     their byte bounds;
-    ``cops_append64`` also at r = 1, r = 32 and shuffled, as in phase 7;
+    ``cops_append64`` also at r = 1, r = 32 and shuffled, and
+    ``cops_retrieve64`` counts only and named by the profiler, as in
+    phase 7;
 12. ``cops_bucket_walk`` vs plain (identical arenas) on bucket lists of
     2^20 pairs for Fig. 7's wc-bl-1 (growth 1.1, s0 1) and wc-bl-2
     (growth 1.0, s0 r) at r = 1, 8, 32, with chains grown across two
@@ -240,6 +251,11 @@ MV_CASES = (("wc-oa", 32, "cops", 1, None, "runs"),
             ("wc-oa", 32, "cops", 100, None, "runs"),
             ("lp-oa", 1, "linear", 8, 8192, "runs"))
 FULL_CASES = ((32, "cops"), (2, "linear"), (128, "cops"))  # near-full
+# phases 5 and 8: the retrieve's long and cut walks (W, scheme), on stores
+# of RETRIEVE_CAPACITY slots (contract.run_retrieve_case)
+RETRIEVE_CASES = tuple((w, s) for w in (32, 64, 128)
+                       for s in ("cops", "linear"))
+RETRIEVE_CAPACITY = 2 ** 14
 # phases 2 and 8: (W, scheme) of the single-value kernel-vs-plain cases
 SINGLE_CASES = ((32, "cops"), (1, "cops"), (1, "linear"), (128, "linear"))
 R_WIDE = 32               # phase 7's r = 32 variant: 2^23 keys
@@ -576,7 +592,7 @@ def single_cases(torch, check, phase, key_words):
 
 def multi_cases(torch, check, phase, cases, key_words):
     """Phases 5 and 8: the multi-value kernels vs plain at N_CHECK pairs,
-    then the near-full cases."""
+    then the near-full cases and the retrieve's long and cut walks."""
     from repro_torch.kernels.cops import contract
     what = "kernel" if key_words == 1 else "64-bit kernel"
     for name, window, scheme, r, max_probes, layout in cases:
@@ -604,6 +620,23 @@ def multi_cases(torch, check, phase, cases, key_words):
         print(f"phase {phase} append {what} vs plain, runs going FULL "
               f"partway: W={window} {scheme} capacity ~{N_CHECK} budget "
               f"{contract.FULL_PROBES}: "
+              f"{'ok' if not bad else 'FAILED ' + str(bad)} "
+              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    for window, scheme in RETRIEVE_CASES:
+        t0 = time.perf_counter()
+        checks = contract.run_retrieve_case(window=window, scheme=scheme,
+                                            device="cuda",
+                                            key_words=key_words,
+                                            capacity=RETRIEVE_CAPACITY)
+        torch.cuda.synchronize()
+        tag = f"phase{phase} retrieve walks W={window} {scheme}"
+        bad = [k for k, ok in checks.items() if not check(f"{tag} {k}", ok)]
+        print(f"phase {phase} retrieve {what} vs plain, long and cut walks "
+              f"(runs of {'/'.join(map(str, contract.RETRIEVE_RUNS))}, "
+              f"TOMBSTONE-only windows, budgets 1 / 2 / table / num_rows + 3"
+              f", masked groups of 8): W={window} {scheme} capacity "
+              f"~{RETRIEVE_CAPACITY}: "
               f"{'ok' if not bad else 'FAILED ' + str(bad)} "
               f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
               flush=True)
@@ -929,7 +962,9 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
     shapes, compared and timed, with their byte bounds; also the append of
     N_MV pairs of N_MV distinct keys (r = 1), of N_MV / R_WIDE keys R_WIDE
     times in a row, and of the main path's pairs shuffled.  Returns their
-    two kernel records."""
+    two kernel records.  The launches of one collecting and one counting
+    retrieve are named with their times by ``torch.profiler`` in a child
+    process."""
     from repro_torch.core.common import EMPTY_WORD, STATUS_INSERTED
     from repro_torch.kernels.cops import contract, ops
     key_words, suffix = width(base)
@@ -1025,6 +1060,7 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
     cnt_bytes = walked * win_bytes + p1 * 32 + n_keys * (4 * key_words + 5)
     rw_bytes = cnt_bytes + ops._planes(mkp)[0].numel() * 8
     del mk_t, mkp
+    named = upsert_launches(key_words, "retrieve")
     print(f"phase {phase} {'64-bit ' if key_words == 2 else ''}multi-value "
           f"kernels at n={N_MV} pairs, {n_keys} queries: "
           f"{check.status(since)}; append windows per key "
@@ -1038,7 +1074,8 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
           f"cops_retrieve{suffix} collect {spread(rw_t)}, plain "
           f"{rw_p_t[0]:.3f} ms, bound {rw_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
           f" ms; counts only {spread(cnt_t)}, bound "
-          f"{cnt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; card {card}",
+          f"{cnt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; the kernels of one "
+          f"{named}; card {card}",
           flush=True)
     return [kernel_record("cops_append" + suffix, launches, app_err, app_t,
                           app_p_t, app_bytes, elements=N_MV),
@@ -2407,27 +2444,62 @@ def flash_cases(torch, check, phase):
     return max(e for e, _, _ in worst.values())
 
 
-def upsert_launches(key_words) -> str:
-    """Phases 4 and 11: the kernels of one build, of one upsert of every
-    key and of one lookup of every key and of N_SIDE absent keys at the
-    main path's shape, by device time, as a child process
-    (``python3 chip_smoke.py --upsert-launches KEY_WORDS``) names them.
-    The profiler sees the card's kernels in a process's first sessions,
-    but not after it has run the card for a while since one (it then
-    reports no device time), so the child profiles them and phase 18's
+def upsert_launches(key_words, what="upsert") -> str:
+    """Phases 4, 7 and 11: the kernels that calls at the main path's
+    shapes launch, by device time, as a child process (``python3
+    chip_smoke.py --upsert-launches KEY_WORDS [retrieve]``) names them:
+    with ``what`` "upsert", one build, one upsert of every key and one
+    lookup of every key and of N_SIDE absent keys (phase 3's shape); with
+    "retrieve", one collecting and one counting retrieve walk of every key
+    of phase 6's table.  The profiler sees the card's kernels in a
+    process's first sessions, but not after it has run the card for a
+    while since one (it then reports no device time), so a child
+    profiles them, each kind in a process of its own, and phase 18's
     splits stay this process's first sessions."""
     res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--upsert-launches", str(key_words)],
+                          "--upsert-launches", str(key_words), what],
                          capture_output=True, text=True, timeout=600)
     lines = res.stdout.strip().splitlines()
     if res.returncode != 0 or not lines:
-        return (f"build / upsert: not measured (the child exited "
+        return (f"{what}: not measured (the child exited "
                 f"{res.returncode}: {res.stderr.strip()[-300:]})")
     return lines[-1]
 
 
+def retrieve_launches_main(key_words) -> int:
+    """The child of ``upsert_launches(key_words, "retrieve")``: phase 6's
+    (phase 10's) table, N_MV / R_MV distinct keys of ``key_words`` words,
+    R_MV in a row, appended into ``multi_value.create(N_MV / 0.8)``,
+    W = 32, cops; then one collecting and one counting retrieve walk of
+    every key, each profiled."""
+    import torch
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.core import bulk, multi_value as mv
+    from repro_torch.kernels.cops import contract, ops
+    n_keys = N_MV // R_MV
+    base = (contract.distinct_keys(0, n_keys, "cuda") if key_words == 1
+            else contract.distinct_keys64(0, n_keys, "cuda"))
+    table = mv.create(int(N_MV / contract.LOAD), window=WINDOW,
+                      device="cuda", key_words=key_words)
+    kw = dict(seed=table.seed, scheme=table.scheme,
+              max_probes=bulk._tstatic(table)[3])
+    planes = contract.table_planes(table)
+    (ops.append if key_words == 1 else ops.append64)(
+        *planes, base.repeat_interleave(R_MV, dim=0),
+        torch.arange(N_MV, dtype=torch.int32, device="cuda"), **kw)
+    walk = ops.retrieve_walk if key_words == 1 else ops.retrieve_walk64
+    every = torch.ones((n_keys,), dtype=torch.bool, device="cuda")
+    collect = device_kernels(torch, lambda: walk(planes[0], base, every,
+                                                 collect=True, **kw))
+    counts = device_kernels(torch, lambda: walk(planes[0], base, every,
+                                                collect=False, **kw))
+    print(f"collecting retrieve of {n_keys} keys: {collect}; of one "
+          f"counting retrieve: {counts}", flush=True)
+    return 0
+
+
 def upsert_launches_main(key_words) -> int:
-    """The child of ``upsert_launches``: N_MAIN distinct keys of
+    """The child of ``upsert_launches(key_words)``: N_MAIN distinct keys of
     ``key_words`` words into ``create(N_MAIN / RHO)``, W = 32, cops, once
     as the build and once as the upsert of every key, then the lookup of
     every key and of the main path's absent keys, each profiled."""
@@ -2686,5 +2758,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--upsert-launches"]:
-        sys.exit(upsert_launches_main(int(sys.argv[2])))
+        sys.exit(retrieve_launches_main(int(sys.argv[2]))
+                 if sys.argv[3:4] == ["retrieve"]
+                 else upsert_launches_main(int(sys.argv[2])))
     sys.exit(main())

@@ -29,7 +29,14 @@ bit-exact to ``lookup_plain`` (values, found and slots): after every batch
 of the cases above, and in ``run_lookup_case`` where walks are long and
 cut short — a table near full, whole windows of tombstones to step past,
 budgets of one and two windows, sentinel words as queries, and batches
-smaller than a warp's keys.
+smaller than a warp's keys.  The retrieve walk writes nothing shared
+either (its queries are distinct), so ``cops_retrieve`` /
+``cops_retrieve64`` are held bit-exact to ``retrieve_walk_plain`` (counts
+and both arenas): in ``run_multi_case`` below, and in
+``run_retrieve_case`` — runs of 1, 8 and 40 equal keys in a store near
+full, whole windows of tombstones, erased pairs, masks that leave whole
+warps' queries inactive, budgets of one and two windows, and a budget past
+num_rows on a store with no EMPTY window, so that walks revisit rows.
 
 The multi-value append (``check_append``):
 
@@ -104,6 +111,7 @@ FULL_PROBES = 2
 FULL_RUNS = 64     # and the most runs it appends
 LOOKUP_LOAD = 0.97      # the lookup case's fill, and the small budgets
 LOOKUP_BUDGETS = (1, 2)  # (windows) it walks with beside the table's
+RETRIEVE_RUNS = (1, 8, 40)   # the retrieve case's runs of equal keys
 
 
 def twin(fn, table_keys):
@@ -666,6 +674,124 @@ def run_lookup_case(*, window: int, scheme: str = "cops", device,
         planes[0], queries, found, slot, max_probes=budget, **kw).any())
     checks["reaches_the_budget"] = bool((found & ~short).any())
     checks["reaches_a_sentinel"] = bool(found[-sentinels.shape[0]:].any())
+    return checks
+
+
+def _matches_past_tombstones(planes, keys, *, seed, scheme, max_probes):
+    """Does the retrieve walk of each key match in a window after one that
+    holds only TOMBSTONEs?"""
+    kps = ops._planes(planes)
+    num_rows = kps.shape[1]
+    dead = (kps[0] == TOMBSTONE_WORD).all(dim=1)
+    key = bulk._key_cols(keys)
+    words = key_hash_word(keys)
+    row = probing.initial_row(words, num_rows, seed)
+    step = probing.row_step(scheme, words, num_rows, seed)
+    walking = torch.ones(key.shape[:1], dtype=torch.bool, device=key.device)
+    passed = torch.zeros_like(walking)
+    after = torch.zeros_like(walking)
+    for _ in range(max_probes):
+        win, match = bulk.window_match(kps, row, key)
+        after |= walking & passed & match.any(dim=1)
+        passed |= walking & dead[row]
+        walking &= ~(win == EMPTY_WORD).any(dim=1)
+        if not bool(walking.any()):
+            break
+        row = probing.advance_row(row, step, num_rows)
+    return after
+
+
+def run_retrieve_case(*, window: int, scheme: str = "cops", device,
+                      key_words: int = 1, capacity: int = 1 << 12,
+                      batch: int | None = None,
+                      seed: int = DEFAULT_SEED) -> dict[str, bool]:
+    """Hold ``cops_retrieve`` / ``cops_retrieve64`` (on the CPU, whatever
+    the wrapper runs) bit-exact against ``retrieve_walk_plain`` — the
+    counts, and collecting, both arenas slot for slot — where walks are
+    long and cut short.
+
+    A multi-value table of ``capacity`` slots is filled by ``append_plain``
+    to ``LOOKUP_LOAD`` of its capacity with distinct keys (``case_keys``)
+    in runs of ``RETRIEVE_RUNS`` equal keys in turn, so that a run spans
+    windows and 32-lane chunks (pairs that find no free lane stay out);
+    then every third row that holds no EMPTY lane is tombstoned whole (a
+    window of TOMBSTONEs only, which a walk steps past), and one in eight
+    of the other pairs is erased.  The queries: every key of the fill, as
+    many absent keys, and ``_sentinel_queries``; with ``batch``, only
+    ``batch`` keys, a present key and an absent one in turn.  Each walk
+    runs under two masks, every query active ("all") and whole groups of 8
+    queries inactive beside one in five others ("groups"), counts only and
+    collecting, with the table's budget ("table"), with budgets of
+    ``LOOKUP_BUDGETS`` windows ("b1", "b2"), and with a budget of
+    num_rows + 3 windows on a copy of the store whose EMPTY slots are
+    TOMBSTONEs ("rows3": no walk stops early, and each comes back to rows
+    it has read, which it counts and stamps again).
+
+    Returns ``{check: holds}``: each walk bit-exact
+    (``exact_{budget}_{mask}_{counts|collect}``); and, without ``batch``,
+    that the case reaches what it is for: a walk that matches past a
+    TOMBSTONE-only window, a walk that a budget of one window cuts, and a
+    walk that counts a row it revisits.
+    """
+    from repro_torch.core import multi_value
+    table = multi_value.create(capacity, window=window, scheme=scheme,
+                               seed=seed, device=device, key_words=key_words)
+    planes = table_planes(table)
+    budget = bulk._tstatic(table)[3]
+    n = int(table.capacity * LOOKUP_LOAD)
+    nk = len(RETRIEVE_RUNS) * (n // sum(RETRIEVE_RUNS) + 1)
+    pool = case_keys(key_words, 2 * nk, device)
+    keys, absent = pool[:nk], pool[nk:]
+    runs = torch.tensor(RETRIEVE_RUNS, device=device).repeat(
+        nk // len(RETRIEVE_RUNS))
+    fill = keys.repeat_interleave(runs, dim=0)[:n]
+    kw = dict(seed=seed, scheme=scheme)
+    ops.append_plain(*planes, fill,
+                     torch.arange(n, dtype=torch.int32, device=device),
+                     max_probes=budget, **kw)
+    plane0 = ops._planes(planes[0])[0]
+    full_rows = torch.nonzero(~(plane0 == EMPTY_WORD).any(dim=1)).squeeze(1)
+    dead = full_rows[::3]
+    _tombstone(planes[0], (dead[:, None] * window
+                           + torch.arange(window, device=device)).reshape(-1))
+    _tombstone(planes[0], _live_slots(planes[0])[::8])
+    closed = planes[0].clone()
+    flat0 = ops._planes(closed)[0].reshape(-1)
+    _tombstone(closed, torch.nonzero(flat0 == EMPTY_WORD).squeeze(1))
+    if batch:
+        pick = torch.stack([keys[:batch], absent[:batch]], dim=1)
+        queries = pick.reshape(-1, *keys.shape[1:])[:batch]
+    else:
+        queries = torch.cat([keys, absent,
+                             _sentinel_queries(key_words, device)])
+    i = torch.arange(queries.shape[0], device=device)
+    masks = {"all": torch.ones_like(i, dtype=torch.bool),
+             "groups": ((i // 8) % 3 != 1) & (i % 5 != 2)}
+    walks = ([("table", planes[0], budget)]
+             + [(f"b{b}", planes[0], b) for b in LOOKUP_BUDGETS]
+             + [("rows3", closed, table.num_rows + 3)])
+    checks = {}
+    for label, store, probes in walks:
+        for name, active in masks.items():
+            for mode, ok in check_walk(store, queries, active,
+                                       max_probes=probes, **kw).items():
+                checks[f"exact_{label}_{name}_{mode}"] = ok
+    if batch:
+        return checks
+
+    def counts(store, probes):
+        return ops.retrieve_walk_plain(store, queries, masks["all"],
+                                       max_probes=probes, collect=False,
+                                       **kw)[0]
+
+    checks["reaches_past_tombstones"] = bool(_matches_past_tombstones(
+        planes[0], queries, max_probes=budget, **kw).any())
+    checks["reaches_the_budget"] = bool(
+        (counts(planes[0], budget) > counts(planes[0], LOOKUP_BUDGETS[0]))
+        .any())
+    checks["reaches_a_revisit"] = bool(
+        (counts(closed, table.num_rows + 3) > counts(closed, table.num_rows))
+        .any())
     return checks
 
 

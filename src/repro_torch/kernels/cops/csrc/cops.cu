@@ -52,17 +52,18 @@
 //     32 / W keys at once, each group voting on its own lanes;
 //   - at W >= 32 the upsert, the update, both two-plane passes
 //     (walk_kernel) and the lookup (lookup_walk_kernel) walk K = kWalkKeys
-//     keys a warp: lane j holds key j's walk state, and each round
-//     (window_round, one function for all of them) reads the current
-//     chunk of every walking key's window, all K loads issued before the
-//     first ballot, so a warp keeps K chains of dependent reads in flight
-//     where it kept one.  The retrieve and the append (one run of equal
-//     keys, below) still walk one key a warp there;
+//     keys a warp, the retrieve (retrieve_walk_kernel) K = kRetrieveKeys:
+//     lane j holds key j's walk state, and each round (window_round, one
+//     function for all of them) reads the current chunk of every walking
+//     key's window, all K loads issued before the first ballot, so a warp
+//     keeps K chains of dependent reads in flight where it kept one.  The
+//     append (one run of equal keys, below) still walks one run a warp
+//     there;
 //   - thousands of walks are in flight per SM (8 warps per block, no
 //     shared memory) to hide the latency of the dependent loads;
 //   - the key, value and status streams are read and written once,
-//     coalesced, by lane 0 of each group (walk_kernel and
-//     lookup_walk_kernel: lane j for key j; the append: by every lane).
+//     coalesced, by lane 0 of each group (the K-key walks: lane j for key
+//     j; the append: by every lane).
 //
 // The u32 insert takes DISTINCT keys (the caller's dedup front end): a key
 // absent at the start of the batch can then be claimed by no other group,
@@ -199,10 +200,15 @@
 // The retrieve walk is read-only on the store and takes distinct
 // representatives (the torch dedup front end), so its arena stamps never
 // collide and its output is bit-exact against the sequential reference.
-// Each window's match ballot gives the count (__popc) and each matching
-// lane's rank in walk order (__popc of the ballot's lower lanes); the walk
-// stops after the first window holding an EMPTY (tombstones do not stop
-// it) or at the budget.
+// Each chunk's match ballot gives the count (__popc) and each matching
+// lane's rank in walk order (the query's count before the chunk + __popc of
+// the ballot's lower lanes), so chunk 0's matches rank before chunk 1's and
+// ranks run on across windows; the walk stops after the first window
+// holding an EMPTY (tombstones do not stop it) or at the budget, which it
+// does not clamp (a row a walk comes back to is counted again).  At W >= 32
+// it is retrieve_walk_kernel, kRetrieveKeys queries a warp through
+// window_round, whose per-chunk hook hands it each ballot; at W < 32
+// retrieve_kernel, a group of W lanes a query.
 //
 // The bucket walk is the bucket list's retrieval (paper Fig. 4): a key's
 // values lie in a chain of buckets in a u32 value pool, and its handle
@@ -252,6 +258,12 @@ constexpr int kCombineUnroll = 4;
 // on the u32 insert and 4% slower on the u64 upsert
 // (tools/probe_cops_update.py).
 constexpr int kWalkKeys = 8;
+// keys per warp of the retrieve walk at W >= 32: a retrieve walks each
+// query to its first window holding an EMPTY, longer and more varied walks
+// than a lookup's, and a warp walks until its longest walk ends; of 1, 2,
+// 4, 8 and 16 keys, 4 walked fig7 wc-oa's 2^25 queries collecting in 9%
+// (u32) and 7% (u64) less time than 8 (tools/probe_cops_update.py).
+constexpr int kRetrieveKeys = 4;
 constexpr unsigned kAll = 0xFFFFFFFFu;  // every lane of a warp
 // walk_kernel's outcomes besides a lane to claim (none: -1): the walk
 // ended at its key; the lane walks no key
@@ -843,8 +855,14 @@ struct Round {
   bool any_empty;  // the window holds an EMPTY
 };
 
-// One round of the walks at W >= 32, walk_kernel's and
-// lookup_walk_kernel's: lane j < K holds key j (its words k0, k1 and its
+// window_round's hook on each chunk's match ballot: none (the walks that
+// keep only the lowest matching lane)
+struct NoBallots {
+  __device__ __forceinline__ void operator()(int, uint32_t, unsigned) const {}
+};
+
+// One round of the walks at W >= 32 (walk_kernel, lookup_walk_kernel,
+// retrieve_walk_kernel): lane j < K holds key j (its words k0, k1 and its
 // current row), and `act` has bit j set while key j walks (the same in
 // every lane).  The round reads the window of every walking key, chunk by
 // 32-lane chunk, all K loads of a chunk issued before the first ballot,
@@ -853,11 +871,13 @@ struct Round {
 // key's low word (a 32-byte sector).  The whole window is read before any
 // verdict, so a match in a later chunk wins over an EMPTY in an earlier
 // one, and the lowest matching lane of the window is the one returned.
-template <int KW, int K, bool MATCH, bool CLAIM>
-__device__ __forceinline__ Round window_round(const uint32_t* tk,
-                                              const Walk& w, unsigned act,
-                                              uint32_t row, uint32_t k0,
-                                              uint32_t k1) {
+// With MATCH, every lane calls on_ballot(j, c, mb) with chunk c's whole
+// match ballot mb of each walking key j, chunk by chunk (the retrieve
+// counts and stamps there; the other walks pass NoBallots).
+template <int KW, int K, bool MATCH, bool CLAIM, class OnBallot = NoBallots>
+__device__ __forceinline__ Round window_round(
+    const uint32_t* tk, const Walk& w, unsigned act, uint32_t row,
+    uint32_t k0, uint32_t k1, OnBallot on_ballot = OnBallot()) {
   const int lane = threadIdx.x & 31;
   Round r = {-1, -1, false, false};
   for (uint32_t c = 0; c < w.window; c += 32) {
@@ -912,6 +932,7 @@ __device__ __forceinline__ Round window_round(const uint32_t* tk,
       for (int j = 0; j < K; ++j) {
         if (!((act >> j) & 1u)) continue;
         const unsigned mb = __ballot_sync(kAll, (hit >> j) & 1u);
+        on_ballot(j, c, mb);
         if (lane == j && r.mlane < 0 && mb)
           r.mlane = (int)c + __ffs(mb) - 1;
       }
@@ -1155,6 +1176,67 @@ retrieve_kernel(const uint32_t* __restrict__ tk,
   if (g.lane == 0) counts[q] = seen;
 }
 
+// The retrieve at W >= 32 (see the header): a warp walks K queries, lane
+// j < K holding query j's walk and its count, through the rounds of the
+// two-plane match pass (window_round<KW, K, true, false>), whose hook takes
+// each chunk's whole match ballot mb of each walking query j: lane j adds
+// __popc(mb), and with COLLECT (both arenas given) each lane l set in mb
+// stamps its slot with qa = q_j and ra = q_j's count before the chunk (one
+// shuffle) + the matching lanes below l.  A walk ends after the first
+// window holding an EMPTY or at the budget, which, unlike the match walks',
+// is not clamped to num_rows: the retrieve counts and stamps every window
+// it reads, so a walk that comes back to a row counts it again, as
+// retrieve_walk_plain does; attempts are 64-bit.  Every lane j then writes
+// counts[q_j], 0 where !active[q_j].
+template <int KW, int K, bool COLLECT>
+__global__ void retrieve_walk_kernel(const uint32_t* __restrict__ tk,
+                                     const uint32_t* __restrict__ keys,
+                                     const bool* __restrict__ active,
+                                     int* __restrict__ counts,
+                                     int* __restrict__ qa,
+                                     int* __restrict__ ra, long long n,
+                                     Walk w) {
+  static_assert(K >= 1 && K <= 32, "a lane per key");
+  const int lane = threadIdx.x & 31;
+  if (key_index<K>() - lane >= n) return;  // whole warps leave together
+  const bool mine = lane < K && key_index<K>() < n;
+  bool walking = mine && w.max_probes > 0 && active[key_index<K>()];
+  uint32_t k0 = 0, k1 = 0, row = 0;
+  if (walking) {
+    const Key k = load_key<KW>(keys, key_index<K>());
+    k0 = k.k0;
+    k1 = k.k1;
+    row = first_row(w, k.word);
+  }
+  int seen = 0;
+  // every lane calls it with the same (j, c, mb)
+  const auto tally = [&](int j, uint32_t c, unsigned mb) {
+    if (!mb) return;
+    if (COLLECT) {
+      const int before = __shfl_sync(kAll, seen, j);
+      const uint32_t rj = __shfl_sync(kAll, row, j);
+      if ((mb >> lane) & 1u) {
+        const size_t at = (size_t)rj * w.window + c + lane;
+        qa[at] = (int)(key_index<K>() - lane + j);
+        ra[at] = before + __popc(mb & ((1u << lane) - 1u));
+      }
+    }
+    if (lane == j) seen += __popc(mb);
+  };
+  long long attempt = 0;
+  unsigned act;
+  while ((act = __ballot_sync(kAll, walking)) != 0) {
+    const Round r =
+        window_round<KW, K, true, false>(tk, w, act, row, k0, k1, tally);
+    if (!walking) continue;
+    if (r.any_empty || ++attempt >= w.max_probes)
+      walking = false;
+    else
+      row = next_row(w, row, row_step(w, probe_word<KW>(k0, k1)));
+  }
+  if (mine) counts[key_index<K>()] = seen;
+}
+
 // The chain walk of each active query (see the header); 32 lanes a query.
 __global__ void __launch_bounds__(kThreads)
 bucket_walk_kernel(const uint32_t* __restrict__ pool,
@@ -1198,9 +1280,9 @@ unsigned blocks_for(long long n, int window) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
-// blocks of walk_kernel for n keys: a warp per kWalkKeys of them
-unsigned walk_blocks(long long n) {
-  const long long threads = (n + kWalkKeys - 1) / kWalkKeys * 32;
+// blocks of a K-key walk for n keys: a warp per `keys` of them
+unsigned walk_blocks(long long n, int keys = kWalkKeys) {
+  const long long threads = (n + keys - 1) / keys * 32;
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
@@ -1400,17 +1482,33 @@ int launch(void* table_keys, const Writes& wr, int value_words,
                                 stream);
 }
 
+// The retrieve of n queries: at W >= 32 retrieve_walk_kernel,
+// kRetrieveKeys queries a warp (COLLECT with the arenas); below,
+// retrieve_kernel, 32 / W queries a warp.
 template <int KW>
 int retrieve(const void* table_keys, const void* keys, const void* active,
              void* counts, void* qarena, void* rank_arena, long long n,
              unsigned num_rows, int window, unsigned seed, int linear,
              long long max_probes, void* stream) {
   if (n <= 0) return 0;
-  retrieve_kernel<KW><<<blocks_for(n, window), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const uint32_t*)table_keys, (const uint32_t*)keys,
-      (const bool*)active, (int*)counts, (int*)qarena, (int*)rank_arena, n,
-      make_walk(num_rows, window, seed, linear, max_probes));
+  const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
+  const uint32_t* const tk = (const uint32_t*)table_keys;
+  const uint32_t* const kk = (const uint32_t*)keys;
+  const bool* const act = (const bool*)active;
+  int* const cnt = (int*)counts;
+  int* const qa = (int*)qarena;
+  int* const ra = (int*)rank_arena;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks = walk_blocks(n, kRetrieveKeys);
+  if (window >= 32 && qa)
+    retrieve_walk_kernel<KW, kRetrieveKeys, true>
+        <<<blocks, kThreads, 0, s>>>(tk, kk, act, cnt, qa, ra, n, w);
+  else if (window >= 32)
+    retrieve_walk_kernel<KW, kRetrieveKeys, false>
+        <<<blocks, kThreads, 0, s>>>(tk, kk, act, cnt, qa, ra, n, w);
+  else
+    retrieve_kernel<KW><<<blocks_for(n, window), kThreads, 0, s>>>(
+        tk, kk, act, cnt, qa, ra, n, w);
   return (int)cudaGetLastError();
 }
 

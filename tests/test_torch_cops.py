@@ -383,6 +383,54 @@ def test_lookup_case_catches_a_wrong_lookup(monkeypatch, fault):
                            for k in bad), checks
 
 
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", [4, 32, 128])
+def test_retrieve_case_runs_on_cpu(window, scheme, key_words):
+    """The card's retrieve case (runs of 1, 8 and 40 equal keys in a store
+    near full, TOMBSTONE-only windows, erased pairs, masks that leave whole
+    groups of 8 queries inactive, budgets of 1 and 2 windows and one past
+    num_rows on a store with no EMPTY window, sentinel queries), run where
+    both sides are the plain versions: every walk agrees, and the case
+    reaches the walks it is for.  At W = 4 on 2^10 slots (256 rows), so
+    that the walks past num_rows stay short on the CPU."""
+    checks = contract.run_retrieve_case(
+        window=window, scheme=scheme, device="cpu", key_words=key_words,
+        capacity=1 << 10 if window == 4 else 1 << 12)
+    assert len(checks) == 19 and all(checks.values()), checks
+
+
+@pytest.mark.parametrize("fault", ["rank", "budget", "inactive"])
+def test_retrieve_case_catches_a_wrong_walk(monkeypatch, fault):
+    """The retrieve case fails where the walk is wrong, and only there: a
+    stamped rank one too high ("rank": the collecting checks), a walk one
+    window past its budget ("budget": the cut walks, at 1 and 2 windows
+    and past num_rows; the table's budget ends no walk here), a count of 1
+    for an inactive query ("inactive": the checks under the mask)."""
+    real = ops.retrieve_walk
+
+    def retrieve_walk(table_keys, keys, active, *, max_probes, collect,
+                      **kw):
+        if fault == "budget":
+            max_probes += 1
+        counts, qa, ra = real(table_keys, keys, active,
+                              max_probes=max_probes, collect=collect, **kw)
+        if fault == "rank" and ra is not None:
+            ra = torch.where(qa < keys.shape[0], ra + 1, ra)
+        if fault == "inactive":
+            counts = torch.where(active, counts, 1)
+        return counts, qa, ra
+
+    monkeypatch.setattr(ops, "retrieve_walk", retrieve_walk)
+    checks = contract.run_retrieve_case(window=32, device="cpu")
+    bad = {k for k, ok in checks.items() if not ok}
+    concerned = {"rank": lambda k: k.endswith("_collect"),
+                 "budget": lambda k: k.startswith(
+                     ("exact_b1_", "exact_b2_", "exact_rows3_")),
+                 "inactive": lambda k: "_groups_" in k}[fault]
+    assert bad == {k for k in checks if concerned(k)}, checks
+
+
 #: every window and scheme in Fig. 7's layout (the ids these cases always
 #: had), the other layouts at W = 2, 32 and 128
 _MULTI_CPU_CASES = (

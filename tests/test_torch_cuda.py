@@ -582,6 +582,51 @@ def test_lookup_batch_sizes_around_the_walks_keys(batch, key_words, window):
     assert ops.LAUNCHES[name] == 12, ops.LAUNCHES
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", [4, 32, 128])
+def test_retrieve_holds_to_plain_on_long_and_cut_walks(window, scheme,
+                                                       key_words):
+    """``cops_retrieve`` / ``cops_retrieve64`` bit-exact against
+    ``retrieve_walk_plain`` (counts, and both arenas slot for slot) on a
+    store near full of runs of 1, 8 and 40 equal keys with TOMBSTONE-only
+    windows and erased pairs, under masks that leave whole groups of 8
+    queries inactive, at the table's budget, at budgets of 1 and 2 windows
+    and past num_rows on a store with no EMPTY window, with sentinel
+    queries (``contract.run_retrieve_case``); all 16 walks launch the
+    kernel."""
+    _need_card()
+    ops.reset_launches()
+    checks = contract.run_retrieve_case(window=window, scheme=scheme,
+                                        device="cuda", key_words=key_words)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+    name = "cops_retrieve" if key_words == 1 else "cops_retrieve64"
+    assert ops.LAUNCHES[name] == 16, ops.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [32, 64, 128])
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 33])
+def test_retrieve_batch_sizes_around_the_walks_keys(batch, key_words,
+                                                    window):
+    """At W >= 32 a warp walks 4 queries (``kRetrieveKeys``): retrieves of
+    1, 7, 8, 9 and 33 queries (partial warps, a warp with one query), a
+    present key and an absent one in turn, bit-exact against ``retrieve_walk_plain`` under
+    both masks, counts only and collecting, at four budgets
+    (``contract.run_retrieve_case``)."""
+    _need_card()
+    ops.reset_launches()
+    checks = contract.run_retrieve_case(window=window, device="cuda",
+                                        key_words=key_words, batch=batch)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+    name = "cops_retrieve" if key_words == 1 else "cops_retrieve64"
+    assert ops.LAUNCHES[name] == 16, ops.LAUNCHES
+
+
 def _same_rows(a, b):
     """A join's output rows as (probe_idx, build_idx) pairs, sorted: the
     card's append may place a key's pairs in another order."""

@@ -2,38 +2,51 @@
 """Probe the constants of the COPS walks and of ``cops_update`` on a CUDA
 card.
 
-    python3 tools/probe_cops_update.py
+    python3 tools/probe_cops_update.py [insert] [retrieve] [update]
 
-Builds variants of ``src/repro_torch/kernels/cops/csrc/cops.cu`` that
-differ from the source in one choice each, into ``build/probe/``:
+(the sections named, all three by default).  Builds variants of
+``src/repro_torch/kernels/cops/csrc/cops.cu`` that differ from the source
+in one choice each, into ``build/probe/``:
 
-- ``kWalkKeys`` (K, the keys a warp walks at W >= 32 in the upsert, the
-  update, the two-plane passes and the lookup) at 1, 2, 4, 8, 16;
+- K, the keys a warp walks at W >= 32, at 1, 2, 4, 8, 16: ``kWalkKeys``
+  (the upsert, the update, the two-plane passes, the lookup) and
+  ``kRetrieveKeys`` (the retrieve) both set to K; a section does not time
+  the variant whose K is its kernels' own in the source;
 - "bounds": the walks (``walk_kernel``, ``upsert_kernel``,
-  ``lookup_walk_kernel``) under ``__launch_bounds__(kThreads)``, which
-  the source leaves out;
+  ``lookup_walk_kernel``, ``retrieve_walk_kernel``) under
+  ``__launch_bounds__(kThreads)``, which the source leaves out;
+- "retrieve 8 blocks": ``retrieve_walk_kernel`` alone under
+  ``__launch_bounds__(kThreads, 8)``, so that 8 blocks (64 warps, at most
+  32 registers a thread) fit an SM;
 - ``kSharedGroups`` (R) at 0, so every combine goes to device memory;
 - the combine's per-warp step: "match" folds the rows of each group that
   a warp holds first (``__match_any_sync``, then a warp reduction), "plain"
   never folds in the warp; the source folds only a warp whose rows all
   belong to one group.
 
-It prints ptxas's registers and spill bytes of every walk and lookup
-kernel of each variant.  Then it times, under the source, each K and
-"bounds", ``ops.insert`` and ``ops.insert64`` at fig5's shape
+It prints ptxas's registers and spill bytes of every walk, lookup and
+retrieve kernel of each variant.  Then ("insert") it times, under the
+source, each K and "bounds", ``ops.insert`` and ``ops.insert64`` at
+fig5's shape
 (``INSERT_KEYS`` distinct keys into ``create(n / 0.9)``, W = 32, cops):
 the build into an empty table and the upsert of every key into the table
 it built, the two-plane upsert's two launches named with their times
 (``torch.profiler``); and ``ops.lookup`` / ``ops.lookup64`` on the table
 it built, of every key and of ``ABSENT_KEYS`` absent ones (as
 ``chip_smoke.py`` phases 4 and 11 time them).
-Then it times ``ops.update`` (a sum of two value words, as the group-by's
-``aggregate`` runs it) of 2^27 rows with keys uniform in [1, g] for each
-g of ``GROUPS`` into an empty table, under each variant that differs from
-the source where that g reaches (K only at the largest g, the combine at
-all; "bounds" as K), and names the kernels of one call with their times
-(``torch.profiler``).  Prints one line per (g, variant) and the card's
-name and power limit.  Needs one card and nvcc; imports no JAX.
+Then ("retrieve") it times, under the same variants, ``ops.retrieve_walk``
+and ``ops.retrieve_walk64`` at fig7's wc-oa shape (``MV_KEYS`` distinct
+keys, each ``MV_R`` times in a row, appended into
+``multi_value.create(pairs / 0.8)``, W = 32, cops), counts only and
+collecting, every key a query, each variant's output held equal to the
+source's (as ``chip_smoke.py`` phases 7 and 11 time them).
+Then ("update") it times ``ops.update`` (a sum of two value words, as
+the group-by's ``aggregate`` runs it) of 2^27 rows with keys uniform in
+[1, g] for each g of ``GROUPS`` into an empty table, under each variant
+that differs from the source where that g reaches (K only at the largest
+g, the combine at all; "bounds" as K), and names the kernels of one call
+with their times (``torch.profiler``).  Prints one line per (g, variant)
+and the card's name and power limit.  Needs one card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ ROOT = Path(__file__).resolve().parents[1]
 N = 2 ** 27                    # fig9's rows (phase 17 of chip_smoke.py)
 INSERT_KEYS = 2 ** 28          # fig5's keys (phases 3 and 9 of chip_smoke.py)
 ABSENT_KEYS = 2 ** 24          # their absent lookups (N_SIDE there)
+MV_KEYS, MV_R = 2 ** 25, 8     # fig7 wc-oa r = 8 (phases 6 and 10 there)
 GROUPS = (1, 64, 1024, 2 ** 14, 2 ** 16, 2 ** 25)
 KEYS = (1, 2, 4, 8, 16)
 # the per-warp step of the combine in the source, and the two it replaced
@@ -75,18 +89,27 @@ STEPS = {
 }
 
 
+def own_keys(text):
+    """(kWalkKeys, kRetrieveKeys) of a source text."""
+    return tuple(int(re.search(rf"{name} = (\d+);", text)[1])
+                 for name in ("kWalkKeys", "kRetrieveKeys"))
+
+
 def variants(text):
     """{name: source} of the variants, the source itself as "source"."""
-    keys = int(re.search(r"kWalkKeys = (\d+);", text)[1])
     out = {"source": text}
     for k in KEYS:
-        if k != keys:
-            out[f"K={k}"] = re.sub(r"kWalkKeys = \d+;",
-                                   f"kWalkKeys = {k};", text)
-    walks = re.compile(
-        r"(\n__global__ void )((?:walk|upsert|lookup_walk)_kernel\()")
-    assert len(walks.findall(text)) == 3, "the walks' declarations moved"
+        if own_keys(text) != (k, k):
+            out[f"K={k}"] = re.sub(r"(kWalkKeys|kRetrieveKeys) = \d+;",
+                                   rf"\1 = {k};", text)
+    walks = re.compile(r"(\n__global__ void )"
+                       r"((?:walk|upsert|lookup_walk|retrieve_walk)_kernel\()")
+    assert len(walks.findall(text)) == 4, "the walks' declarations moved"
     out["bounds"] = walks.sub(r"\1__launch_bounds__(kThreads)\n\2", text)
+    out["retrieve 8 blocks"] = text.replace(
+        "\n__global__ void retrieve_walk_kernel(",
+        "\n__global__ void __launch_bounds__(kThreads, 8)\n"
+        "retrieve_walk_kernel(")
     out["R=0"] = re.sub(r"kSharedGroups = \d+;", "kSharedGroups = 0;", text)
     assert STEP.search(text), "the combine's per-warp step moved"
     for name, step in STEPS.items():
@@ -97,15 +120,15 @@ def variants(text):
 
 
 def walk_registers(log):
-    """``kernel<args> R registers, S bytes of spill stores`` for every walk
-    and lookup kernel in ptxas's ``-v`` report ``log``."""
+    """``kernel<args> R registers, S bytes of spill stores`` for every walk,
+    lookup and retrieve kernel in ptxas's ``-v`` report ``log``."""
     out = []
     for name, spill, regs in re.findall(
             r"Compiling entry function '(\S+)'.*?\n.*?\n\s+\d+ bytes stack "
             r"frame, (\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
             log):
-        m = re.search(r"\d+((?:lookup_walk|walk|upsert|match|claim|lookup)"
-                      r"_kernel)I(.*?)EEvP", name)
+        m = re.search(r"\d+((?:lookup_walk|retrieve_walk|walk|upsert|match"
+                      r"|claim|lookup|retrieve)_kernel)I(.*?)EEvP", name)
         if m:
             args = ", ".join(v for _, v in re.findall(r"L(i|b)(\d+)E",
                                                       m[2]))
@@ -145,6 +168,14 @@ def main() -> int:
                               variants(build.sources()["cops"].read_text())
                               .items()))
     libs = {name: lib for name, lib, _ in built}
+    walk_k, retrieve_k = own_keys(build.sources()["cops"].read_text())
+
+    def timed_here(name, own, retrieve=False):
+        """Does a section whose kernels walk ``own`` keys a warp in the
+        source (the retrieve's: ``retrieve``) time variant ``name``?"""
+        return (name in ("source", "bounds")
+                or name.startswith("K=") and name != f"K={own}"
+                or name == "retrieve 8 blocks" and retrieve)
     for name, _, log in built:
         print(f"ptxas {name}: " + "; ".join(walk_registers(log)), flush=True)
 
@@ -185,8 +216,9 @@ def main() -> int:
                 e.device_time_total / 1e3
                 for e in prof.key_averages() if "_kernel<" in e.key}
 
-    from repro_torch.core import single_value
-    for key_words in (1, 2):
+    from repro_torch.core import multi_value, single_value
+    sections = set(sys.argv[1:]) or {"insert", "retrieve", "update"}
+    for key_words in (1, 2) if "insert" in sections else ():
         if key_words == 1:
             keys = contract.distinct_keys(0, INSERT_KEYS, "cuda")
             absent = contract.distinct_keys(INSERT_KEYS + 2, ABSENT_KEYS,
@@ -204,7 +236,7 @@ def main() -> int:
         insert = ops.insert if key_words == 1 else ops.insert64
         lookup = ops.lookup if key_words == 1 else ops.lookup64
         for name, lib in libs.items():
-            if name not in ("source", "bounds") and not name.startswith("K="):
+            if not timed_here(name, walk_k):
                 continue
             use(lib)
             built = []
@@ -241,10 +273,49 @@ def main() -> int:
         del keys, absent, vals, table, empty
         torch.cuda.empty_cache()
 
+    for key_words in (1, 2) if "retrieve" in sections else ():
+        use(libs["source"])
+        if key_words == 1:
+            base = contract.distinct_keys(0, MV_KEYS, "cuda")
+        else:
+            base = contract.distinct_keys64(0, MV_KEYS, "cuda")
+        table = multi_value.create(int(MV_KEYS * MV_R / 0.8), window=32,
+                                   device="cuda", key_words=key_words)
+        kw = dict(seed=table.seed, scheme=table.scheme,
+                  max_probes=bulk._tstatic(table)[3])
+        planes = contract.table_planes(table)
+        (ops.append if key_words == 1 else ops.append64)(
+            *planes, base.repeat_interleave(MV_R, dim=0),
+            torch.arange(MV_KEYS * MV_R, dtype=torch.int32, device="cuda"),
+            **kw)
+        walk = ops.retrieve_walk if key_words == 1 else ops.retrieve_walk64
+        every = torch.ones((MV_KEYS,), dtype=torch.bool, device="cuda")
+        want = {}
+        for name, lib in libs.items():
+            if not timed_here(name, retrieve_k, retrieve=True):
+                continue
+            use(lib)
+            line = []
+            for collect in (False, True):
+                ms, ts = median_ms(lambda: walk(planes[0], base, every,
+                                                collect=collect, **kw))
+                got = walk(planes[0], base, every, collect=collect, **kw)
+                want.setdefault(collect, got)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(got, want[collect]) if a is not None)
+                line.append(f"{'collecting' if collect else 'counts only'} "
+                            f"{ms:.3f} ms (min {min(ts):.3f}, max "
+                            f"{max(ts):.3f}; as the source: {same})")
+                del got
+            print(f"retrieve fig7 wc-oa u{32 * key_words} {MV_KEYS} keys x "
+                  f"{MV_R} W=32 {name}: " + "; ".join(line), flush=True)
+        del base, table, planes, every, want
+        torch.cuda.empty_cache()
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
     fold = ("add", "add")
-    for g in GROUPS:
+    for g in GROUPS if "update" in sections else ():
         keys = torch.randint(1, g + 1, (N,), dtype=torch.int32,
                              generator=gen, device="cuda")
         vals = torch.randint(0, 2 ** 16, (N,), dtype=torch.int32,
@@ -256,7 +327,11 @@ def main() -> int:
                   max_probes=bulk._tstatic(table)[3], count=0)
         empty = (contract.table_planes(table)[0], table.store["values"])
         for name, lib in libs.items():
-            if (name.startswith("K=") or name == "bounds") and g != GROUPS[-1]:
+            # the walk's variants at the largest g alone, the combine's
+            # at every g
+            walk_only = name.startswith("K=") or name in (
+                "bounds", "retrieve 8 blocks")
+            if walk_only and (g != GROUPS[-1] or not timed_here(name, walk_k)):
                 continue
             use(lib)
             times = []
