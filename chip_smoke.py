@@ -96,12 +96,17 @@ status line each:
     ``cops_append64`` also at r = 1, r = 32 and shuffled, and
     ``cops_retrieve64`` counts only and named by the profiler, as in
     phase 7;
-12. ``cops_bucket_walk`` vs plain (identical arenas) on bucket lists of
-    2^20 pairs for Fig. 7's wc-bl-1 (growth 1.1, s0 1) and wc-bl-2
-    (growth 1.0, s0 r) at r = 1, 8, 32, with chains grown across two
-    batches, duplicate and absent queries (``contract.run_bucket_case``);
-    and ``kmer_hash`` vs plain on 2^24 bases with 0.1% N, as one row and
-    as 150-base reads, for k = 8, 16, 20, 31;
+12. ``cops_bucket_walk`` vs plain (identical arenas) on chains grown by
+    24 insert batches, scattered over the pool and long (up to 18 buckets
+    at growth 1.1, 128-value buckets at growth 2), on batches of 1, K - 1,
+    K, K + 1 and 33 queries and with whole warps inactive, each query
+    given exactly its key's values (``contract.run_chain_case``), and on
+    bucket lists of 2^20 pairs for Fig. 7's wc-bl-1 (growth 1.1, s0 1) and
+    wc-bl-2 (growth 1.0, s0 r) at r = 1, 8, 32, with chains grown across
+    two batches, duplicate and absent queries
+    (``contract.run_bucket_case``); and ``kmer_hash`` vs plain on 2^24
+    bases with 0.1% N, as one row and as 150-base reads, for k = 8, 16,
+    20, 31;
 13. the bucket list's main path, Fig. 7's wc-bl-1 cell at r = 8: phase
     6's 2^28 pairs into ``bucket_list.create(2^25 / 0.8, 2^29 + 64)``,
     W = 32, cops — insert, count_values and retrieve_all of the 2^25 keys
@@ -118,9 +123,10 @@ status line each:
     the species-level accuracy at least 0.8; k-mers hashed, pairs indexed
     and reads classified per second.  The counters are zeroed just
     before it and read just after it;
-15. ``cops_bucket_walk`` at phase 13's shapes and ``kmer_hash`` at phase
-    14's reads, each alone and its plain version, compared and timed,
-    with their bounds;
+15. ``cops_bucket_walk`` at phase 13's shapes and at phase 14's classify
+    (its queries on the Fig. 8 index), and ``kmer_hash`` at phase 14's
+    reads, each alone and its plain version, compared and timed, with
+    their bounds;
 16. ``cops_update`` / ``cops_update64`` vs plain at 2^20 rows under the
     update contract (``contract.run_update_case``): every group-by
     aggregate at 64, 2^16 and 2^19 groups, the counting table's saturating
@@ -155,8 +161,10 @@ status line each:
     times by ``torch.profiler``;
 19. ``bloom_insert`` / ``bloom_query`` vs their plain versions at 2^20
     keys (each ~4 times, half masked) for 256-, 512- and 1024-bit blocks,
-    k = 1, 4, 8, one filter and a stack of 8 with a plane per key, and an
-    empty batch: filter words and hits bit-exact;
+    k = 1, 4, 8, one filter and a stack of 8 with a plane per key (some
+    out of range), and an empty batch, each insert by both paths (the
+    filter whole: the direct insert; cut into 64 KiB ranges: the
+    partitioned one): filter words and hits bit-exact;
 20. the elastic service (``serving/elastic.py``) at fig12's shape
     (``benchmarks/fig12_serve.py:57-62``: 8 shards, 16 bloom bits per key,
     slack 2.5) scaled to the card: 2^25 slots per shard (2^28 in all),
@@ -172,17 +180,22 @@ status line each:
     advertised-dead share drops, no live key lost).  Every bloom launch of
     the last preload batch, the warm-up step, ``compact_all`` and the
     lookups after it is held, on its own inputs, against the plain
-    version: filter words and admission bits bit-exact.  Then save through the
+    version: filter words and admission bits bit-exact; the preload and
+    ``compact_all`` take the partitioned insert, the serve steps the
+    direct one.  Then save through the
     ``SnapshotWriter`` -> ``load`` (bit-exact shard planes) and ``reshard``
     8 -> 16 (``check_ownership``) at 2^22 slots per shard, so the snapshot
     on disk stays under 300 MiB.  The counters are zeroed just before and
     read just after;
-21. ``bloom_insert`` and ``bloom_query`` alone at 2^28 keys into a filter
+21. ``bloom_insert`` (the partitioned insert, and the direct one beside
+    it) and ``bloom_query`` alone at 2^28 keys into a filter
     of 2^32 bits (next_prime(2^23) blocks of 512 bits, 512 MiB of words,
     k = 4) and their plain versions, compared and timed; the bound is the
     sectors this run's keys touch, each once (about the filter, read and
     written once), + the key and hit streams, or the integer operations
-    if more; the design's own traffic (every key's sectors) beside it; and
+    if more; the designs' own traffic (the partitioned insert's passes
+    over the keys, every key's sectors for the direct insert and the
+    query) beside it; and
     the false-positive rate on 2^28 absent keys;
 22. ``flash_fwd`` through ``flash_attention`` vs its plain version
     (``ref.gqa_attention``, f32 softmax attention, TF32 off) on the same
@@ -288,6 +301,7 @@ EL_PRELOAD, EL_PRELOAD_BATCH = 2 ** 27, 2 ** 24
 EL_NB, EL_STEPS = 2 ** 20, 16
 EL_SNAP_CAPACITY = 2 ** 22  # the save / load / reshard leg, per shard
 N_BLOOM = 2 ** 28         # phase 21: keys into a filter of 2^32 bits
+SMALL_RANGE_BYTES = 2 ** 16  # phase 19's ranges of the partitioned insert
 BLOOM_BITS = 2 ** 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # phases 22-23: flash attention at starcoder2-3b's attention widths
@@ -1085,8 +1099,22 @@ def multi_value_kernels(torch, card, check, phase, base, keys, vals, kw,
 
 def bucket_cases(torch, check, phase):
     """Phase 12: ``cops_bucket_walk`` vs plain at N_CHECK pairs on the
-    wc-bl cells of Fig. 7."""
-    from repro_torch.kernels.cops import contract
+    wc-bl cells of Fig. 7, and on scattered chains of many insert batches
+    (``contract.run_chain_case``) at growth 1.1 (s0 1) and 2 (s0 4)."""
+    from repro_torch.kernels.cops import contract, ops
+    for growth, s0 in ((1.1, 1), (2.0, 4)):
+        t0 = time.perf_counter()
+        checks = contract.run_chain_case(growth=growth, s0=s0, device="cuda",
+                                         warp_keys=ops.bucket_keys())
+        torch.cuda.synchronize()
+        bad = [k for k, ok in checks.items()
+               if not check(f"phase{phase} chains growth {growth} {k}", ok)]
+        print(f"phase {phase} bucket walk vs plain on scattered chains "
+              f"(growth {growth}, s0 {s0}, {contract.CHAIN_ROUNDS} insert "
+              f"batches, K = {ops.bucket_keys()} chains a warp): "
+              f"{'ok' if not bad else 'FAILED ' + str(bad)} "
+              f"({len(checks)} checks, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
     for name, growth, s0, r in BL_CASES:
         t0 = time.perf_counter()
         checks = contract.run_bucket_case(N_CHECK, r=r, growth=growth, s0=s0,
@@ -1314,7 +1342,8 @@ def metagenomics_path(torch, card, check, phase):
     by k-mer votes (``sketch_reads``, ``count_values``, ``retrieve_all``,
     a bincount), every retrieval exact against ``pair_reference`` and the
     species-level accuracy at least 0.8.  The counters are zeroed just
-    before and read just after.  Returns ``(launches, reads)``."""
+    before and read just after.  Returns ``(launches, reads, table,
+    queries)``: the index and the classify's queries, for phase 15."""
     from repro_torch.core import bucket_list as bl
     from repro_torch.core import bulk
     from repro_torch.core.common import STATUS_INSERTED
@@ -1427,33 +1456,43 @@ def metagenomics_path(torch, card, check, phase):
           f" reads/s; species-level accuracy {species:.4f}, genome-level "
           f"{genome_acc:.4f}; peak {peak:.1f} GB; launches {launches}; card "
           f"{card}", flush=True)
-    return launches, reads
+    return launches, reads, table, q
 
 
 def new_kernels(torch, card, check, phase, table, base, reads, bl_launches,
-                mg_launches):
+                mg_launches, mg_table, mg_queries):
     """Phase 15: ``cops_bucket_walk`` at phase 13's shapes (2^25 queries on
-    the wc-bl-1 r = 8 table) and ``kmer_hash`` at phase 14's reads, each
-    alone and its plain version, compared and timed, with their bounds.
-    Returns their two kernel records."""
+    the wc-bl-1 r = 8 table) and at phase 14's classify (its queries on the
+    Fig. 8 index, whose chains are longer and scattered), and ``kmer_hash``
+    at phase 14's reads, each alone and its plain version, compared and
+    timed, with their bounds.  Returns their two kernel records (the walk's
+    at phase 13's shapes)."""
     from repro_torch.core import bucket_list as bl
     from repro_torch.kernels.cops import ops
     from repro_torch.kernels.minhash import ops as mh
     from repro_torch.kernels.minhash import ref
     since = len(check.failed)
-    found, ptr, rcnt, bidx = bl._handle_probe(table, base)[2:6]
-    schedule = bl._schedule(table)
-    args = (table.pool, ptr, rcnt, bidx, found, *schedule)
-    walk_t, kout = timed(torch, lambda: ops.bucket_walk(*args))
-    walk_p_t, pout = timed(torch, lambda: ops.bucket_walk_plain(*args),
-                           reps=1, warmup=0)
-    walk_err = max(int((a.long() - b.long()).abs().max())
-                   for a, b in zip(kout, pout))
-    check(f"phase{phase} bucket walk exact",
-          all(torch.equal(a, b) for a, b in zip(kout, pout)))
-    del kout, pout
-    links, sectors = chain_bytes(torch, table.pool, found, ptr, rcnt, bidx,
-                                 schedule)
+
+    def walk(tbl, queries, tag):
+        found, ptr, rcnt, bidx = bl._handle_probe(tbl, queries)[2:6]
+        schedule = bl._schedule(tbl)
+        args = (tbl.pool, ptr, rcnt, bidx, found, *schedule)
+        walk_t, kout = timed(torch, lambda: ops.bucket_walk(*args))
+        walk_p_t, pout = timed(torch, lambda: ops.bucket_walk_plain(*args),
+                               reps=1, warmup=0)
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(kout, pout))
+        check(f"phase{phase} bucket walk exact ({tag})",
+              all(torch.equal(a, b) for a, b in zip(kout, pout)))
+        del kout, pout
+        links, sectors = chain_bytes(torch, tbl.pool, found, ptr, rcnt, bidx,
+                                     schedule)
+        return walk_t, walk_p_t, err, links, sectors, found, rcnt, bidx
+
+    f8_t, f8_p_t, f8_err, f8_links, _, f8_found, f8_cnt, f8_bidx = walk(
+        mg_table, mg_queries, "fig8")
+    walk_t, walk_p_t, walk_err, links, sectors, _, rcnt, _ = walk(
+        table, base, "wc-bl-1")
     n_q = base.shape[0]
     stamp_bytes = 13 * n_q + 32 * links + 32 * sectors
     walk_bytes = 13 * n_q + 32 * links + 8 * table.pool_capacity
@@ -1472,15 +1511,23 @@ def new_kernels(torch, card, check, phase, table, base, reads, bl_launches,
     kmer_ops = OPS_PER_KMER * rows * n_out
     ms = 1e3 / HBM_BYTES_PER_S
     print(f"phase {phase} new kernels: {check.status(since)}; "
-          f"cops_bucket_walk on {n_q} queries ({int(rcnt.sum())} values, "
+          f"cops_bucket_walk (K = {ops.bucket_keys()} chains a warp) on "
+          f"{n_q} queries ({int(rcnt.sum())} values, "
           f"{links} links) {spread(walk_t)}, plain {walk_p_t[0]:.3f} ms, bound"
           f" {walk_bytes * ms:.3f} ms (both (P,) arenas written in full, "
           f"P={table.pool_capacity}; the stamps alone {stamp_bytes * ms:.3f}"
-          f" ms); kmer_hash k={K_MER} on {rows} x {length} bases "
+          f" ms); on phase 14's classify queries ({mg_queries.shape[0]}, "
+          f"{int(f8_found.sum())} found, {int(f8_cnt[f8_found].sum())} "
+          f"values, {f8_links} links, the longest chain "
+          f"{int(f8_bidx[f8_found].max()) + 1} buckets; pool "
+          f"{mg_table.pool_capacity}) {spread(f8_t)}, plain "
+          f"{f8_p_t[0]:.3f} ms; kmer_hash k={K_MER} on {rows} x {length} "
+          f"bases "
           f"{spread(kmer_t)}, plain {kmer_p_t[0]:.3f} ms, bound "
           f"{kmer_bytes * ms:.3f} ms by bytes ({kmer_ops} operations: "
           f"{kmer_ops / INT32_OPS_PER_S * 1e3:.3f} ms); card {card}",
           flush=True)
+    walk_err = max(walk_err, f8_err)
     return [kernel_record("cops_bucket_walk", bl_launches, walk_err, walk_t,
                           walk_p_t, walk_bytes, elements=n_q),
             kernel_record("kmer_hash", mg_launches, kmer_err, kmer_t,
@@ -1914,9 +1961,11 @@ def bloom_cases(torch, check, phase):
     """Phase 19: ``bloom_insert`` / ``bloom_query`` vs their plain versions
     on the same card tensors at N_CHECK keys (each key ~4 times, half of
     them masked), for 256-, 512- and 1024-bit blocks, k = 1, 4 and 8, one
-    filter and a stack of 8 with a plane per key, at 16 bits per key:
-    filter words and hits bit-exact, every inserted key hit, an empty batch
-    a no-op.  Returns the largest error."""
+    filter and a stack of 8 with a plane per key (some out of range), at
+    16 bits per key, each insert by the direct path (the filter is one
+    range) and by the partitioned one (``RANGE_BYTES`` set to
+    SMALL_RANGE_BYTES): filter words and hits bit-exact, every inserted
+    key hit, an empty batch a no-op.  Returns the largest error."""
     from repro_torch.core import bloom
     from repro_torch.kernels.bloom import ops as bloom_ops
     from repro_torch.kernels.cops import contract
@@ -1932,19 +1981,29 @@ def bloom_cases(torch, check, phase):
                                                       "cuda")])
     empty = keys[:0]
     err = cases = 0
+    bloom_ops.reset_launches()
+    default = bloom_ops.RANGE_BYTES
     for planes in (1, 8):
-        owners = (torch.randint(0, planes, (N_CHECK,), generator=gen,
+        owners = (torch.randint(-1, planes + 1, (N_CHECK,), generator=gen,
                                 device="cuda") if planes > 1 else None)
         qowners = None if owners is None else torch.cat([owners, owners])
         for block_bits in (256, 512, 1024):
             nb = bloom.num_blocks_for(16 * N_CHECK // planes, block_bits)
             words = torch.zeros((planes, nb, block_bits // 32),
                                 dtype=torch.int32, device="cuda")
-            for k in (1, 4, 8):
+            for k, ranges in ((k, r) for k in (1, 4, 8)
+                              for r in (default, SMALL_RANGE_BYTES)):
                 kw = dict(k_hashes=k, seed=0x9E3779B9)
-                got = words.clone()
-                bloom_ops.insert_words(got, keys, mask, planes=owners, **kw)
-                bloom_ops.insert_words(got, empty, **kw)
+                tag = (f"bloom P={planes} bits={block_bits} k={k} ranges of "
+                       f"{ranges} B")
+                bloom_ops.RANGE_BYTES = ranges
+                try:
+                    got = words.clone()
+                    bloom_ops.insert_words(got, keys, mask, planes=owners,
+                                           **kw)
+                    bloom_ops.insert_words(got, empty, **kw)
+                finally:
+                    bloom_ops.RANGE_BYTES = default
                 want = bloom_ops.insert_plain(words.clone(), keys, mask,
                                               planes=owners, **kw)
                 hit = bloom_ops.query_words(got, queries, planes=qowners, **kw)
@@ -1952,19 +2011,27 @@ def bloom_cases(torch, check, phase):
                                                  planes=qowners, **kw)
                 err = max(err, words_err(torch, got, want),
                           words_err(torch, hit, want_hit))
-                check(f"bloom P={planes} bits={block_bits} k={k} exact",
+                live = mask if owners is None else (
+                    mask & (owners >= 0) & (owners < planes))
+                check(f"{tag} exact",
                       torch.equal(got, want) and torch.equal(hit, want_hit))
-                check(f"bloom P={planes} bits={block_bits} k={k} no false "
-                      "negative", bool(hit[:N_CHECK][mask].all()))
-                check(f"bloom P={planes} bits={block_bits} k={k} empty",
+                check(f"{tag} no false negative",
+                      bool(hit[:N_CHECK][live].all()))
+                check(f"{tag} empty",
                       bloom_ops.query_words(got, empty, **kw).shape == (0,))
                 cases += 1
     torch.cuda.synchronize()
+    paths = dict(bloom_ops.PATHS)
+    check(f"phase{phase} bloom_insert took both paths",
+          paths == {"direct": cases // 2, "partitioned": cases // 2})
     print(f"phase {phase} bloom kernels vs plain n={N_CHECK} (x2 queries, "
-          f"half absent), {cases} cases (P 1 / 8, block bits 256 / 512 / "
-          f"1024, k 1 / 4 / 8, half masked, ~4 copies of each key, an empty "
-          f"batch): {check.status(since)}, max error {err} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"half absent), {cases} cases (P 1 / 8 (planes -1 .. 8), block "
+          f"bits 256 / 512 / 1024, k 1 / 4 / 8, half masked, ~4 copies of "
+          f"each key, an empty batch; each filter whole ({default} B ranges:"
+          f" the direct insert) and in ranges of {SMALL_RANGE_BYTES} B (the "
+          f"partitioned one)): {check.status(since)}, bloom_insert's paths "
+          f"{paths}, max error {err} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     return err
 
 
@@ -2271,6 +2338,9 @@ def elastic_path(torch, card, check, phase):
     launches = path_counts(ops, bloom_ops)
     for name in ("bloom_insert", "bloom_query", "cops_insert", "cops_lookup"):
         check(f"{name} launched on the elastic path", launches[name] > 0)
+    paths = dict(bloom_ops.PATHS)
+    check("bloom_insert took both paths on the elastic path",
+          min(paths.values()) > 0)
     print(f"phase {phase} save / load / reshard at capacity_per_shard="
           f"{EL_SNAP_CAPACITY} (reduced from {EL_CAPACITY} so the snapshot "
           f"on disk stays under 300 MiB): {n_small} keys, 1/8 erased; save "
@@ -2279,7 +2349,8 @@ def elastic_path(torch, card, check, phase):
           f"reshard {EL_SHARDS} -> {2 * EL_SHARDS} {reshard_s:.3f} s, "
           f"ownership exact: {check.status(since)}; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
-          f"{launches}; card {card}", flush=True)
+          f"{launches}; bloom_insert's paths {paths}; card {card}",
+          flush=True)
     return launches, tap.err
 
 
@@ -2304,7 +2375,8 @@ def bloom_sectors(torch, words, keys, k, seed) -> tuple[int, int]:
 
 
 def bloom_kernels(torch, card, check, phase, launches, err_before):
-    """Phase 21: ``bloom_insert`` and ``bloom_query`` alone at N_BLOOM keys
+    """Phase 21: ``bloom_insert`` (``insert_plan``'s partitioned path, and
+    the direct path beside it) and ``bloom_query`` alone at N_BLOOM keys
     into a filter of BLOOM_BITS bits (512-bit blocks, k = 4), and their
     plain versions, compared and timed, with bounds from the run's own
     data (the distinct sectors its keys touch, or the integer operations);
@@ -2317,15 +2389,25 @@ def bloom_kernels(torch, card, check, phase, launches, err_before):
     f = bloom.create(BLOOM_BITS, device="cuda")
     kw = dict(k_hashes=f.k, seed=f.seed)
     keys = contract.distinct_keys(0, N_BLOOM, "cuda")
+    plan = bloom_ops.insert_plan(N_BLOOM, f.num_blocks, f.words.shape[1])
+    check(f"phase{phase} bloom_insert partitioned", plan.partitioned)
+    # the direct path at the same shape: the design before the partition
+    direct = torch.zeros_like(f.words)
+    dir_t, _ = timed(torch, lambda w: bloom_ops.insert_launch(
+        w, keys, None, None, plan=bloom_ops.InsertPlan(False), **kw),
+        lambda: (direct.zero_(),))
     ins_t, _ = timed(torch, lambda w: bloom_ops.insert_words(w, keys, **kw),
                      lambda: (f.words.zero_(),))
     plain = torch.zeros_like(f.words)
     ins_p_t, plain = timed(
         torch, lambda w: bloom_ops.insert_plain(w, keys, **kw),
         lambda: (plain.zero_(),), reps=1, warmup=0)
-    err = words_err(torch, f.words, plain)
+    err = max(words_err(torch, f.words, plain),
+              words_err(torch, direct, plain))
     check(f"phase{phase} bloom_insert exact", torch.equal(f.words, plain))
-    del plain
+    check(f"phase{phase} bloom_insert's direct path exact",
+          torch.equal(direct, plain))
+    del plain, direct
     q_t, hit = timed(torch, lambda: bloom_ops.query_words(f.words, keys, **kw))
     q_p_t, want = timed(torch, lambda: bloom_ops.query_plain(f.words, keys,
                                                               **kw),
@@ -2348,14 +2430,24 @@ def bloom_kernels(torch, card, check, phase, launches, err_before):
     print(f"phase {phase} bloom kernels alone: {N_BLOOM} keys, "
           f"{f.num_blocks} blocks x {f.block_bits} bits "
           f"({filter_bytes / 2 ** 20:.0f} MiB), k={f.k}: "
-          f"{check.status(since)}; bloom_insert {spread(ins_t)}, plain "
-          f"{ins_p_t[0]:.3f} ms; bloom_query {spread(q_t)}, plain "
+          f"{check.status(since)}; bloom_insert {spread(ins_t)} "
+          f"(partitioned: {plan.tiles} tiles of {plan.rows_per_tile} "
+          f"blocks ({plan.rows_per_tile * f.block_bits // 8 >> 10} KiB) in "
+          f"{plan.ranges} ranges of {plan.tiles_per_range} tiles; "
+          f"{N_BLOOM / (f.num_blocks * f.block_bits / 256):.2f} keys a "
+          f"filter sector, threshold "
+          f"{bloom_ops.PARTITION_KEYS_PER_SECTOR}), the direct path "
+          f"{spread(dir_t)}, plain {ins_p_t[0]:.3f} ms; bloom_query "
+          f"{spread(q_t)}, plain "
           f"{q_p_t[0]:.3f} ms; bounds: bytes {ins_bytes * ms:.3f} / "
           f"{q_bytes * ms:.3f} ms ({distinct} distinct sectors, "
           f"{32 * distinct / filter_bytes:.6f} of the filter, read and "
           f"written / read once, + keys (+ hits)), integer operations "
-          f"{ops_ / INT32_OPS_PER_S * 1e3:.3f} ms each; this design's own "
-          f"traffic, every key's sectors ({per_key}, "
+          f"{ops_ / INT32_OPS_PER_S * 1e3:.3f} ms each; the designs' own "
+          f"traffic: the partitioned insert's, the keys read four times "
+          f"and written twice, the filter read and written once, "
+          f"{(24 * N_BLOOM + 2 * filter_bytes) * ms:.3f} ms; the direct "
+          f"insert's and the query's, every key's sectors ({per_key}, "
           f"{per_key / N_BLOOM:.4f} a key): "
           f"{(64 * per_key + 4 * N_BLOOM) * ms:.3f} / "
           f"{(32 * per_key + 5 * N_BLOOM) * ms:.3f} ms; false-positive rate "
@@ -2707,10 +2799,12 @@ def main() -> int:
     pool = contract.distinct_keys(0, n_keys + N_MV_ABSENT, dev)
     bl_launches, table = bucket_list_path(torch, card, check, 13,
                                           pool[:n_keys], pool[n_keys:])
-    mg_launches, reads = metagenomics_path(torch, card, check, 14)
+    mg_launches, reads, mg_table, mg_queries = metagenomics_path(
+        torch, card, check, 14)
     records += new_kernels(torch, card, check, 15, table, pool[:n_keys],
-                           reads, bl_launches, mg_launches)
-    del table, pool, reads
+                           reads, bl_launches, mg_launches, mg_table,
+                           mg_queries)
+    del table, pool, reads, mg_table, mg_queries
     torch.cuda.empty_cache()
 
     # -- phases 16-18: the relational layer (fig9) -------------------------

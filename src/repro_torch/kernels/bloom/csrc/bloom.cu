@@ -29,6 +29,33 @@
 // (OR commutes and is idempotent, so the filter is bit-exact whatever the
 // order of the keys); above kMergeK hashes it issues one atomicOr per bit.
 // The query stops at the first bit that is clear.
+//
+// A batch that visits each sector of a filter larger than L2 many times
+// would fetch and write back every sector that often.  So the insert has
+// a second path (bloom_insert_partitioned; the wrapper picks it by keys
+// per filter sector, kernels/bloom/ops.py:insert_plan).  The filter's flat
+// rows (plane * num_blocks + block) are cut into tiles of at most
+// kTileWords words (64 KiB), and the tiles into ranges of tiles_per_range
+// tiles (4 MiB); the keys are sorted by tile in two passes, then each
+// tile's keys are ORed in shared memory:
+//   1. histogram_kernel counts the kept keys of each tile (masked keys and
+//      keys whose plane is out of range are dropped), in shared memory
+//      over a grid-stride loop, one global atomic per block and tile;
+//   2. scan_kernel turns the counts into each tile's and each range's
+//      first slot;
+//   3. scatter_kernel<false> sorts each block's 2048 keys by range in
+//      shared memory and writes each range's run coalesced into a first
+//      scratch, at the slot that range's cursor hands out (one global
+//      atomic per block and range);
+//   4. scatter_kernel<true> does the same within each range, by tile, into
+//      a second scratch: a range's 2048 keys fall into its few hundred
+//      tiles, so the runs stay whole sectors;
+//   5. tile_insert_kernel gives each tile a block, which ORs the tile's
+//      keys' bits into a copy of the tile in shared memory (shared
+//      atomics), then ORs the copy into the filter: each word the keys
+//      touch is read and written once, by the one block that owns it.
+// Reordering the keys changes nothing: OR is order-free.  The scratch and
+// the counts come from the caller.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +64,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMergeK = 16;  // hashes whose bits are merged per word
+// the partitioned insert: keys a tile of the histogram and the scatter (8 a
+// thread), and the most ranges it cuts a filter into
+constexpr int kTileKeys = 8 * kThreads;
+// ... the most bins (ranges, or tiles of a range) one of its passes sorts a
+// block's keys into, the most tiles it cuts a filter into (its histogram:
+// 128 KiB of shared memory), and the most words of a tile (64 KiB of
+// shared memory, ORed by kTileThreads threads)
+constexpr int kMaxLocal = 1024;
+constexpr int kMaxTiles = 32768;
+constexpr int kTileWords = 16384;
+constexpr int kTileThreads = 512;
+constexpr int kScanThreads = 1024;
+constexpr int kUnroll = 4;  // keys a thread loads before it uses them
 constexpr uint32_t kStepAdd = 0x61C88647u;
 
 __device__ __forceinline__ uint32_t mix_murmur3(uint32_t x) {
@@ -65,6 +105,7 @@ struct Geometry {
   int wpb;        // u32 words per block
   int k;          // hashes (bits) per key
   int planes;
+  uint32_t rows;  // planes * num_blocks (the partitioned insert's rows)
   bool pow2;      // bits is a power of two: mod is a mask
 };
 
@@ -90,16 +131,10 @@ __device__ __forceinline__ bool locate(const Geometry& geo, uint32_t key,
   return true;
 }
 
-__global__ void __launch_bounds__(kThreads)
-insert_kernel(uint32_t* __restrict__ words, const uint32_t* __restrict__ keys,
-              const uint8_t* __restrict__ mask,
-              const int32_t* __restrict__ planes, long long n, Geometry geo) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n || (mask && !mask[i])) return;
-  size_t row;
-  uint32_t h, g;
-  if (!locate(geo, keys[i], planes, i, &row, &h, &g)) return;
-  uint32_t* r = words + row;
+// OR key (h, g)'s k bits into its row `r`: one atomicOr per touched word
+// (bits of one word merged) up to kMergeK hashes, one per bit above.
+__device__ __forceinline__ void or_bits(const Geometry& geo, uint32_t* r,
+                                        uint32_t h, uint32_t g) {
   if (geo.k > kMergeK) {
     for (int j = 0; j < geo.k; ++j) {
       const uint32_t p = position(geo, h, g, j);
@@ -126,6 +161,348 @@ insert_kernel(uint32_t* __restrict__ words, const uint32_t* __restrict__ keys,
       }
       if (first) atomicOr(r + w, bits);
     }
+  }
+}
+
+// The direct path: one thread per key, in batch order.
+__global__ void __launch_bounds__(kThreads)
+insert_kernel(uint32_t* __restrict__ words, const uint32_t* __restrict__ keys,
+              const uint8_t* __restrict__ mask,
+              const int32_t* __restrict__ planes, long long n, Geometry geo) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n || (mask && !mask[i])) return;
+  size_t row;
+  uint32_t h, g;
+  if (!locate(geo, keys[i], planes, i, &row, &h, &g)) return;
+  or_bits(geo, words + row, h, g);
+}
+
+// x / d and x % d for u32 x by a u32 d fixed at launch: c = ceil(2^64 / d),
+// x / d = (c * x) >> 64 and x % d = ((c * x mod 2^64) * d) >> 64, exact
+// for every 32-bit x and d >= 2 (Lemire, Kaser, Kurz, "Faster remainder by
+// direct computation", 2019); d = 1 is its own case.  A few multiplies in
+// place of the division the compiler emits for a divisor it cannot see.
+struct Divider {
+  unsigned long long c;
+  uint32_t d;
+  __device__ __forceinline__ uint32_t div(uint32_t x) const {
+    return d == 1u ? x : (uint32_t)__umul64hi(c, x);
+  }
+  __device__ __forceinline__ uint32_t mod(uint32_t x) const {
+    return d == 1u ? 0u : (uint32_t)__umul64hi(c * x, d);
+  }
+};
+
+Divider make_divider(uint32_t d) {
+  return Divider{d > 1u ? ~0ULL / d + 1 : 0ULL, d};
+}
+
+// The partitioned insert's cut of the filter's flat rows: tiles of
+// rows_per_tile rows (at most kTileWords words, ORed in shared memory),
+// and ranges of tiles_per_range tiles (the first pass's groups).  The
+// counts buffer holds, in ints: count[tiles] (kept keys a tile),
+// begin[tiles + 1] and cursor[tiles] (a tile's first and next slot in the
+// second scratch), rbegin[ranges + 1] and rcursor[ranges] (the same for a
+// range in the first scratch) and chunk[ranges + 1] (the first block of
+// each range in the second pass).
+struct Parts {
+  uint32_t rows_per_tile;
+  int tiles;
+  int tiles_per_range;
+  int ranges;
+  Divider blocks;  // num_blocks
+  Divider tile;    // rows_per_tile
+  Divider range;   // rows_per_tile * tiles_per_range
+  __host__ __device__ int* count(int* c) const { return c; }
+  __host__ __device__ int* begin(int* c) const { return c + tiles; }
+  __host__ __device__ int* cursor(int* c) const { return c + 2 * tiles + 1; }
+  __host__ __device__ int* rbegin(int* c) const { return c + 3 * tiles + 1; }
+  __host__ __device__ int* rcursor(int* c) const {
+    return c + 3 * tiles + ranges + 2;
+  }
+  __host__ __device__ int* chunk(int* c) const {
+    return c + 3 * tiles + 2 * ranges + 2;
+  }
+};
+
+// Key i's flat row (plane * num_blocks + block), or -1 when the key is
+// masked or its plane is out of range.
+__device__ __forceinline__ long long flat_row(const Geometry& geo,
+                                              const Parts& pt, uint32_t key,
+                                              const uint8_t* mask,
+                                              const int32_t* planes,
+                                              long long i) {
+  if (mask && !mask[i]) return -1;
+  const int plane = planes ? planes[i] : 0;
+  if (plane < 0 || plane >= geo.planes) return -1;
+  return (uint32_t)plane * geo.num_blocks
+         + pt.blocks.mod(mix_murmur3(key ^ geo.seed));
+}
+
+// Step 1: count[t] += the kept keys of tile t, the block's counts summed in
+// shared memory over a grid-stride loop (a block of kScanThreads threads
+// an SM).
+__global__ void __launch_bounds__(kScanThreads)
+histogram_kernel(const uint32_t* __restrict__ keys,
+                 const uint8_t* __restrict__ mask,
+                 const int32_t* __restrict__ planes, long long n,
+                 Geometry geo, Parts pt, int* __restrict__ counts) {
+  extern __shared__ int hist[];
+  for (int t = threadIdx.x; t < pt.tiles; t += kScanThreads) hist[t] = 0;
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * kScanThreads;
+  for (long long i0 = (long long)blockIdx.x * kScanThreads + threadIdx.x;
+       i0 < n; i0 += kUnroll * stride) {
+    uint32_t key[kUnroll];  // loaded together, then counted
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (i0 + u * stride < n) key[u] = keys[i0 + u * stride];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + u * stride;
+      if (i >= n) break;
+      const long long row = flat_row(geo, pt, key[u], mask, planes, i);
+      if (row >= 0) atomicAdd(&hist[pt.tile.div((uint32_t)row)], 1);
+    }
+  }
+  __syncthreads();
+  int* count = pt.count(counts);
+  for (int t = threadIdx.x; t < pt.tiles; t += kScanThreads)
+    if (hist[t]) atomicAdd(count + t, hist[t]);
+}
+
+// out[0 .. m] = the exclusive scan of in[0 .. m) (out[m]: the total), by a
+// block of kScanThreads threads, each scanning a run of m / kScanThreads.
+__device__ void block_exclusive_scan(const int* in, int* out, int m) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (m + kScanThreads - 1) / kScanThreads;
+  const int lo = min(m, (int)threadIdx.x * per), hi = min(m, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += in[i];
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = warp_sums[lane];
+    int wi = w;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, wi, d);
+      if (lane >= d) wi += y;
+    }
+    warp_sums[lane] = wi - w;
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    const int x = in[i];
+    out[i] = run;
+    run += x;
+  }
+  if (threadIdx.x == kScanThreads - 1) out[m] = run;
+  __syncthreads();
+}
+
+// Step 2: the tiles' and the ranges' first slots, cursors and the second
+// pass's blocks of each range (see Parts), by one block.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(Parts pt, int* __restrict__ counts) {
+  __shared__ int blocks[kMaxLocal];
+  int* begin = pt.begin(counts);
+  int* rbegin = pt.rbegin(counts);
+  block_exclusive_scan(pt.count(counts), begin, pt.tiles);
+  for (int t = threadIdx.x; t < pt.tiles; t += kScanThreads)
+    pt.cursor(counts)[t] = begin[t];
+  for (int r = threadIdx.x; r <= pt.ranges; r += kScanThreads)
+    rbegin[r] = begin[min(r * pt.tiles_per_range, pt.tiles)];
+  __syncthreads();
+  for (int r = threadIdx.x; r < pt.ranges; r += kScanThreads) {
+    pt.rcursor(counts)[r] = rbegin[r];
+    blocks[r] = (rbegin[r + 1] - rbegin[r] + kTileKeys - 1) / kTileKeys;
+  }
+  __syncthreads();
+  block_exclusive_scan(blocks, pt.chunk(counts), pt.ranges);
+}
+
+// In place: the exclusive scan of v[0 .. m) in shared memory (m <=
+// kMaxLocal), by a block of kThreads threads.
+__device__ void local_scan(int* v, int m) {
+  __shared__ int carry[kMaxLocal / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = warp; c * 32 < m; c += kThreads / 32) {
+    const int i = c * 32 + lane;
+    const int x = i < m ? v[i] : 0;
+    int incl = x;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    if (i < m) v[i] = incl - x;
+    if (lane == 31) carry[c] = incl;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int c = 0; c * 32 < m; ++c) {
+      const int t = carry[c];
+      carry[c] = run;
+      run += t;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < m; i += kThreads) v[i] += carry[i / 32];
+  __syncthreads();
+}
+
+// Steps 3 and 4: a block's tile of up to kTileKeys keys, sorted by bin in
+// shared memory and written coalesced, each bin's run at the slot its
+// cursor hands out.  Step 3 (SECOND = false): the caller's keys into the
+// first scratch by range (masked keys and planes out of range dropped).
+// Step 4 (SECOND = true): each range's keys of the first scratch into the
+// second by tile, the blocks of range r starting at chunk[r].
+template <bool SECOND>
+__global__ void __launch_bounds__(kThreads)
+scatter_kernel(const uint32_t* __restrict__ keys,
+               const uint8_t* __restrict__ mask,
+               const int32_t* __restrict__ planes, long long n, Geometry geo,
+               Parts pt, int* __restrict__ counts,
+               uint32_t* __restrict__ out_keys,
+               int32_t* __restrict__ out_planes) {
+  __shared__ int hist[kMaxLocal];   // this block's keys of each bin
+  __shared__ int local[kMaxLocal];  // their first slot in the staging
+  __shared__ int base[kMaxLocal];   // their first slot in out_*
+  __shared__ uint32_t stage_keys[kTileKeys];
+  __shared__ int32_t stage_planes[kTileKeys];
+  __shared__ uint16_t stage_bin[kTileKeys];
+  constexpr int kItems = kTileKeys / kThreads;
+  long long lo, hi;
+  uint32_t row0 = 0;
+  Divider width;
+  int bins;
+  int* cursor;
+  if (!SECOND) {
+    lo = (long long)blockIdx.x * kTileKeys;
+    hi = min(n, lo + kTileKeys);
+    width = pt.range;
+    bins = pt.ranges;
+    cursor = pt.rcursor(counts);
+  } else {
+    const int* chunk = pt.chunk(counts);
+    const int b = blockIdx.x;
+    if (b >= chunk[pt.ranges]) return;  // whole blocks leave together
+    int r = 0;  // the last range whose blocks start at or before b
+    for (int step = kMaxLocal; step > 0; step >>= 1)
+      if (r + step < pt.ranges && chunk[r + step] <= b) r += step;
+    const int* rbegin = pt.rbegin(counts);
+    lo = rbegin[r] + (long long)(b - chunk[r]) * kTileKeys;
+    hi = min((long long)rbegin[r + 1], lo + kTileKeys);
+    width = pt.tile;
+    row0 = (uint32_t)r * pt.tiles_per_range * pt.rows_per_tile;
+    bins = pt.tiles_per_range;
+    cursor = pt.cursor(counts) + r * pt.tiles_per_range;
+  }
+  for (int b = threadIdx.x; b < bins; b += kThreads) hist[b] = 0;
+  __syncthreads();
+  int bin[kItems], slot[kItems];
+  uint32_t key[kItems];  // loaded together, then sorted
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const long long i = lo + u * kThreads + threadIdx.x;
+    if (i < hi) key[u] = keys[i];
+  }
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const long long i = lo + u * kThreads + threadIdx.x;
+    bin[u] = -1;
+    if (i < hi) {
+      const long long row = flat_row(geo, pt, key[u], mask, planes, i);
+      if (row >= 0) {
+        bin[u] = width.div((uint32_t)row - row0);
+        slot[u] = atomicAdd(&hist[bin[u]], 1);
+      }
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < bins; b += kThreads) {
+    local[b] = hist[b];
+    if (hist[b]) base[b] = atomicAdd(cursor + b, hist[b]);
+  }
+  __syncthreads();
+  local_scan(local, bins);
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    if (bin[u] >= 0) {
+      const int at = local[bin[u]] + slot[u];
+      stage_keys[at] = key[u];
+      if (planes) stage_planes[at] = planes[lo + u * kThreads + threadIdx.x];
+      stage_bin[at] = (uint16_t)bin[u];
+    }
+  }
+  __syncthreads();
+  const int kept = local[bins - 1] + hist[bins - 1];
+  for (int at = threadIdx.x; at < kept; at += kThreads) {
+    const int b = stage_bin[at];
+    const int to = base[b] + (at - local[b]);
+    out_keys[to] = stage_keys[at];
+    if (planes) out_planes[to] = stage_planes[at];
+  }
+}
+
+// Step 5: block t ORs the keys of tile t (the second scratch's begin[t] ..
+// begin[t + 1]) into a copy of the tile in shared memory that starts at
+// zero, one shared atomicOr a bit, then ORs that copy into the filter:
+// each word the keys touch is read and written once, by the block that
+// owns its tile.
+__global__ void __launch_bounds__(kTileThreads)
+tile_insert_kernel(uint32_t* __restrict__ words,
+                   const uint32_t* __restrict__ keys,
+                   const int32_t* __restrict__ planes, Geometry geo,
+                   Parts pt, const int* __restrict__ counts) {
+  extern __shared__ uint32_t tile[];
+  const uint32_t row0 = blockIdx.x * pt.rows_per_tile;
+  const int size = (int)(min(pt.rows_per_tile, geo.rows - row0)) * geo.wpb;
+  for (int w = threadIdx.x; w < size; w += kTileThreads) tile[w] = 0u;
+  __syncthreads();
+  const int* begin = pt.begin(const_cast<int*>(counts));
+  const int hi = begin[blockIdx.x + 1];
+  for (int i0 = begin[blockIdx.x] + threadIdx.x; i0 < hi;
+       i0 += kUnroll * kTileThreads) {
+    uint32_t key[kUnroll];  // loaded together, then ORed
+    int plane[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kTileThreads;
+      if (i < hi) {
+        key[u] = keys[i];
+        plane[u] = planes ? planes[i] : 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i0 + u * kTileThreads >= hi) break;
+      const uint32_t row = (uint32_t)plane[u] * geo.num_blocks
+                           + pt.blocks.mod(mix_murmur3(key[u] ^ geo.seed));
+      uint32_t* r = tile + (size_t)(row - row0) * geo.wpb;
+      const uint32_t h = mix_xxhash(key[u] ^ geo.seed);
+      const uint32_t g = mix_murmur3(key[u] + kStepAdd);
+      for (int j = 0; j < geo.k; ++j) {
+        const uint32_t p = position(geo, h, g, j);
+        atomicOr(r + (p >> 5), 1u << (p & 31u));
+      }
+    }
+  }
+  __syncthreads();
+  uint32_t* out = words + (size_t)row0 * geo.wpb;
+  for (int w = threadIdx.x; w < size; w += kTileThreads) {
+    const uint32_t v = tile[w];
+    if (v) out[w] |= v;
   }
 }
 
@@ -165,6 +542,7 @@ bool make_geometry(Geometry* geo, long long n, int planes,
   geo->wpb = wpb;
   geo->k = k;
   geo->planes = planes;
+  geo->rows = (uint32_t)((long long)planes * num_blocks);
   geo->pow2 = (geo->bits & (geo->bits - 1u)) == 0u;
   return true;
 }
@@ -187,6 +565,72 @@ extern "C" int bloom_insert(void* words, const void* keys, const void* mask,
                   (cudaStream_t)stream>>>(
       (uint32_t*)words, (const uint32_t*)keys, (const uint8_t*)mask,
       (const int32_t*)plane, n, geo);
+  return (int)cudaGetLastError();
+}
+
+// The partitioned insert (see the header): the filter's planes * num_blocks
+// flat rows (< 2^32) cut into `tiles` tiles of `rows_per_tile` rows
+// (rows_per_tile * wpb <= 16384 words, tiles <= 32768) and those into
+// `ranges` ranges of `tiles_per_range` tiles (both <= 1024); n < 2^31.
+// Scratch: `s1_keys`, `s2_keys` (n,) u32 and, with `plane`, `s1_planes`,
+// `s2_planes` (n,) int32; `counts` (3 * tiles + 3 * ranges + 3,) int32,
+// zero.  Launches the five steps on `stream`; otherwise as bloom_insert.
+extern "C" int bloom_insert_partitioned(
+    void* words, const void* keys, const void* mask, const void* plane,
+    long long n, int planes, unsigned num_blocks, int wpb, int k,
+    unsigned seed, unsigned rows_per_tile, int tiles, int tiles_per_range,
+    int ranges, void* s1_keys, void* s1_planes, void* s2_keys,
+    void* s2_planes, void* counts, void* stream) {
+  Geometry geo;
+  const long long rows = (long long)planes * num_blocks;
+  if (!make_geometry(&geo, n, planes, num_blocks, wpb, k, seed) ||
+      n >= (1LL << 31) || rows > 0xFFFFFFFFLL || rows_per_tile < 1 ||
+      (long long)rows_per_tile * wpb > kTileWords || tiles < 1 ||
+      tiles > kMaxTiles || (long long)tiles * rows_per_tile < rows ||
+      (long long)(tiles - 1) * rows_per_tile >= rows ||
+      tiles_per_range < 1 || tiles_per_range > kMaxLocal || ranges < 1 ||
+      ranges > kMaxLocal || (long long)ranges * tiles_per_range < tiles ||
+      (long long)(ranges - 1) * tiles_per_range >= tiles ||
+      (plane && (!s1_planes || !s2_planes)))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 || k == 0) return 0;
+  const Parts pt{rows_per_tile, tiles, tiles_per_range, ranges,
+                 make_divider(num_blocks), make_divider(rows_per_tile),
+                 make_divider(rows_per_tile * (uint32_t)tiles_per_range)};
+  const cudaStream_t s = (cudaStream_t)stream;
+  int dev, sms;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tile_bytes = (int)(rows_per_tile * wpb * sizeof(uint32_t));
+  cudaFuncSetAttribute(histogram_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kMaxTiles * (int)sizeof(int));
+  cudaFuncSetAttribute(tile_insert_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kTileWords * (int)sizeof(uint32_t));
+  const long long hist_blocks = (n + kScanThreads - 1) / kScanThreads;
+  const unsigned key_tiles = (unsigned)((n + kTileKeys - 1) / kTileKeys);
+  const uint8_t* m = (const uint8_t*)mask;
+  const int32_t* p = (const int32_t*)plane;
+  int* c = (int*)counts;
+  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, histogram_kernel, kScanThreads, tiles * sizeof(int));
+  histogram_kernel<<<(unsigned)min(hist_blocks,
+                                   (long long)sms * max(per_sm, 1)),
+                     kScanThreads, tiles * sizeof(int), s>>>(
+      (const uint32_t*)keys, m, p, n, geo, pt, c);
+  scan_kernel<<<1, kScanThreads, 0, s>>>(pt, c);
+  scatter_kernel<false><<<key_tiles, kThreads, 0, s>>>(
+      (const uint32_t*)keys, m, p, n, geo, pt, c, (uint32_t*)s1_keys,
+      (int32_t*)s1_planes);
+  scatter_kernel<true><<<key_tiles + ranges, kThreads, 0, s>>>(
+      (const uint32_t*)s1_keys, nullptr, p ? (const int32_t*)s1_planes
+                                           : nullptr,
+      n, geo, pt, c, (uint32_t*)s2_keys, (int32_t*)s2_planes);
+  tile_insert_kernel<<<tiles, kTileThreads, tile_bytes, s>>>(
+      (uint32_t*)words, (const uint32_t*)s2_keys,
+      p ? (const int32_t*)s2_planes : nullptr, geo, pt, c);
   return (int)cudaGetLastError();
 }
 

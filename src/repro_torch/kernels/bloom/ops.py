@@ -13,6 +13,16 @@ on CPU tensors they run the plain versions below; on any other device
 they raise.  There is no fallback: a CUDA tensor launches the kernel or
 raises.
 
+The insert has two paths, picked by ``insert_plan`` from the batch's keys
+per filter sector: the direct one (one thread per key, in batch order)
+and, for a batch that visits each sector many times, the partitioned one
+(``bloom_insert_partitioned``: the keys sorted by 64 KiB tile of the
+filter in two passes, then each tile's keys ORed in shared memory and the
+tile ORed into the filter once), whose scratch (two copies of the keys,
+and of their planes, in tile order; the tiles' counts) the wrapper
+allocates.  Either is one wrapper call: one count in ``LAUNCHES``;
+``PATHS`` counts which path each took.
+
 Unlike the reference, the insert updates ``words`` **in place** (and
 returns it): a filter of the card's size is never copied per batch.  A
 key whose mask is False, or whose plane is outside [0, P), is not
@@ -28,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,13 +50,70 @@ LAUNCHES = {"bloom_insert": 0, "bloom_query": 0}
 #: the keys those launches took
 ELEMENTS = dict.fromkeys(LAUNCHES, 0)
 
+#: the path each ``bloom_insert`` launch took since the last
+#: ``reset_launches``
+PATHS = {"direct": 0, "partitioned": 0}
+
 #: keys per pass of the plain versions (bounds their (n, k) temporaries)
 PLAIN_CHUNK = 1 << 22
+
+#: the partitioned insert's cut of a filter: tiles of at most TILE_WORDS
+#: words (``csrc/bloom.cu``: ``kTileWords``, a tile ORed in shared memory),
+#: at most MAX_TILES of them (``kMaxTiles``), grouped for its first pass
+#: into ranges of about RANGE_BYTES, at most MAX_LOCAL ranges of at most
+#: MAX_LOCAL tiles (``kMaxLocal``).  At 2^28 keys into 2^32 bits (NVIDIA
+#: H100 80GB HBM3, 700.00 W; tools/probe_cops_update.py bloom) 64 KiB tiles
+#: in ranges of 2 / 4 / 16 MiB took 5.403 / 4.554 / 5.120 ms, 32 KiB tiles
+#: 5.418 / 4.679 / 5.581
+TILE_WORDS = 1 << 14
+MAX_TILES = 1 << 15
+RANGE_BYTES = 4 << 20
+MAX_LOCAL = 1024
+#: a batch with at least this many keys per 32-byte sector of its filter
+#: takes the partitioned insert, a sparser one the direct insert.  Into
+#: fig12's 8 x 64 MiB stack (NVIDIA H100 80GB HBM3, 700.00 W;
+#: tools/probe_cops_update.py bloom): at 0.25 keys a sector direct 0.584 ms,
+#: partitioned 0.659; at 0.5, 1.031 and 0.803; they cross near 0.3
+PARTITION_KEYS_PER_SECTOR = 0.3
+
+
+class InsertPlan(NamedTuple):
+    """How ``bloom_insert`` runs a batch: ``partitioned`` or direct; the
+    partitioned path's ``tiles`` of ``rows_per_tile`` filter rows, in
+    ``ranges`` of ``tiles_per_range`` tiles."""
+
+    partitioned: bool
+    rows_per_tile: int = 0
+    tiles: int = 0
+    tiles_per_range: int = 0
+    ranges: int = 0
+
+
+def insert_plan(n: int, num_rows: int, wpb: int) -> InsertPlan:
+    """The insert's path for ``n`` keys into a filter of ``num_rows``
+    rows (planes x blocks) of ``wpb`` words: partitioned when the filter
+    spans more than one range of ``RANGE_BYTES`` (a filter of one range
+    lies in the card's L2 as it is), the keys per 32-byte sector of it reach
+    ``PARTITION_KEYS_PER_SECTOR`` and the cut fits the kernel's limits,
+    else direct."""
+    rows_per_tile = max(1, TILE_WORDS // wpb)
+    tiles = -(-num_rows // rows_per_tile)
+    per_range = max(1, RANGE_BYTES // (4 * wpb * rows_per_tile))
+    per_range = max(per_range, -(-tiles // MAX_LOCAL))
+    ranges = -(-tiles // per_range)
+    sectors = num_rows * wpb * 4 / 32
+    if (ranges < 2 or n < PARTITION_KEYS_PER_SECTOR * sectors
+            or tiles > MAX_TILES or per_range > MAX_LOCAL
+            or num_rows >= 2 ** 32 or n >= 2 ** 31):
+        return InsertPlan(False)
+    return InsertPlan(True, rows_per_tile, tiles, per_range, ranges)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = ELEMENTS[name] = 0
+    for name in PATHS:
+        PATHS[name] = 0
 
 
 @functools.cache
@@ -57,7 +125,10 @@ def _lib() -> ctypes.CDLL:
     geometry = [ll, i, ui, i, i, ui, vp]   # n, planes, blocks, wpb, k, seed, stream
     lib.bloom_insert.argtypes = [vp] * 4 + geometry
     lib.bloom_query.argtypes = [vp] * 4 + geometry
-    lib.bloom_insert.restype = lib.bloom_query.restype = ctypes.c_int
+    lib.bloom_insert_partitioned.argtypes = (
+        [vp] * 4 + geometry[:-1] + [ui, i, i, i] + [vp] * 6)
+    for f in (lib.bloom_insert, lib.bloom_query, lib.bloom_insert_partitioned):
+        f.restype = ctypes.c_int
     return lib
 
 
@@ -100,15 +171,20 @@ def _check(words, keys, mask, planes) -> bool:
     return False
 
 
-def _launch(name, words, keys, args, k_hashes, seed) -> None:
-    """Launch kernel ``name`` on the current stream with the pointers
-    ``args`` (None for a null one); count it and raise on a CUDA error."""
+def _launch(name, words, keys, args, k_hashes, seed, entry=None,
+            extra=()) -> None:
+    """Launch kernel ``name`` (through the C function ``entry``, default
+    ``name``) on the current stream with the pointers ``args`` (None for
+    a null one) and the arguments ``extra`` after the geometry; count it
+    and raise on a CUDA error."""
     stack = _stack(words)
     with torch.cuda.device(words.device):
-        rc = getattr(_lib(), name)(
+        rc = getattr(_lib(), entry or name)(
             *(None if a is None else a.data_ptr() for a in args),
             keys.shape[0], stack.shape[0], stack.shape[1], stack.shape[2],
             k_hashes, seed & 0xFFFFFFFF,
+            *(e.data_ptr() if isinstance(e, torch.Tensor) else e
+              for e in extra),
             torch.cuda.current_stream().cuda_stream)
     LAUNCHES[name] += 1
     ELEMENTS[name] += keys.shape[0]
@@ -173,13 +249,37 @@ def insert_words(words, keys, mask=None, *, k_hashes, seed, planes=None):
         return insert_plain(words, keys, mask, k_hashes=k_hashes, seed=seed,
                             planes=planes)
     if keys.shape[0] and k_hashes:
-        _launch("bloom_insert", words, keys,
-                (words, keys.contiguous(),
-                 None if mask is None else mask.contiguous(),
-                 None if planes is None
-                 else planes.to(torch.int32).contiguous()),
-                k_hashes, seed)
+        stack = _stack(words)
+        plan = insert_plan(keys.shape[0], stack.shape[0] * stack.shape[1],
+                           stack.shape[2])
+        insert_launch(words, keys, mask, planes, k_hashes, seed, plan)
     return words
+
+
+def insert_launch(words, keys, mask, planes, k_hashes, seed,
+                  plan: InsertPlan) -> None:
+    """One ``bloom_insert`` launch of a non-empty batch on CUDA tensors by
+    ``plan``'s path (``insert_words`` takes ``insert_plan``'s; a caller
+    may give another to time or test a path)."""
+    n, dev = keys.shape[0], keys.device
+    args = (words, keys.contiguous(),
+            None if mask is None else mask.contiguous(),
+            None if planes is None else planes.to(torch.int32).contiguous())
+    if not plan.partitioned:
+        _launch("bloom_insert", words, keys, args, k_hashes, seed)
+        PATHS["direct"] += 1
+        return
+    scratch = torch.empty((2 if planes is None else 4, n), dtype=torch.int32,
+                          device=dev)
+    counts = torch.zeros((3 * plan.tiles + 3 * plan.ranges + 3,),
+                         dtype=torch.int32, device=dev)
+    _launch("bloom_insert", words, keys, args, k_hashes, seed,
+            entry="bloom_insert_partitioned",
+            extra=(plan.rows_per_tile, plan.tiles, plan.tiles_per_range,
+                   plan.ranges, scratch[0],
+                   None if planes is None else scratch[2], scratch[1],
+                   None if planes is None else scratch[3], counts))
+    PATHS["partitioned"] += 1
 
 
 def query_words(words, keys, *, k_hashes, seed, planes=None):

@@ -60,7 +60,12 @@ exactly the plain version's store.
 
 The bucket list's chain walk writes no shared state, so ``cops_bucket_walk``
 is held bit-exact to ``bucket_walk_plain``: both arenas identical, slot by
-slot (``run_bucket_case``).
+slot (``run_bucket_case``), and in ``run_chain_case`` on chains grown by
+many small batches, so that their buckets are scattered over the pool and
+long (the kernel walks several chains a warp, each to its end), with
+batches around the kernel's chains a warp and whole warps of inactive
+queries; there the arenas must also give each query exactly its key's
+values in insertion order.
 
 The read-modify-write (``check_update``: ``cops_update`` and
 ``cops_update64``, the group-by's and the counting table's):
@@ -112,6 +117,8 @@ FULL_RUNS = 64     # and the most runs it appends
 LOOKUP_LOAD = 0.97      # the lookup case's fill, and the small budgets
 LOOKUP_BUDGETS = (1, 2)  # (windows) it walks with beside the table's
 RETRIEVE_RUNS = (1, 8, 40)   # the retrieve case's runs of equal keys
+CHAIN_ROUNDS = 24    # the chain case's insert batches
+CHAIN_LONG = 200     # values of each of its long keys, over every batch
 
 
 def twin(fn, table_keys):
@@ -1137,4 +1144,134 @@ def run_bucket_case(n: int, *, r: int, growth: float, s0: int, device,
     batch2 = torch.cat([base[:half // r + 1].repeat_interleave(r)[:half],
                         new.repeat_interleave(r)[:n // 8 - half]])
     batch("batch2", batch2, n)
+    return checks
+
+
+def chain_values(qa, ra, pool, n: int) -> list[list[int]]:
+    """Each query's values from a chain walk's arenas, in rank order: the
+    pool words of the slots stamped with the query, sorted by their rank
+    (what ``retrieve_all`` emits); [] for a query no slot names."""
+    slots = torch.nonzero(qa < n).squeeze(1)
+    order = torch.argsort(qa[slots].long() * (1 << 31) + ra[slots].long())
+    slots = slots[order]
+    got = [[] for _ in range(n)]
+    for q, v in zip(qa[slots].tolist(), pool[slots].tolist()):
+        got[q].append(v)
+    return got
+
+
+def run_chain_case(*, growth: float, s0: int, device, window: int = 32,
+                   warp_keys: int = 8, seed: int = 5,
+                   reference=None) -> dict[str, bool]:
+    """Hold ``cops_bucket_walk`` (on the CPU, whatever the wrapper runs)
+    bit-exact against ``bucket_walk_plain`` where chains are long and
+    scattered, as in Fig. 8's index.
+
+    A bucket list (key capacity 2^11 at ``LOAD``, schedule (``growth``,
+    ``s0``)) is built by ``CHAIN_ROUNDS`` insert batches, as Fig. 8 indexes
+    one genome a batch: 16 long keys take ``CHAIN_LONG`` values spread
+    over every batch, 512 keys 1 to 3 values in a random third of the
+    batches, and each batch 32 keys of its own; each batch is shuffled
+    (``seed``).  So a long key's chain holds a bucket from many batches,
+    each allocated where its batch's run of the pool lies.  The queries:
+    the long keys first, then the others, a quarter of them again, and
+    absent keys; they are walked whole ("all") and as their first 1,
+    ``warp_keys`` - 1, ``warp_keys``, ``warp_keys`` + 1 and 33 queries,
+    each with the handle probe's ``found`` ("found") and with whole groups
+    of ``warp_keys`` and of 32 queries made inactive besides ("warps").
+
+    Returns ``{check: holds}``: each walk bit-exact (``exact_{batch}_
+    {mask}``) and its arenas giving each active query exactly its key's
+    values in insertion order and no other query a slot
+    (``values_{batch}_{mask}``); with ``reference`` (a function of the
+    table, the active flags and the ``ptr``, ``cnt`` and ``bidx`` handle
+    fields that returns the two arenas), the whole batch's arenas equal to
+    its (``reference_{mask}``); and that the case reaches what it is
+    for: a chain of at least 6 buckets (``reaches_long_chains``), links
+    to a bucket that does not end right before the linking one
+    (``reaches_scattered_buckets``), a bucket of more than 32 values at
+    growth 2 (``reaches_large_buckets``), and a warp whose queries are all
+    inactive (``reaches_inactive_warps``).
+    """
+    from repro_torch.core import bucket_list
+    gen = torch.Generator().manual_seed(seed)
+    long_keys, mid_keys = 16, 512
+    own = 32
+    ids = distinct_keys(0, long_keys + mid_keys + CHAIN_ROUNDS * own + 64,
+                        "cpu")
+    longs, mids = ids[:long_keys], ids[long_keys:long_keys + mid_keys]
+    owns = ids[long_keys + mid_keys:-64].view(CHAIN_ROUNDS, own)
+    absent = ids[-64:]
+    per = [CHAIN_LONG // CHAIN_ROUNDS + (b < CHAIN_LONG % CHAIN_ROUNDS)
+           for b in range(CHAIN_ROUNDS)]
+    mid_in = torch.rand((CHAIN_ROUNDS, mid_keys), generator=gen) < 1 / 3
+    mid_r = torch.randint(1, 4, (CHAIN_ROUNDS, mid_keys), generator=gen)
+    own_r = torch.randint(1, 5, (CHAIN_ROUNDS, own), generator=gen)
+    batches, total = [], 0
+    for b in range(CHAIN_ROUNDS):
+        keys = torch.cat([longs.repeat_interleave(per[b]),
+                          mids[mid_in[b]].repeat_interleave(
+                              mid_r[b][mid_in[b]]),
+                          owns[b].repeat_interleave(own_r[b])])
+        keys = keys[torch.randperm(keys.shape[0], generator=gen)]
+        batches.append(keys)
+        total += keys.shape[0]
+    table = bucket_list.create(int((1 << 11) * LOAD), 4 * total + 64, s0=s0,
+                               growth=growth, window=window, device=device)
+    inserted = {}
+    checks = {"inserted": True}
+    start = 0
+    for keys in batches:
+        keys = keys.to(device)
+        vals = torch.arange(start, start + keys.shape[0], dtype=torch.int32,
+                            device=device)
+        table, status = bucket_list.insert(table, keys, vals)
+        checks["inserted"] &= bool((status == STATUS_INSERTED).all())
+        for k, v in zip(as_u32(keys).tolist(), vals.tolist()):
+            inserted.setdefault(k, []).append(v)
+        start += keys.shape[0]
+    others = torch.cat([mids, owns.reshape(-1)])
+    others = others[torch.randperm(others.shape[0], generator=gen)]
+    queries = torch.cat([longs, others, others[: others.shape[0] // 4],
+                         absent]).to(device)
+    schedule = bucket_list._schedule(table)
+    found, ptr, rcnt, bidx = bucket_list._handle_probe(table, queries)[2:6]
+    i = torch.arange(queries.shape[0], device=device)
+    masks = {"found": found,
+             "warps": found & ((i // warp_keys) % 5 != 3)
+             & ((i // 32) % 7 != 5)}
+    sizes = (None, 1, warp_keys - 1, warp_keys, warp_keys + 1, 33)
+    for size in sizes:
+        label = "all" if size is None else str(size)
+        m = queries.shape[0] if size is None else size
+        for name, active in masks.items():
+            args = (table.pool, ptr[:m], rcnt[:m], bidx[:m], active[:m],
+                    *schedule)
+            got = ops.bucket_walk(*args)
+            checks[f"exact_{label}_{name}"] = _same(
+                got, ops.bucket_walk_plain(*args))
+            want = [inserted[k] if a else [] for k, a in
+                    zip(as_u32(queries[:m]).tolist(), active[:m].tolist())]
+            checks[f"values_{label}_{name}"] = (
+                chain_values(*got, as_u32(table.pool), m) == want)
+            if reference is not None and size is None:
+                checks[f"reference_{name}"] = _same(
+                    got, reference(table, active, ptr, rcnt, bidx))
+    sizes_t, cum_t = (x.long() for x in schedule)
+    q = torch.nonzero(found).squeeze(1)
+    j, p = bidx[q].long(), as_u32(ptr[q])
+    scattered = large = 0
+    while q.numel():
+        link = j > 0
+        prev = as_u32(table.pool[p[link]])
+        pj = j[link] - 1
+        scattered += int((prev + (pj > 0) + sizes_t[pj] != p[link]).sum())
+        large += int((sizes_t[j] > 32).sum())
+        q, j, p = q[link], pj, prev
+    checks["reaches_long_chains"] = int(bidx[found].max()) >= 5
+    checks["reaches_scattered_buckets"] = scattered > 0
+    checks["reaches_large_buckets"] = growth < 2 or large > 0
+    dead = ~masks["warps"].view(-1)[: queries.shape[0] // warp_keys
+                                    * warp_keys].view(-1, warp_keys)
+    checks["reaches_inactive_warps"] = bool(dead.all(1).any())
     return checks

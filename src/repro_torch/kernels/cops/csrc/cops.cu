@@ -214,17 +214,22 @@
 // values lie in a chain of buckets in a u32 value pool, and its handle
 // (pre-probed by the caller) gives the tail bucket's pool address, the
 // tail's index j and the key's value count.  Bucket j > 0 starts with a
-// link slot holding the previous bucket's address; its values follow.  One
-// warp walks one active query's chain from the tail down to bucket 0 and
-// stamps each value slot of the pool-sized arenas with qa = the query's
-// batch index and ra = the value's head-first rank cum[j] + lane, 32 slots
-// at a time (coalesced writes); only the valid slots of the tail are
+// link slot holding the previous bucket's address; its values follow.  A
+// walk goes from the tail down to bucket 0 and stamps each value slot of
+// the pool-sized arenas with qa = the query's batch index and ra = the
+// value's head-first rank cum[j] + i; only the valid slots of the tail are
 // written, so the arenas need no padding (the Pallas tile writes whole
 // 128-slot chunks).  Distinct queries own disjoint chains, so the stamps
 // never collide and the output is deterministic.  What bounds it: the
 // stamps (8 bytes per value) and one dependent 4-byte link read per bucket
-// after the tail, which serialises a walk; a key with a very long chain
-// keeps its one warp busy for all of it.
+// after the tail, which serialises a walk.  So bucket_walk_kernel walks
+// K = kBucketKeys chains a warp, lane j holding query j's chain (its pool
+// address, bucket index and count): each round every walking lane issues
+// its link read before any lane stamps, so K dependent chains' reads are
+// in flight a warp; then the warp stamps the round's buckets packed over
+// its 32 lanes, value t of the round by lane t % 32, so a store writes 32
+// slots of a few buckets however small each is.  A warp walks until its
+// longest chain ends.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -264,6 +269,10 @@ constexpr int kWalkKeys = 8;
 // 4, 8 and 16 keys, 4 walked fig7 wc-oa's 2^25 queries collecting in 9%
 // (u32) and 7% (u64) less time than 8 (tools/probe_cops_update.py).
 constexpr int kRetrieveKeys = 4;
+// chains per warp of the bucket walk: of 4, 8, 16 and 32, 8 walked
+// wc-bl-1's 2^25 queries 2% slower than 4 and fig8's classify 4% faster
+// (NVIDIA H100 80GB HBM3, 700.00 W; tools/probe_cops_update.py walk)
+constexpr int kBucketKeys = 8;
 constexpr unsigned kAll = 0xFFFFFFFFu;  // every lane of a warp
 // walk_kernel's outcomes besides a lane to claim (none: -1): the walk
 // ended at its key; the lane walks no key
@@ -1237,7 +1246,8 @@ __global__ void retrieve_walk_kernel(const uint32_t* __restrict__ tk,
   if (mine) counts[key_index<K>()] = seen;
 }
 
-// The chain walk of each active query (see the header); 32 lanes a query.
+// The chain walks of the active queries, K a warp (see the header).
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 bucket_walk_kernel(const uint32_t* __restrict__ pool,
                    const uint32_t* __restrict__ ptr,
@@ -1245,20 +1255,61 @@ bucket_walk_kernel(const uint32_t* __restrict__ pool,
                    const bool* __restrict__ active,
                    const int* __restrict__ sizes, const int* __restrict__ cum,
                    int* __restrict__ qa, int* __restrict__ ra, long long n) {
-  const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  if (q >= n || !active[q]) return;  // whole warps leave together
+  const long long first = ((long long)blockIdx.x * kThreads + threadIdx.x)
+                          / 32 * K;
+  if (first >= n) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
-  const int count = cnt[q];
-  uint32_t p = ptr[q];
-  for (int j = bidx[q]; j >= 0; --j) {
-    const int base = __ldg(cum + j);
-    const int valid = min(count - base, __ldg(sizes + j));  // tail: partial
-    const size_t start = (size_t)p + (j > 0);               // after the link
-    for (int i = lane; i < valid; i += 32) {
-      qa[start + i] = (int)q;
-      ra[start + i] = base + i;
+  const long long q = first + lane;
+  // lane j < K: query j's chain, its handle fields read coalesced
+  bool walking = lane < K && q < n && active[q];
+  int j = -1, count = 0;
+  uint32_t p = 0;
+  if (walking) {
+    count = cnt[q];
+    p = ptr[q];
+    j = bidx[q];
+    walking = j >= 0;
+  }
+  while (__ballot_sync(kAll, walking)) {
+    int base = 0, valid = 0;
+    size_t start = 0;
+    uint32_t prev = 0;
+    if (walking) {
+      if (j > 0) prev = __ldg(pool + p);  // the link, in flight in the stamps
+      base = __ldg(cum + j);
+      valid = min(count - base, __ldg(sizes + j));  // tail: partial
+      start = (size_t)p + (j > 0);                  // after the link
     }
-    if (j > 0) p = __ldg(pool + p);  // the previous bucket
+    // the round's values packed over the lanes, 32 a store: value t of the
+    // round (in lane order) goes to lane t % 32, which finds its bucket's
+    // lane by a binary search over the lanes' first values
+    const int mine = max(valid, 0);
+    int incl = mine;
+#pragma unroll
+    for (int d = 1; d < K; d <<= 1) {
+      const int y = __shfl_up_sync(kAll, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const int total = __shfl_sync(kAll, incl, K - 1);
+    const int excl = incl - mine;
+    for (int c = 0; c < total; c += 32) {
+      const int t = c + lane;
+      int o = 0;  // the last lane whose values start at or before t
+#pragma unroll
+      for (int d = K / 2; d > 0; d >>= 1)
+        if (__shfl_sync(kAll, excl, o + d) <= t) o += d;
+      const int i = t - __shfl_sync(kAll, excl, o);
+      const size_t s = __shfl_sync(kAll, (unsigned long long)start, o);
+      const int b = __shfl_sync(kAll, base, o);
+      if (t < total) {
+        qa[s + i] = (int)(first + o);
+        ra[s + i] = b + i;
+      }
+    }
+    if (walking) {
+      p = prev;
+      walking = --j >= 0;
+    }
   }
 }
 
@@ -1612,6 +1663,9 @@ extern "C" int cops_update64(void* table_keys, void* table_values,
 // The most representatives whose combine runs in shared memory (R).
 extern "C" int cops_update_shared_groups() { return kSharedGroups; }
 
+// The chains a warp of the bucket walk (K).
+extern "C" int cops_bucket_keys() { return kBucketKeys; }
+
 extern "C" int cops_lookup(const void* table_keys, const void* table_values,
                            const void* keys, void* values, void* found,
                            void* slots, long long n, unsigned num_rows,
@@ -1679,8 +1733,8 @@ extern "C" int cops_bucket_walk(const void* pool, const void* ptr,
                                 const void* cum, void* qarena,
                                 void* rank_arena, long long n, void* stream) {
   if (n <= 0) return 0;
-  bucket_walk_kernel<<<blocks_for(n, 32), kThreads, 0,
-                       (cudaStream_t)stream>>>(
+  bucket_walk_kernel<kBucketKeys>
+      <<<walk_blocks(n, kBucketKeys), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)pool, (const uint32_t*)ptr, (const int*)cnt,
       (const int*)bidx, (const bool*)active, (const int*)sizes,
       (const int*)cum, (int*)qarena, (int*)rank_arena, n);

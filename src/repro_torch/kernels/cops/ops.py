@@ -350,6 +350,8 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cops_update_shared_groups.argtypes = []
     lib.cops_update_shared_groups.restype = ctypes.c_int
+    lib.cops_bucket_keys.argtypes = []
+    lib.cops_bucket_keys.restype = ctypes.c_int
     lib.cops_bucket_walk.argtypes = [vp] * 9 + [ll, vp]
     lib.cops_bucket_walk.restype = ctypes.c_int
     return lib
@@ -647,6 +649,13 @@ def update64(table_keys, table_values, keys, operand, claimv, rest_rep=None,
     return _update(2, table_keys, table_values, keys, operand, claimv,
                    rest_rep, rest_operand, ops=ops, seed=seed, scheme=scheme,
                    max_probes=max_probes, count=count)
+
+
+def bucket_keys() -> int:
+    """K: the chains a warp of ``cops_bucket_walk`` walks
+    (``csrc/cops.cu``: ``kBucketKeys``).  Loads the kernels, so it needs
+    nvcc."""
+    return _lib().cops_bucket_keys()
 
 
 def bucket_walk(pool, ptr, cnt, bidx, active, sizes, cum):

@@ -256,3 +256,41 @@ def test_create_without_card_raises():
         pytest.skip("a CUDA card is present: create() uses it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tbloom.create(1 << 12)
+
+
+def test_insert_plan_picks_the_path_by_keys_per_sector():
+    """``insert_plan``: the partitioned insert for chip_smoke.py phase 21's
+    shape (2^28 keys into 2^32 bits), fig12's preload batches (2^24 keys
+    into 8 planes of 16 bits per slot of 2^25 slots) and a shard's rebuild
+    (2^25 slots into its plane); the direct insert for the serve step's
+    2^20 keys into the 8 planes, for a filter no larger than one range, for
+    one of more than ``MAX_TILES`` tiles and for an empty batch.  A
+    partitioned plan's tiles cover the filter's rows, each at most
+    ``TILE_WORDS`` words, and its ranges the tiles, each at most
+    ``RANGE_BYTES``, at most ``MAX_LOCAL`` ranges of at most ``MAX_LOCAL``
+    tiles."""
+    from repro_torch.core.common import table_geometry
+    stack = 8 * tbloom.num_blocks_for(16 * table_geometry(2 ** 25, 32)[1])
+    shapes = {"phase 21": (2 ** 28, tbloom.num_blocks_for(2 ** 32), True),
+              "preload": (2 ** 24, stack, True),
+              "rebuild": (2 ** 25, stack // 8, True),
+              "serve step": (2 ** 20, stack, False),
+              "one range": (2 ** 28, ops.RANGE_BYTES // 64, False),
+              "too many tiles": (2 ** 30, 2 ** 26, False),
+              "empty": (0, stack, False)}
+    for name, (n, rows, partitioned) in shapes.items():
+        plan = ops.insert_plan(n, rows, 16)
+        assert plan.partitioned == partitioned, (name, plan)
+        if not partitioned:
+            continue
+        assert plan.rows_per_tile * 16 <= ops.TILE_WORDS, (name, plan)
+        assert (plan.tiles - 1) * plan.rows_per_tile < rows <= (
+            plan.tiles * plan.rows_per_tile), (name, plan)
+        assert 2 <= plan.ranges <= ops.MAX_LOCAL, (name, plan)
+        assert plan.tiles_per_range <= ops.MAX_LOCAL, (name, plan)
+        assert (plan.tiles_per_range * plan.rows_per_tile * 64
+                <= ops.RANGE_BYTES), (name, plan)
+        assert (plan.ranges - 1) * plan.tiles_per_range < plan.tiles <= (
+            plan.ranges * plan.tiles_per_range), (name, plan)
+    odd = ops.insert_plan(2 ** 24, 3 * 2 ** 20, 3)
+    assert odd.partitioned and odd.rows_per_tile == ops.TILE_WORDS // 3

@@ -35,6 +35,7 @@ from repro_torch.core.common import (
     STATUS_FULL,
     STATUS_INSERTED,
     TOMBSTONE_WORD,
+    as_u32,
     as_word,
     to_numpy_u32,
 )
@@ -429,6 +430,76 @@ def test_retrieve_case_catches_a_wrong_walk(monkeypatch, fault):
                      ("exact_b1_", "exact_b2_", "exact_rows3_")),
                  "inactive": lambda k: "_groups_" in k}[fault]
     assert bad == {k for k in checks if concerned(k)}, checks
+
+
+@pytest.mark.parametrize("r, growth, s0", [(1, 1.1, 1), (8, 1.1, 1),
+                                           (32, 1.0, 32)])
+def test_bucket_case_runs_on_cpu(r, growth, s0):
+    """The card's bucket-walk case (Fig. 7's wc-bl cells, chains grown
+    across two batches, duplicate and absent queries) at 2^12 pairs, run
+    where both sides are the plain version: every check holds."""
+    checks = contract.run_bucket_case(1 << 12, r=r, growth=growth, s0=s0,
+                                      device="cpu")
+    assert len(checks) == 6 and all(checks.values()), checks
+
+
+def _chain_reference(table, active, ptr, cnt, bidx):
+    """``repro.core.bucket_list.chain_arena`` on the port table's pool,
+    schedule and handles."""
+    from repro.core import bucket_list as jbl
+    jt = jbl.create(64, table.pool_capacity, s0=table.s0,
+                    growth=table.growth)
+    assert jt.sizes == table.sizes and jt.cum == table.cum
+    jt = dataclasses.replace(jt, pool=jnp.asarray(to_numpy_u32(table.pool)))
+    walk = jax.jit(lambda t, *a: jbl.chain_arena(t, *a),
+                   compiler_options=_FAST)
+    qa, ra = walk(jt, jnp.asarray(active.numpy()),
+                  *(jnp.asarray(to_numpy_u32(x)) for x in (ptr, cnt, bidx)))
+    return (torch.from_numpy(np.asarray(qa).astype(np.int32)),
+            torch.from_numpy(np.asarray(ra).astype(np.int32)))
+
+
+@pytest.mark.parametrize("growth, s0", [(1.1, 1), (2.0, 4)])
+def test_chain_case_runs_on_cpu(growth, s0):
+    """The card's scattered-chain case (24 insert batches, chains of up to
+    18 buckets at growth 1.1 and of 128-value buckets at growth 2, batches
+    of 1, 7, 8, 9 and 33 queries, whole warps inactive), run where both
+    sides are the plain version: every walk agrees, gives each query its
+    key's values in insertion order and, on the whole batch, equals the
+    JAX package's ``chain_arena``; and the case reaches what it is for."""
+    checks = contract.run_chain_case(growth=growth, s0=s0, device="cpu",
+                                     reference=_chain_reference)
+    assert len(checks) == 31 and all(checks.values()), checks
+
+
+@pytest.mark.parametrize("fault", ["rank", "link"])
+def test_chain_case_catches_a_wrong_walk(monkeypatch, fault):
+    """The chain case fails where the walk is wrong, and only there: the
+    ranks 0 and 1 of each chain stamped swapped ("rank"), and a walk that
+    skips the link out
+    of each tail bucket, so the bucket before it keeps no stamps ("link");
+    every batch starts with a long key, so every walk check fails and the
+    checks of the build and of what the case reaches hold."""
+    real = ops.bucket_walk
+
+    def bucket_walk(pool, ptr, cnt, bidx, active, sizes, cum):
+        qa, ra = real(pool, ptr, cnt, bidx, active, sizes, cum)
+        n = ptr.shape[0]
+        if fault == "rank":
+            ra = torch.where((qa < n) & (ra < 2), 1 - ra, ra)
+        else:
+            q = torch.nonzero(active & (bidx > 0)).squeeze(1)
+            j = bidx[q].long() - 1
+            start = as_u32(pool[as_u32(ptr[q])]) + (j > 0)
+            for s, v in zip(start.tolist(), sizes.long()[j].tolist()):
+                qa[s:s + v], ra[s:s + v] = n, 0
+        return qa, ra
+
+    monkeypatch.setattr(ops, "bucket_walk", bucket_walk)
+    checks = contract.run_chain_case(growth=1.1, s0=1, device="cpu")
+    bad = {k for k, ok in checks.items() if not ok}
+    assert bad == {k for k in checks
+                   if k.startswith(("exact_", "values_"))}, checks
 
 
 #: every window and scheme in Fig. 7's layout (the ids these cases always

@@ -331,6 +331,26 @@ def test_bucket_walk_holds_to_plain(window, r, growth, s0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("growth, s0", [(1.1, 1), (2.0, 4)])
+@pytest.mark.parametrize("window", [32, 128])
+def test_bucket_walk_holds_to_plain_on_scattered_chains(window, growth, s0):
+    """The K-chain walk bit-exact against its plain version on chains
+    grown by 24 insert batches (buckets scattered over the pool, up to 18
+    a chain at growth 1.1, 128-value buckets at growth 2), on batches of 1,
+    K - 1, K, K + 1 and 33 queries and the whole batch, with whole warps
+    inactive, each query given exactly its key's values in insertion
+    order (``contract.run_chain_case``): 12 walks, 12 launches."""
+    _need_card()
+    ops.reset_launches()
+    checks = contract.run_chain_case(growth=growth, s0=s0, device="cuda",
+                                     window=window,
+                                     warp_keys=ops.bucket_keys())
+    torch.cuda.synchronize()
+    assert len(checks) == 29 and all(checks.values()), checks
+    assert ops.LAUNCHES["cops_bucket_walk"] == 12
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 8, 16, 20, 31, 64])
 @pytest.mark.parametrize("rows, length", [(1, 1337), (300, 150), (7, 300),
                                           (2, 1000)])
@@ -761,6 +781,70 @@ def test_bloom_kernels_hold_to_plain(block_bits, k, planes):
                                  seed=seed).shape == (0,)
     assert torch.equal(got, want)
     assert bloom_ops.LAUNCHES == {"bloom_insert": 1, "bloom_query": 1}
+
+
+#: the insert's path cases: name -> (keys, planes, blocks, words a block,
+#: k, (tile words, range bytes) or None for ``TILE_WORDS`` and
+#: ``RANGE_BYTES``, the path ``insert_plan`` picks)
+_SMALL_CUT = (1024, 1 << 14)    # 64 rows a tile, 4 tiles a range
+_BLOOM_PATHS = {
+    "wide filter": (1 << 25, 1, 2097143, 16, 4, None, "partitioned"),
+    "3 words a block, wide": (1 << 24, 1, (1 << 22) + 15, 3, 4, None,
+                              "partitioned"),
+    "many ranges": ((1 << 20) + 77, 1, 65537, 16, 4, _SMALL_CUT,
+                    "partitioned"),
+    "most ranges": (1 << 20, 1, 65537, 16, 4, (256, 1024), "partitioned"),
+    "below the threshold": (1 << 14, 1, 65537, 16, 4, _SMALL_CUT, "direct"),
+    "planes and a mask": (1 << 20, 5, 16411, 16, 4, _SMALL_CUT,
+                          "partitioned"),
+    "k 17": (1 << 20, 1, 65537, 16, 17, _SMALL_CUT, "partitioned"),
+    "3 words a block": (1 << 20, 1, 65537, 3, 8, _SMALL_CUT, "partitioned"),
+    "one row": (1 << 20, 1, 65537, 16, 4, _SMALL_CUT, "partitioned"),
+    "one tile": (1 << 20, 1, 65537, 16, 4, _SMALL_CUT, "partitioned"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_BLOOM_PATHS))
+def test_bloom_insert_paths_hold_to_plain(case, monkeypatch):
+    """``bloom_insert`` word for word against ``insert_plain`` on each
+    path ``insert_plan`` picks: batches above the threshold on filters of
+    128 MiB and of 48 MiB in 96-bit blocks at the kernel's own cut (64 KiB
+    tiles, 16 MiB ranges), and on filters cut into small tiles and many
+    ranges (up to ``MAX_LOCAL``) with n not a multiple of the kernels'
+    tiles of keys; one below it (the direct path); a stack of 5 planes,
+    some keys' planes out of range, half the keys masked; k = 17 (one
+    atomic a bit); 96-bit blocks; every key in one row; every key in one
+    tile.  One launch a call, through the path expected."""
+    _need_card()
+    n, planes, nb, wpb, k, cut, path = _BLOOM_PATHS[case]
+    if cut:
+        monkeypatch.setattr(bloom_ops, "TILE_WORDS", cut[0])
+        monkeypatch.setattr(bloom_ops, "RANGE_BYTES", cut[1])
+    gen = torch.Generator().manual_seed(len(case) * 1000 + n % 997)
+    keys, mask, plane, words = _bloom_case(gen, n, planes, nb, wpb)
+    if case != "planes and a mask":
+        mask = plane = None
+        words = words[0]
+    if case == "one row":
+        keys = keys[:1].repeat(n)
+    elif case == "one tile":
+        block = bloom_ops.ref.positions(keys, nb, 32 * wpb, k, 7)[0]
+        plan = bloom_ops.insert_plan(n, nb, wpb)
+        keys = keys[block < plan.rows_per_tile]
+        keys = keys[torch.arange(n, device="cuda") % keys.shape[0]]
+    assert bloom_ops.insert_plan(n, planes * nb, wpb).partitioned == (
+        path == "partitioned")
+    bloom_ops.reset_launches()
+    got = words.clone()
+    bloom_ops.insert_words(got, keys, mask, k_hashes=k, seed=7, planes=plane)
+    want = bloom_ops.insert_plain(words.clone(), keys, mask, k_hashes=k,
+                                  seed=7, planes=plane)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bloom_ops.LAUNCHES == {"bloom_insert": 1, "bloom_query": 0}
+    assert bloom_ops.PATHS[path] == 1 and sum(bloom_ops.PATHS.values()) == 1
+    assert bloom_ops.ELEMENTS["bloom_insert"] == n
 
 
 @pytest.mark.cuda

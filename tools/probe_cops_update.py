@@ -2,9 +2,10 @@
 """Probe the constants of the COPS walks and of ``cops_update`` on a CUDA
 card.
 
-    python3 tools/probe_cops_update.py [insert] [retrieve] [update]
+    python3 tools/probe_cops_update.py [insert] [retrieve] [update] [walk]
+                                       [bloom]
 
-(the sections named, all three by default).  Builds variants of
+(the sections named; the first three by default).  Builds variants of
 ``src/repro_torch/kernels/cops/csrc/cops.cu`` that differ from the source
 in one choice each, into ``build/probe/``:
 
@@ -23,6 +24,9 @@ in one choice each, into ``build/probe/``:
   a warp holds first (``__match_any_sync``, then a warp reduction), "plain"
   never folds in the warp; the source folds only a warp whose rows all
   belong to one group.
+
+- for the bucket walk alone ("walk"), its chains a warp
+  (``kBucketKeys``) at 4, 8, 16, 32.
 
 It prints ptxas's registers and spill bytes of every walk, lookup and
 retrieve kernel of each variant.  Then ("insert") it times, under the
@@ -46,7 +50,27 @@ the group-by's ``aggregate`` runs it) of 2^27 rows with keys uniform in
 that differs from the source where that g reaches (K only at the largest
 g, the combine at all; "bounds" as K), and names the kernels of one call
 with their times (``torch.profiler``).  Prints one line per (g, variant)
-and the card's name and power limit.  Needs one card and nvcc; imports no JAX.
+and the card's name and power limit.
+Then ("walk") it times ``ops.bucket_walk`` under the source and each
+bucket-walk variant, the arenas' fill included, every variant's arenas
+held equal to the source's, on two tables: Fig. 7's wc-bl-1 at r = 8
+(``MV_KEYS`` keys x ``MV_R`` into ``bucket_list.create(MV_KEYS / 0.8,
+2 MV_KEYS MV_R + 64)``, growth 1.1, s0 1: chains of 4 buckets laid out
+by one batch) and ``chip_smoke.py``'s Fig. 8 reference (256 genomes
+indexed genome by genome: chains of up to ~20 buckets scattered over the
+pool) queried with its 2^20 reads' sketches, as phases 13 and 14 there
+walk them; and the two arena fills alone.
+Then ("bloom") it times ``bloom_insert`` (``kernels/bloom/ops.py``) by
+each path: at ``chip_smoke.py`` phase 21's shape (2^28 keys into 2^32
+bits, 512-bit blocks, k = 4) the direct path and the partitioned one at
+each tile size of ``TILE_WORDS`` and range size of ``RANGE_MIB``, and the
+source's partitioned kernels named with their times (``torch.profiler``);
+and at fig12's filter stack (8 planes
+of 16 bits per slot of 2^25 slots, a plane per key) the two paths at
+each batch of ``BLOOM_BATCHES`` keys (keys per filter sector 1/64 .. 1),
+and a shard's rebuild (2^25 slots, half live, into one plane); each
+partitioned filter held equal to the direct one.
+Needs one card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -66,6 +90,10 @@ ABSENT_KEYS = 2 ** 24          # their absent lookups (N_SIDE there)
 MV_KEYS, MV_R = 2 ** 25, 8     # fig7 wc-oa r = 8 (phases 6 and 10 there)
 GROUPS = (1, 64, 1024, 2 ** 14, 2 ** 16, 2 ** 25)
 KEYS = (1, 2, 4, 8, 16)
+BUCKET_KEYS = (4, 8, 16, 32)          # the bucket walk's K variants
+RANGE_MIB = (2, 4, 16)                # the partitioned insert's range sizes
+TILE_WORDS = (8192, 16384)            # ... and its tile sizes
+BLOOM_BATCHES = tuple(2 ** e for e in range(18, 25))
 # the per-warp step of the combine in the source, and the two it replaced
 STEP = re.compile(r"      // a warp whose rows all belong to one group.*?"
                   r"\n      }\n", re.S)
@@ -119,6 +147,14 @@ def variants(text):
     return out
 
 
+def bucket_variants(text):
+    """{name: source} of the bucket walk's variants (K)."""
+    own = int(re.search(r"kBucketKeys = (\d+);", text)[1])
+    return {f"bucket K={k}": re.sub(r"kBucketKeys = \d+;",
+                                    f"kBucketKeys = {k};", text)
+            for k in BUCKET_KEYS if k != own}
+
+
 def walk_registers(log):
     """``kernel<args> R registers, S bytes of spill stores`` for every walk,
     lookup and retrieve kernel in ptxas's ``-v`` report ``log``."""
@@ -127,8 +163,9 @@ def walk_registers(log):
             r"Compiling entry function '(\S+)'.*?\n.*?\n\s+\d+ bytes stack "
             r"frame, (\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
             log):
-        m = re.search(r"\d+((?:lookup_walk|retrieve_walk|walk|upsert|match"
-                      r"|claim|lookup|retrieve)_kernel)I(.*?)EEvP", name)
+        m = re.search(r"\d+((?:lookup_walk|retrieve_walk|bucket_walk|walk"
+                      r"|upsert|match|claim|lookup|retrieve)_kernel)I(.*?)"
+                      r"EEvP", name)
         if m:
             args = ", ".join(v for _, v in re.findall(r"L(i|b)(\d+)E",
                                                       m[2]))
@@ -163,10 +200,14 @@ def main() -> int:
                              capture_output=True, text=True)
         return name, lib, res.stdout + res.stderr
 
+    sections = set(sys.argv[1:]) or {"insert", "retrieve", "update"}
+    text = build.sources()["cops"].read_text()
+    todo = (variants(text) if sections & {"insert", "retrieve", "update"}
+            else {"source": text})
+    if "walk" in sections:
+        todo.update(bucket_variants(text))
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        built = list(pool.map(compile_one,
-                              variants(build.sources()["cops"].read_text())
-                              .items()))
+        built = list(pool.map(compile_one, todo.items()))
     libs = {name: lib for name, lib, _ in built}
     walk_k, retrieve_k = own_keys(build.sources()["cops"].read_text())
 
@@ -217,7 +258,6 @@ def main() -> int:
                 for e in prof.key_averages() if "_kernel<" in e.key}
 
     from repro_torch.core import multi_value, single_value
-    sections = set(sys.argv[1:]) or {"insert", "retrieve", "update"}
     for key_words in (1, 2) if "insert" in sections else ():
         if key_words == 1:
             keys = contract.distinct_keys(0, INSERT_KEYS, "cuda")
@@ -366,9 +406,175 @@ def main() -> int:
             del planes
         del keys, vals, payload, rkeys, x, claim, rest, table, empty
         torch.cuda.empty_cache()
+    if "walk" in sections:
+        probe_bucket_walk(torch, libs, use, median_ms)
+    if "bloom" in sections:
+        probe_bloom(torch, median_ms)
     ops._lib.cache_clear()
     print(card, flush=True)
     return 0
+
+
+def probe_bucket_walk(torch, libs, use, median_ms):
+    """The "walk" section (see the module's docstring)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as smoke
+    from repro_torch.core import bucket_list as bl
+    from repro_torch.kernels.cops import contract, ops
+    from repro_torch.kernels.minhash import ops as mh
+
+    def walks(tag, table, queries):
+        found, ptr, rcnt, bidx = bl._handle_probe(table, queries)[2:6]
+        args = (table.pool, ptr, rcnt, bidx, found, *bl._schedule(table))
+        links = int(bidx[found].sum())
+        want = None
+        for name, lib in libs.items():
+            if name != "source" and not name.startswith("bucket K="):
+                continue
+            use(lib)
+            ms, ts = median_ms(lambda: ops.bucket_walk(*args))
+            got = ops.bucket_walk(*args)
+            want = want or got
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            del got
+            print(f"bucket walk {tag}: {queries.shape[0]} queries "
+                  f"({int(found.sum())} found, {int(rcnt[found].sum())} "
+                  f"values, {links} links), pool {table.pool_capacity} "
+                  f"{name}: {ms:.3f} ms (median of 5; min {min(ts):.3f}, "
+                  f"max {max(ts):.3f}; as the source: {same})", flush=True)
+        pool = table.pool
+        fill_ms, ts = median_ms(lambda: (
+            torch.full(pool.shape, queries.shape[0], dtype=torch.int32,
+                       device="cuda"),
+            torch.zeros(pool.shape, dtype=torch.int32, device="cuda")))
+        print(f"bucket walk {tag}: the two (P,) arena fills alone "
+              f"{fill_ms:.3f} ms (min {min(ts):.3f}, max {max(ts):.3f})",
+              flush=True)
+
+    base = contract.distinct_keys(0, MV_KEYS, "cuda")
+    table = bl.create(int(MV_KEYS / contract.LOAD), 2 * MV_KEYS * MV_R + 64,
+                      s0=1, growth=1.1, window=32, device="cuda")
+    table, _ = bl.insert(table, base.repeat_interleave(MV_R),
+                         torch.arange(MV_KEYS * MV_R, dtype=torch.int32,
+                                      device="cuda"))
+    walks("wc-bl-1 r=8", table, base)
+    del base, table
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    genomes = smoke.make_reference(torch, gen)
+    sketches = [smoke.sketch_keys(torch, mh.sketch_reads(
+        smoke.genome_windows(torch, g), k=smoke.K_MER, s=smoke.SKETCH,
+        device="cuda")) for g in genomes]
+    est = genomes.shape[0] * smoke.genome_windows(
+        torch, genomes[0]).shape[0] * smoke.SKETCH
+    table = bl.create(2 * est, 4 * est, s0=1, growth=1.1, window=32,
+                      device="cuda")
+    for g, sk in enumerate(sketches):
+        table, _ = bl.insert(table, sk, torch.full(sk.shape, g,
+                                                   dtype=torch.int32,
+                                                   device="cuda"))
+    del sketches
+    gid = torch.randint(0, genomes.shape[0], (smoke.N_READS,),
+                        device="cuda", generator=gen)
+    pos = torch.randint(0, smoke.GENOME_LEN - smoke.READ_LEN + 1,
+                        (smoke.N_READS,), device="cuda", generator=gen)
+    reads = genomes[gid[:, None], pos[:, None]
+                    + torch.arange(smoke.READ_LEN, device="cuda")]
+    del genomes, gid, pos
+    sk = mh.sketch_reads(reads, k=smoke.K_MER, s=smoke.SKETCH, device="cuda")
+    q = sk[sk != -1]
+    walks("fig8 classify", table, torch.where(q == -2, -3, q))
+    del table, reads, sk, q
+    torch.cuda.empty_cache()
+
+
+def probe_bloom(torch, median_ms):
+    """The "bloom" section (see the module's docstring)."""
+    from repro_torch.core import bloom
+    from repro_torch.kernels.bloom import ops
+    from repro_torch.kernels.cops import contract
+
+    def forced(n, rows, wpb, tile_words, range_bytes):
+        """``insert_plan``'s partitioned cut at these sizes, whatever the
+        threshold says."""
+        saved = ops.TILE_WORDS, ops.RANGE_BYTES, ops.PARTITION_KEYS_PER_SECTOR
+        ops.TILE_WORDS, ops.RANGE_BYTES = tile_words, range_bytes
+        ops.PARTITION_KEYS_PER_SECTOR = 0
+        try:
+            return ops.insert_plan(n, rows, wpb)
+        finally:
+            (ops.TILE_WORDS, ops.RANGE_BYTES,
+             ops.PARTITION_KEYS_PER_SECTOR) = saved
+
+    def paths(tag, words, keys, mask=None, planes=None, cuts=None, **kw):
+        stack = words if words.ndim == 3 else words[None]
+        rows, wpb = stack.shape[0] * stack.shape[1], stack.shape[2]
+        n = keys.shape[0]
+
+        def run(plan):
+            ms, ts = median_ms(
+                lambda w: ops.insert_launch(w, keys, mask, planes,
+                                            plan=plan, **kw),
+                lambda: (words.zero_(),))
+            return ms, ts, words.clone()
+
+        d_ms, d_ts, want = run(ops.InsertPlan(False))
+        line = [f"direct {d_ms:.3f} ms (min {min(d_ts):.3f}, max "
+                f"{max(d_ts):.3f})"]
+        for tile_words, range_bytes in cuts or [(ops.TILE_WORDS,
+                                                 ops.RANGE_BYTES)]:
+            plan = forced(n, rows, wpb, tile_words, range_bytes)
+            if not plan.partitioned:
+                continue
+            ms, ts, got = run(plan)
+            line.append(
+                f"partitioned, {plan.tiles} tiles of {tile_words * 4 >> 10}"
+                f" KiB in {plan.ranges} ranges of {range_bytes >> 20} MiB, "
+                f"{ms:.3f} ms (min {min(ts):.3f}, max {max(ts):.3f}; as "
+                f"direct: {torch.equal(got, want)})")
+            del got
+        plan = ops.insert_plan(n, rows, wpb)
+        if cuts and plan.partitioned:
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ops.insert_launch(words.zero_(), keys, mask, planes,
+                                  plan=plan, **kw)
+                torch.cuda.synchronize()
+            line.append("the source's kernels: " + "; ".join(
+                f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms"
+                for e in prof.key_averages() if e.device_time_total > 0))
+        print(f"bloom insert {tag}: {n} keys, {n / (rows * wpb / 8):.4f} a "
+              f"filter sector; " + "; ".join(line) + f"; insert_plan: "
+              f"{'partitioned' if plan.partitioned else 'direct'}",
+              flush=True)
+        del want
+
+    f = bloom.create(2 ** 32, device="cuda")
+    keys = contract.distinct_keys(0, 2 ** 28, "cuda")
+    paths("phase 21 (2^32 bits)", f.words, keys, k_hashes=f.k, seed=f.seed,
+          cuts=[(w, mib << 20) for w in TILE_WORDS for mib in RANGE_MIB])
+    del f, keys
+    torch.cuda.empty_cache()
+
+    shards, slots = 8, 2 ** 25
+    nb = bloom.num_blocks_for(16 * slots)
+    words = torch.zeros((shards, nb, 16), dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    for n in BLOOM_BATCHES:
+        keys = contract.distinct_keys(n, n, "cuda")
+        owners = torch.randint(0, shards, (n,), generator=gen, device="cuda")
+        paths(f"fig12 stack {shards} x {nb} blocks", words, keys,
+              planes=owners, k_hashes=4, seed=0x9E3779B9)
+    keys = contract.distinct_keys(0, slots, "cuda")
+    live = torch.rand((slots,), generator=gen, device="cuda") < 0.5
+    paths(f"fig12 rebuild, one plane of {nb} blocks", words[0], keys, live,
+          k_hashes=4, seed=0x9E3779B9)
+    del words, keys, live
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
