@@ -126,7 +126,8 @@ status line each:
 15. ``cops_bucket_walk`` at phase 13's shapes and at phase 14's classify
     (its queries on the Fig. 8 index), and ``kmer_hash`` at phase 14's
     reads, each alone and its plain version, compared and timed, with
-    their bounds;
+    their bounds (the k-mer's: each base read once, each hash written
+    once);
 16. ``cops_update`` / ``cops_update64`` vs plain at 2^20 rows under the
     update contract (``contract.run_update_case``): every group-by
     aggregate at 64, 2^16 and 2^19 groups, the counting table's saturating
@@ -162,9 +163,9 @@ status line each:
 19. ``bloom_insert`` / ``bloom_query`` vs their plain versions at 2^20
     keys (each ~4 times, half masked) for 256-, 512- and 1024-bit blocks,
     k = 1, 4, 8, one filter and a stack of 8 with a plane per key (some
-    out of range), and an empty batch, each insert by both paths (the
-    filter whole: the direct insert; cut into 64 KiB ranges: the
-    partitioned one): filter words and hits bit-exact;
+    out of range), and an empty batch, each insert and query by both paths
+    (the filter whole: the direct ones; cut into 64 KiB ranges: the
+    partitioned ones): filter words and hits bit-exact;
 20. the elastic service (``serving/elastic.py``) at fig12's shape
     (``benchmarks/fig12_serve.py:57-62``: 8 shards, 16 bloom bits per key,
     slack 2.5) scaled to the card: 2^25 slots per shard (2^28 in all),
@@ -187,15 +188,15 @@ status line each:
     8 -> 16 (``check_ownership``) at 2^22 slots per shard, so the snapshot
     on disk stays under 300 MiB.  The counters are zeroed just before and
     read just after;
-21. ``bloom_insert`` (the partitioned insert, and the direct one beside
-    it) and ``bloom_query`` alone at 2^28 keys into a filter
+21. ``bloom_insert`` and ``bloom_query`` alone (each by its partitioned
+    path, and by its direct path beside) at 2^28 keys into a filter
     of 2^32 bits (next_prime(2^23) blocks of 512 bits, 512 MiB of words,
     k = 4) and their plain versions, compared and timed; the bound is the
     sectors this run's keys touch, each once (about the filter, read and
     written once), + the key and hit streams, or the integer operations
-    if more; the designs' own traffic (the partitioned insert's passes
-    over the keys, every key's sectors for the direct insert and the
-    query) beside it; and
+    if more; the designs' own traffic (the partitioned paths' passes
+    over the keys, slots and answers, every key's sectors for the direct
+    ones) beside it; and
     the false-positive rate on 2^28 absent keys;
 22. ``flash_fwd`` through ``flash_attention`` vs its plain version
     (``ref.gqa_attention``, f32 softmax attention, TF32 off) on the same
@@ -377,6 +378,8 @@ OPS_PER_KMER = 19
 # modulo and row address (3), and per bit a multiply-add, its mask and the
 # word / bit split (4 per bit, added at the call)
 OPS_PER_BLOOM_KEY = 30
+KMER_DESIGN = ("flat: a thread rolls 8 consecutive outputs over the block's "
+               "span of bases, staged in shared memory; 16-byte stores")
 SOURCE = "src/repro_torch/kernels/cops/csrc/cops.cu"
 MINHASH_SOURCE = "src/repro_torch/kernels/minhash/csrc/minhash.cu"
 BLOOM_SOURCE = "src/repro_torch/kernels/bloom/csrc/bloom.cu"
@@ -520,7 +523,7 @@ def path_counts(*modules) -> Counts:
 
 def kernel_record(name, launches, err, times, plain_times, bound_bytes, *,
                   elements, source=SOURCE, bound_ops=0, bound_flops=0,
-                  flops_rate=None, library_times=None):
+                  flops_rate=None, library_times=None, design=None):
     """One entry of the ``{"kernels": [...]}`` line: the main path's
     ``launches`` of the kernel (``Counts``) and the elements they took, the
     elements of the timed launch, its median time of ``times``, the plain
@@ -530,7 +533,8 @@ def kernel_record(name, launches, err, times, plain_times, bound_bytes, *,
     ``flops_rate``.  ``bound_by`` says "bytes" or "operations", and
     ``bound_rate`` which operations at which rate.  ``path_loss_ms`` ranks
     the kernels for their redesign: the path's elements over the timed
-    launch's, times the timed launch's ms above its bound."""
+    launch's, times the timed launch's ms above its bound.  ``design``
+    names the timed launch's design where a kernel has several."""
     by_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = bound_ops / INT32_OPS_PER_S * 1e3
     by_flops = bound_flops / flops_rate * 1e3 if bound_flops else 0.0
@@ -553,7 +557,7 @@ def kernel_record(name, launches, err, times, plain_times, bound_bytes, *,
             "library_ms": (statistics.median(library_times)
                            if library_times else None),
             "elements": path, "timed_elements": elements,
-            "path_loss_ms": path / elements * (ms - bound)}
+            "path_loss_ms": path / elements * (ms - bound), "design": design}
 
 
 def pair_err(a, b) -> float:
@@ -1504,10 +1508,7 @@ def new_kernels(torch, card, check, phase, table, base, reads, bl_launches,
     kmer_err = int((kout.long() - pout.long()).abs().max())
     check(f"phase{phase} kmer_hash exact", torch.equal(kout, pout))
     del kout, pout
-    tile = 256
-    read_bytes = rows * sum(min(tile + K_MER - 1, length - t0)
-                            for t0 in range(0, n_out, tile))
-    kmer_bytes = read_bytes + 4 * rows * n_out
+    kmer_bytes = rows * length + 4 * rows * n_out   # each base, each hash
     kmer_ops = OPS_PER_KMER * rows * n_out
     ms = 1e3 / HBM_BYTES_PER_S
     print(f"phase {phase} new kernels: {check.status(since)}; "
@@ -1532,7 +1533,8 @@ def new_kernels(torch, card, check, phase, table, base, reads, bl_launches,
                           walk_p_t, walk_bytes, elements=n_q),
             kernel_record("kmer_hash", mg_launches, kmer_err, kmer_t,
                           kmer_p_t, kmer_bytes, elements=rows * n_out,
-                          source=MINHASH_SOURCE, bound_ops=kmer_ops)]
+                          source=MINHASH_SOURCE, bound_ops=kmer_ops,
+                          design=KMER_DESIGN)]
 
 
 def update_cases(torch, check, phase):
@@ -1962,8 +1964,8 @@ def bloom_cases(torch, check, phase):
     on the same card tensors at N_CHECK keys (each key ~4 times, half of
     them masked), for 256-, 512- and 1024-bit blocks, k = 1, 4 and 8, one
     filter and a stack of 8 with a plane per key (some out of range), at
-    16 bits per key, each insert by the direct path (the filter is one
-    range) and by the partitioned one (``RANGE_BYTES`` set to
+    16 bits per key, each insert and query by the direct path (the filter
+    is one range) and by the partitioned one (``RANGE_BYTES`` set to
     SMALL_RANGE_BYTES): filter words and hits bit-exact, every inserted
     key hit, an empty batch a no-op.  Returns the largest error."""
     from repro_torch.core import bloom
@@ -2002,11 +2004,16 @@ def bloom_cases(torch, check, phase):
                     bloom_ops.insert_words(got, keys, mask, planes=owners,
                                            **kw)
                     bloom_ops.insert_words(got, empty, **kw)
+                    # the query's path by its plan, the planes aside:
+                    # direct for one range, partitioned for many
+                    plan = bloom_ops.query_plan(
+                        queries.shape[0], planes * nb, block_bits // 32)
+                    hit = bloom_ops.query_launch(got, queries, qowners,
+                                                 plan=plan, **kw)
                 finally:
                     bloom_ops.RANGE_BYTES = default
                 want = bloom_ops.insert_plain(words.clone(), keys, mask,
                                               planes=owners, **kw)
-                hit = bloom_ops.query_words(got, queries, planes=qowners, **kw)
                 want_hit = bloom_ops.query_plain(want, queries,
                                                  planes=qowners, **kw)
                 err = max(err, words_err(torch, got, want),
@@ -2022,14 +2029,14 @@ def bloom_cases(torch, check, phase):
                 cases += 1
     torch.cuda.synchronize()
     paths = dict(bloom_ops.PATHS)
-    check(f"phase{phase} bloom_insert took both paths",
-          paths == {"direct": cases // 2, "partitioned": cases // 2})
+    check(f"phase{phase} bloom_insert and bloom_query took both paths",
+          set(paths.values()) == {cases // 2})
     print(f"phase {phase} bloom kernels vs plain n={N_CHECK} (x2 queries, "
           f"half absent), {cases} cases (P 1 / 8 (planes -1 .. 8), block "
           f"bits 256 / 512 / 1024, k 1 / 4 / 8, half masked, ~4 copies of "
           f"each key, an empty batch; each filter whole ({default} B ranges:"
-          f" the direct insert) and in ranges of {SMALL_RANGE_BYTES} B (the "
-          f"partitioned one)): {check.status(since)}, bloom_insert's paths "
+          f" the direct paths) and in ranges of {SMALL_RANGE_BYTES} B (the "
+          f"partitioned ones)): {check.status(since)}, the paths taken "
           f"{paths}, max error {err} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     return err
@@ -2340,7 +2347,7 @@ def elastic_path(torch, card, check, phase):
         check(f"{name} launched on the elastic path", launches[name] > 0)
     paths = dict(bloom_ops.PATHS)
     check("bloom_insert took both paths on the elastic path",
-          min(paths.values()) > 0)
+          paths["direct"] > 0 and paths["partitioned"] > 0)
     print(f"phase {phase} save / load / reshard at capacity_per_shard="
           f"{EL_SNAP_CAPACITY} (reduced from {EL_CAPACITY} so the snapshot "
           f"on disk stays under 300 MiB): {n_small} keys, 1/8 erased; save "
@@ -2349,7 +2356,7 @@ def elastic_path(torch, card, check, phase):
           f"reshard {EL_SHARDS} -> {2 * EL_SHARDS} {reshard_s:.3f} s, "
           f"ownership exact: {check.status(since)}; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
-          f"{launches}; bloom_insert's paths {paths}; card {card}",
+          f"{launches}; the bloom kernels' paths {paths}; card {card}",
           flush=True)
     return launches, tap.err
 
@@ -2375,13 +2382,14 @@ def bloom_sectors(torch, words, keys, k, seed) -> tuple[int, int]:
 
 
 def bloom_kernels(torch, card, check, phase, launches, err_before):
-    """Phase 21: ``bloom_insert`` (``insert_plan``'s partitioned path, and
-    the direct path beside it) and ``bloom_query`` alone at N_BLOOM keys
-    into a filter of BLOOM_BITS bits (512-bit blocks, k = 4), and their
-    plain versions, compared and timed, with bounds from the run's own
-    data (the distinct sectors its keys touch, or the integer operations);
-    the false-positive rate on N_BLOOM absent keys.  Returns their two
-    kernel records (``err_before``: the largest error of phases 19, 20)."""
+    """Phase 21: ``bloom_insert`` and ``bloom_query`` alone
+    (``insert_plan``'s and ``query_plan``'s partitioned paths, and each
+    direct path beside) at N_BLOOM keys into a filter of BLOOM_BITS bits
+    (512-bit blocks, k = 4), and their plain versions, compared and timed,
+    with bounds from the run's own data (the distinct sectors its keys
+    touch, or the integer operations) and the designs' own traffic; the
+    false-positive rate on N_BLOOM absent keys.  Returns their two kernel
+    records (``err_before``: the largest error of phases 19, 20)."""
     from repro_torch.core import bloom
     from repro_torch.kernels.bloom import ops as bloom_ops
     from repro_torch.kernels.cops import contract
@@ -2394,7 +2402,7 @@ def bloom_kernels(torch, card, check, phase, launches, err_before):
     # the direct path at the same shape: the design before the partition
     direct = torch.zeros_like(f.words)
     dir_t, _ = timed(torch, lambda w: bloom_ops.insert_launch(
-        w, keys, None, None, plan=bloom_ops.InsertPlan(False), **kw),
+        w, keys, None, None, plan=bloom_ops.Plan(False), **kw),
         lambda: (direct.zero_(),))
     ins_t, _ = timed(torch, lambda w: bloom_ops.insert_words(w, keys, **kw),
                      lambda: (f.words.zero_(),))
@@ -2408,14 +2416,26 @@ def bloom_kernels(torch, card, check, phase, launches, err_before):
     check(f"phase{phase} bloom_insert's direct path exact",
           torch.equal(direct, plain))
     del plain, direct
+    qplan = bloom_ops.query_plan(N_BLOOM, f.num_blocks, f.words.shape[1])
+    check(f"phase{phase} bloom_query partitioned", qplan.partitioned)
+    bloom_ops.reset_launches()
     q_t, hit = timed(torch, lambda: bloom_ops.query_words(f.words, keys, **kw))
+    q_paths = dict(bloom_ops.PATHS)
+    check(f"phase{phase} bloom_query took the partitioned path",
+          q_paths["query_partitioned"] > 0 and q_paths["query_direct"] == 0)
+    # the direct path at the same shape
+    q_dir_t, dir_hit = timed(torch, lambda: bloom_ops.query_launch(
+        f.words, keys, None, plan=bloom_ops.Plan(False), **kw))
     q_p_t, want = timed(torch, lambda: bloom_ops.query_plain(f.words, keys,
                                                               **kw),
                         reps=1, warmup=0)
-    err = max(err, err_before, words_err(torch, hit, want))
+    err = max(err, err_before, words_err(torch, hit, want),
+              words_err(torch, dir_hit, want))
     check(f"phase{phase} bloom_query exact and no false negative",
           torch.equal(hit, want) and bool(hit.all()))
-    del hit, want
+    check(f"phase{phase} bloom_query's direct path exact",
+          torch.equal(dir_hit, want))
+    del hit, dir_hit, want
     absent = contract.distinct_keys(2 ** 31, N_BLOOM, "cuda")
     a_hit = bloom_ops.query_words(f.words, absent, **kw)
     fp = float(a_hit.float().mean())
@@ -2438,7 +2458,9 @@ def bloom_kernels(torch, card, check, phase, launches, err_before):
           f"filter sector, threshold "
           f"{bloom_ops.PARTITION_KEYS_PER_SECTOR}), the direct path "
           f"{spread(dir_t)}, plain {ins_p_t[0]:.3f} ms; bloom_query "
-          f"{spread(q_t)}, plain "
+          f"{spread(q_t)} (partitioned, the insert's cut; threshold "
+          f"{bloom_ops.QUERY_KEYS_PER_SECTOR} keys a sector; paths "
+          f"{q_paths}), the direct path {spread(q_dir_t)}, plain "
           f"{q_p_t[0]:.3f} ms; bounds: bytes {ins_bytes * ms:.3f} / "
           f"{q_bytes * ms:.3f} ms ({distinct} distinct sectors, "
           f"{32 * distinct / filter_bytes:.6f} of the filter, read and "
@@ -2446,18 +2468,27 @@ def bloom_kernels(torch, card, check, phase, launches, err_before):
           f"{ops_ / INT32_OPS_PER_S * 1e3:.3f} ms each; the designs' own "
           f"traffic: the partitioned insert's, the keys read four times "
           f"and written twice, the filter read and written once, "
-          f"{(24 * N_BLOOM + 2 * filter_bytes) * ms:.3f} ms; the direct "
-          f"insert's and the query's, every key's sectors ({per_key}, "
+          f"{(24 * N_BLOOM + 2 * filter_bytes) * ms:.3f} ms; the "
+          f"partitioned query's, the keys read four times and written "
+          f"twice, two slot arrays written and read once, the answers "
+          f"written and read twice and written once more, the filter read "
+          f"once, {(45 * N_BLOOM + filter_bytes) * ms:.3f} ms; the direct "
+          f"insert's and query's, every key's sectors ({per_key}, "
           f"{per_key / N_BLOOM:.4f} a key): "
           f"{(64 * per_key + 4 * N_BLOOM) * ms:.3f} / "
           f"{(32 * per_key + 5 * N_BLOOM) * ms:.3f} ms; false-positive rate "
           f"on {N_BLOOM} absent keys {fp:.6f}; card {card}", flush=True)
     return [kernel_record("bloom_insert", launches, err, ins_t, ins_p_t,
                           ins_bytes, elements=N_BLOOM, source=BLOOM_SOURCE,
-                          bound_ops=ops_),
+                          bound_ops=ops_, design="partitioned: a histogram, "
+                          "a scan, two scatters by range then tile, a block "
+                          "a 64 KiB tile ORing in shared memory"),
             kernel_record("bloom_query", launches, err, q_t, q_p_t, q_bytes,
                           elements=N_BLOOM, source=BLOOM_SOURCE,
-                          bound_ops=ops_)]
+                          bound_ops=ops_, design="partitioned: the insert's "
+                          "sort by tile with each key's slots, a block a "
+                          "64 KiB tile testing in shared memory, two "
+                          "gathers back to batch order")]
 
 
 def flash_inputs(torch, seed, b, s, sk, h, hkv, hd, dtype):

@@ -23,21 +23,24 @@
 // 64-byte row, two 32-byte sectors) at a random place in a filter far
 // larger than the 50 MB L2, so both are bound by random sectors, not by
 // the card's 3.35 TB/s on streams; the insert also writes each sector it
-// touches.  The design: one thread per key; the key, mask, plane and
-// output streams are read and written coalesced.  The insert merges the
-// bits that fall into one word and issues one atomicOr per touched word
-// (OR commutes and is idempotent, so the filter is bit-exact whatever the
-// order of the keys); above kMergeK hashes it issues one atomicOr per bit.
-// The query stops at the first bit that is clear.
+// touches.  The direct design: one thread per key; the key, mask, plane
+// and output streams are read and written coalesced.  The insert merges
+// the bits that fall into one word and issues one atomicOr per touched
+// word (OR commutes and is idempotent, so the filter is bit-exact whatever
+// the order of the keys); above kMergeK hashes it issues one atomicOr per
+// bit.  The query loads every word of the key's bits (up to kLoadBits
+// hashes) before it tests any, so they do not wait on each other; the
+// key's block is taken with multiplies (`Divider`), not a division.
 //
 // A batch that visits each sector of a filter larger than L2 many times
-// would fetch and write back every sector that often.  So the insert has
-// a second path (bloom_insert_partitioned; the wrapper picks it by keys
-// per filter sector, kernels/bloom/ops.py:insert_plan).  The filter's flat
-// rows (plane * num_blocks + block) are cut into tiles of at most
-// kTileWords words (64 KiB), and the tiles into ranges of tiles_per_range
-// tiles (4 MiB); the keys are sorted by tile in two passes, then each
-// tile's keys are ORed in shared memory:
+// would fetch (and the insert write back) every sector that often.  So
+// both have a second path (bloom_insert_partitioned,
+// bloom_query_partitioned; the wrapper picks it by keys per filter sector,
+// kernels/bloom/ops.py:insert_plan, query_plan).  The filter's flat rows
+// (plane * num_blocks + block) are cut into tiles of at most kTileWords
+// words (64 KiB), and the tiles into ranges of tiles_per_range tiles
+// (4 MiB); the keys are sorted by tile in two passes, then each tile's keys
+// meet the tile in shared memory:
 //   1. histogram_kernel counts the kept keys of each tile (masked keys and
 //      keys whose plane is out of range are dropped), in shared memory
 //      over a grid-stride loop, one global atomic per block and tile;
@@ -50,12 +53,21 @@
 //   4. scatter_kernel<true> does the same within each range, by tile, into
 //      a second scratch: a range's 2048 keys fall into its few hundred
 //      tiles, so the runs stay whole sectors;
-//   5. tile_insert_kernel gives each tile a block, which ORs the tile's
-//      keys' bits into a copy of the tile in shared memory (shared
+//   5. the insert: tile_insert_kernel gives each tile a block, which ORs the
+//      tile's keys' bits into a copy of the tile in shared memory (shared
 //      atomics), then ORs the copy into the filter: each word the keys
 //      touch is read and written once, by the one block that owns it.
-// Reordering the keys changes nothing: OR is order-free.  The scratch and
-// the counts come from the caller.
+//      Reordering the keys changes nothing: OR is order-free.
+//      The query: each scatter also writes, in its input's order, the slot
+//      it gave each key (two slot arrays: batch -> first scratch, first ->
+//      second scratch).  tile_query_kernel loads each tile into shared
+//      memory once and writes each of its keys' answers at the key's slot
+//      of the second scratch, coalesced; then
+//   6. gather_kernel brings the answers into the first scratch's order and
+//   7. into the batch's (0 for a key dropped by the histogram), each through
+//      its slot array: a scatter block writes its keys in a few hundred
+//      runs, so consecutive slots read runs of answers, not random bytes.
+// The scratch and the counts come from the caller.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +89,8 @@ constexpr int kTileWords = 16384;
 constexpr int kTileThreads = 512;
 constexpr int kScanThreads = 1024;
 constexpr int kUnroll = 4;  // keys a thread loads before it uses them
+// the direct query: the most hashes whose words it loads before it tests any
+constexpr int kLoadBits = 8;
 constexpr uint32_t kStepAdd = 0x61C88647u;
 
 __device__ __forceinline__ uint32_t mix_murmur3(uint32_t x) {
@@ -98,6 +112,26 @@ __device__ __forceinline__ uint32_t mix_xxhash(uint32_t x) {
   return x;
 }
 
+// x / d and x % d for u32 x by a u32 d fixed at launch: c = ceil(2^64 / d),
+// x / d = (c * x) >> 64 and x % d = ((c * x mod 2^64) * d) >> 64, exact
+// for every 32-bit x and d >= 2 (Lemire, Kaser, Kurz, "Faster remainder by
+// direct computation", 2019); d = 1 is its own case.  A few multiplies in
+// place of the division the compiler emits for a divisor it cannot see.
+struct Divider {
+  unsigned long long c;
+  uint32_t d;
+  __device__ __forceinline__ uint32_t div(uint32_t x) const {
+    return d == 1u ? x : (uint32_t)__umul64hi(c, x);
+  }
+  __device__ __forceinline__ uint32_t mod(uint32_t x) const {
+    return d == 1u ? 0u : (uint32_t)__umul64hi(c * x, d);
+  }
+};
+
+Divider make_divider(uint32_t d) {
+  return Divider{d > 1u ? ~0ULL / d + 1 : 0ULL, d};
+}
+
 struct Geometry {
   uint32_t num_blocks;
   uint32_t bits;  // 32 * wpb: the bits of one block
@@ -107,6 +141,7 @@ struct Geometry {
   int planes;
   uint32_t rows;  // planes * num_blocks (the partitioned insert's rows)
   bool pow2;      // bits is a power of two: mod is a mask
+  Divider blocks; // num_blocks
 };
 
 // The key's bit position i within its block.
@@ -124,7 +159,7 @@ __device__ __forceinline__ bool locate(const Geometry& geo, uint32_t key,
                                        uint32_t* g) {
   const int plane = planes ? planes[i] : 0;
   if (plane < 0 || plane >= geo.planes) return false;
-  const uint32_t block = mix_murmur3(key ^ geo.seed) % geo.num_blocks;
+  const uint32_t block = geo.blocks.mod(mix_murmur3(key ^ geo.seed));
   *row = ((size_t)plane * geo.num_blocks + block) * (size_t)geo.wpb;
   *h = mix_xxhash(key ^ geo.seed);
   *g = mix_murmur3(key + kStepAdd);
@@ -177,26 +212,6 @@ insert_kernel(uint32_t* __restrict__ words, const uint32_t* __restrict__ keys,
   or_bits(geo, words + row, h, g);
 }
 
-// x / d and x % d for u32 x by a u32 d fixed at launch: c = ceil(2^64 / d),
-// x / d = (c * x) >> 64 and x % d = ((c * x mod 2^64) * d) >> 64, exact
-// for every 32-bit x and d >= 2 (Lemire, Kaser, Kurz, "Faster remainder by
-// direct computation", 2019); d = 1 is its own case.  A few multiplies in
-// place of the division the compiler emits for a divisor it cannot see.
-struct Divider {
-  unsigned long long c;
-  uint32_t d;
-  __device__ __forceinline__ uint32_t div(uint32_t x) const {
-    return d == 1u ? x : (uint32_t)__umul64hi(c, x);
-  }
-  __device__ __forceinline__ uint32_t mod(uint32_t x) const {
-    return d == 1u ? 0u : (uint32_t)__umul64hi(c * x, d);
-  }
-};
-
-Divider make_divider(uint32_t d) {
-  return Divider{d > 1u ? ~0ULL / d + 1 : 0ULL, d};
-}
-
 // The partitioned insert's cut of the filter's flat rows: tiles of
 // rows_per_tile rows (at most kTileWords words, ORed in shared memory),
 // and ranges of tiles_per_range tiles (the first pass's groups).  The
@@ -210,7 +225,6 @@ struct Parts {
   int tiles;
   int tiles_per_range;
   int ranges;
-  Divider blocks;  // num_blocks
   Divider tile;    // rows_per_tile
   Divider range;   // rows_per_tile * tiles_per_range
   __host__ __device__ int* count(int* c) const { return c; }
@@ -228,7 +242,7 @@ struct Parts {
 // Key i's flat row (plane * num_blocks + block), or -1 when the key is
 // masked or its plane is out of range.
 __device__ __forceinline__ long long flat_row(const Geometry& geo,
-                                              const Parts& pt, uint32_t key,
+                                              uint32_t key,
                                               const uint8_t* mask,
                                               const int32_t* planes,
                                               long long i) {
@@ -236,7 +250,7 @@ __device__ __forceinline__ long long flat_row(const Geometry& geo,
   const int plane = planes ? planes[i] : 0;
   if (plane < 0 || plane >= geo.planes) return -1;
   return (uint32_t)plane * geo.num_blocks
-         + pt.blocks.mod(mix_murmur3(key ^ geo.seed));
+         + geo.blocks.mod(mix_murmur3(key ^ geo.seed));
 }
 
 // Step 1: count[t] += the kept keys of tile t, the block's counts summed in
@@ -261,7 +275,7 @@ histogram_kernel(const uint32_t* __restrict__ keys,
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = i0 + u * stride;
       if (i >= n) break;
-      const long long row = flat_row(geo, pt, key[u], mask, planes, i);
+      const long long row = flat_row(geo, key[u], mask, planes, i);
       if (row >= 0) atomicAdd(&hist[pt.tile.div((uint32_t)row)], 1);
     }
   }
@@ -366,15 +380,18 @@ __device__ void local_scan(int* v, int m) {
 // cursor hands out.  Step 3 (SECOND = false): the caller's keys into the
 // first scratch by range (masked keys and planes out of range dropped).
 // Step 4 (SECOND = true): each range's keys of the first scratch into the
-// second by tile, the blocks of range r starting at chunk[r].
-template <bool SECOND>
+// second by tile, the blocks of range r starting at chunk[r].  With SLOTS
+// (the query), each key's slot in out_* (-1 for a dropped key) is written
+// to `out_slots` at the key's own index, in its input's order.
+template <bool SECOND, bool SLOTS>
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(const uint32_t* __restrict__ keys,
                const uint8_t* __restrict__ mask,
                const int32_t* __restrict__ planes, long long n, Geometry geo,
                Parts pt, int* __restrict__ counts,
                uint32_t* __restrict__ out_keys,
-               int32_t* __restrict__ out_planes) {
+               int32_t* __restrict__ out_planes,
+               int32_t* __restrict__ out_slots) {
   __shared__ int hist[kMaxLocal];   // this block's keys of each bin
   __shared__ int local[kMaxLocal];  // their first slot in the staging
   __shared__ int base[kMaxLocal];   // their first slot in out_*
@@ -422,7 +439,7 @@ scatter_kernel(const uint32_t* __restrict__ keys,
     const long long i = lo + u * kThreads + threadIdx.x;
     bin[u] = -1;
     if (i < hi) {
-      const long long row = flat_row(geo, pt, key[u], mask, planes, i);
+      const long long row = flat_row(geo, key[u], mask, planes, i);
       if (row >= 0) {
         bin[u] = width.div((uint32_t)row - row0);
         slot[u] = atomicAdd(&hist[bin[u]], 1);
@@ -438,12 +455,15 @@ scatter_kernel(const uint32_t* __restrict__ keys,
   local_scan(local, bins);
 #pragma unroll
   for (int u = 0; u < kItems; ++u) {
+    const long long i = lo + u * kThreads + threadIdx.x;
     if (bin[u] >= 0) {
       const int at = local[bin[u]] + slot[u];
       stage_keys[at] = key[u];
-      if (planes) stage_planes[at] = planes[lo + u * kThreads + threadIdx.x];
+      if (planes) stage_planes[at] = planes[i];
       stage_bin[at] = (uint16_t)bin[u];
     }
+    if (SLOTS && i < hi)
+      out_slots[i] = bin[u] >= 0 ? base[bin[u]] + slot[u] : -1;
   }
   __syncthreads();
   const int kept = local[bins - 1] + hist[bins - 1];
@@ -488,7 +508,7 @@ tile_insert_kernel(uint32_t* __restrict__ words,
     for (int u = 0; u < kUnroll; ++u) {
       if (i0 + u * kTileThreads >= hi) break;
       const uint32_t row = (uint32_t)plane[u] * geo.num_blocks
-                           + pt.blocks.mod(mix_murmur3(key[u] ^ geo.seed));
+                           + geo.blocks.mod(mix_murmur3(key[u] ^ geo.seed));
       uint32_t* r = tile + (size_t)(row - row0) * geo.wpb;
       const uint32_t h = mix_xxhash(key[u] ^ geo.seed);
       const uint32_t g = mix_murmur3(key[u] + kStepAdd);
@@ -506,6 +526,42 @@ tile_insert_kernel(uint32_t* __restrict__ words,
   }
 }
 
+// Whether row `r` (device or shared memory) holds key (h, g)'s k bits: up to
+// `first` (<= kLoadBits) hashes every word is loaded before any is tested,
+// so the loads of one row do not wait on each other; above, one bit at a
+// time, stopping at the first that is clear.  The direct query loads first
+// (a third faster at 2^28 keys than bit by bit); the tile query, whose
+// words are in shared memory, goes bit by bit (a fifth faster there than
+// loading first, which also spilled; NVIDIA H100 80GB HBM3 at 700 W,
+// tools/probe_cops_update.py bloom).
+__device__ __forceinline__ uint8_t holds_bits(const Geometry& geo,
+                                              const uint32_t* r, uint32_t h,
+                                              uint32_t g, int first) {
+  if (geo.k > first) {
+    for (int j = 0; j < geo.k; ++j) {
+      const uint32_t p = position(geo, h, g, j);
+      if (!((r[p >> 5] >> (p & 31u)) & 1u)) return 0;
+    }
+    return 1;
+  }
+  uint32_t word[kLoadBits], pos[kLoadBits];
+#pragma unroll
+  for (int j = 0; j < kLoadBits; ++j) {
+    if (j < geo.k) {
+      pos[j] = position(geo, h, g, j);
+      word[j] = r[pos[j] >> 5];
+    }
+  }
+  uint32_t all = 1u;
+#pragma unroll
+  for (int j = 0; j < kLoadBits; ++j)
+    if (j < geo.k) all &= word[j] >> (pos[j] & 31u);
+  return (uint8_t)(all & 1u);
+}
+
+// The direct query: one thread per key, in batch order, every word of the
+// key's bits loaded before any is tested.  (Two or four keys a thread were
+// no faster on an H100: tools/probe_cops_update.py bloom.)
 __global__ void __launch_bounds__(kThreads)
 query_kernel(const uint32_t* __restrict__ words,
              const uint32_t* __restrict__ keys,
@@ -515,19 +571,79 @@ query_kernel(const uint32_t* __restrict__ words,
   if (i >= n) return;
   size_t row;
   uint32_t h, g;
-  uint8_t hit = 0;
-  if (locate(geo, keys[i], planes, i, &row, &h, &g)) {
-    const uint32_t* r = words + row;
-    hit = 1;
-    for (int j = 0; j < geo.k; ++j) {
-      const uint32_t p = position(geo, h, g, j);
-      if (!((__ldg(r + (p >> 5)) >> (p & 31u)) & 1u)) {
-        hit = 0;
-        break;
+  out[i] = locate(geo, keys[i], planes, i, &row, &h, &g)
+               ? holds_bits(geo, words + row, h, g, kLoadBits) : 0;
+}
+
+// Step 5 of the partitioned query: block t loads tile t of the filter into
+// shared memory with 16-byte loads (the words of its first and last 16
+// bytes outside the tile too), then tests the bits of the tile's keys (the
+// second scratch's begin[t] .. begin[t + 1]) there and writes each answer
+// at the key's slot, coalesced.  A tile without keys is not loaded.
+__global__ void __launch_bounds__(kTileThreads)
+tile_query_kernel(const uint32_t* __restrict__ words,
+                  const uint32_t* __restrict__ keys,
+                  const int32_t* __restrict__ planes, Geometry geo, Parts pt,
+                  const int* __restrict__ counts,
+                  uint8_t* __restrict__ answers) {
+  extern __shared__ uint4 tile_chunks[];
+  const int* begin = pt.begin(const_cast<int*>(counts));
+  const int lo = begin[blockIdx.x], hi = begin[blockIdx.x + 1];
+  if (lo == hi) return;
+  const uint32_t row0 = blockIdx.x * pt.rows_per_tile;
+  const int size = (int)(min(pt.rows_per_tile, geo.rows - row0)) * geo.wpb;
+  const uint32_t* from = words + (size_t)row0 * geo.wpb;
+  const int mis = (int)(((uintptr_t)from >> 2) & 3u);  // words before it
+  const uint4* src = reinterpret_cast<const uint4*>(from - mis);
+  for (int c = threadIdx.x; c < (size + mis + 3) >> 2; c += kTileThreads)
+    tile_chunks[c] = __ldg(src + c);
+  __syncthreads();
+  const uint32_t* tile = reinterpret_cast<const uint32_t*>(tile_chunks) + mis;
+  for (int i0 = lo + threadIdx.x; i0 < hi; i0 += kUnroll * kTileThreads) {
+    uint32_t key[kUnroll];  // loaded together, then tested
+    int plane[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kTileThreads;
+      if (i < hi) {
+        key[u] = keys[i];
+        plane[u] = planes ? planes[i] : 0;
       }
     }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kTileThreads;
+      if (i >= hi) break;
+      const uint32_t row = (uint32_t)plane[u] * geo.num_blocks
+                           + geo.blocks.mod(mix_murmur3(key[u] ^ geo.seed));
+      answers[i] = holds_bits(geo, tile + (size_t)(row - row0) * geo.wpb,
+                              mix_xxhash(key[u] ^ geo.seed),
+                              mix_murmur3(key[u] + kStepAdd), 0);
+    }
   }
-  out[i] = hit;
+}
+
+// Steps 6 and 7 of the partitioned query: out[i] = from[slots[i]] (0 where
+// the slot is -1) for i < *count (null: n), 4 answers a thread: a 16-byte
+// load of their slots and one 4-byte store.  Consecutive slots point into
+// the runs of one scatter block, so the reads of `from` are runs too.
+// `slots` 16-byte and `out` 4-byte aligned.
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const uint8_t* __restrict__ from,
+              const int32_t* __restrict__ slots, uint8_t* __restrict__ out,
+              long long n, const int* __restrict__ count) {
+  const long long m = count ? *count : n;
+  const long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;
+  if (i >= m) return;
+  if (i + 4 <= m) {
+    const int4 s = *reinterpret_cast<const int4*>(slots + i);
+    *reinterpret_cast<uchar4*>(out + i) = make_uchar4(
+        s.x >= 0 ? from[s.x] : 0, s.y >= 0 ? from[s.y] : 0,
+        s.z >= 0 ? from[s.z] : 0, s.w >= 0 ? from[s.w] : 0);
+    return;
+  }
+  for (long long j = i; j < m; ++j)
+    out[j] = slots[j] >= 0 ? from[slots[j]] : 0;
 }
 
 bool make_geometry(Geometry* geo, long long n, int planes,
@@ -544,7 +660,67 @@ bool make_geometry(Geometry* geo, long long n, int planes,
   geo->planes = planes;
   geo->rows = (uint32_t)((long long)planes * num_blocks);
   geo->pow2 = (geo->bits & (geo->bits - 1u)) == 0u;
+  geo->blocks = make_divider(num_blocks);
   return true;
+}
+
+// The partitioned paths' cut (see bloom_insert_partitioned), checked: false
+// when it does not cover the filter's rows or exceeds the kernels' limits.
+bool make_parts(Parts* pt, long long n, int planes, unsigned num_blocks,
+                int wpb, unsigned rows_per_tile, int tiles,
+                int tiles_per_range, int ranges) {
+  const long long rows = (long long)planes * num_blocks;
+  if (n >= (1LL << 31) || rows > 0xFFFFFFFFLL || rows_per_tile < 1 ||
+      (long long)rows_per_tile * wpb > kTileWords || tiles < 1 ||
+      tiles > kMaxTiles || (long long)tiles * rows_per_tile < rows ||
+      (long long)(tiles - 1) * rows_per_tile >= rows ||
+      tiles_per_range < 1 || tiles_per_range > kMaxLocal || ranges < 1 ||
+      ranges > kMaxLocal || (long long)ranges * tiles_per_range < tiles ||
+      (long long)(ranges - 1) * tiles_per_range >= tiles)
+    return false;
+  *pt = Parts{rows_per_tile, tiles, tiles_per_range, ranges,
+              make_divider(rows_per_tile),
+              make_divider(rows_per_tile * (uint32_t)tiles_per_range)};
+  return true;
+}
+
+// Steps 1-4 of both partitioned paths on stream `s`: the kept keys sorted
+// by tile into `s2_keys` (and planes), through `s1_*` by range; with
+// slots (the query), each key's first-scratch slot at s1_slots[i] and each
+// first-scratch key's second-scratch slot at s2_slots[j].
+void sort_by_tile(const uint32_t* keys, const uint8_t* mask,
+                  const int32_t* planes, long long n, const Geometry& geo,
+                  const Parts& pt, int* counts, uint32_t* s1_keys,
+                  int32_t* s1_planes, uint32_t* s2_keys, int32_t* s2_planes,
+                  int32_t* s1_slots, int32_t* s2_slots, cudaStream_t s) {
+  int dev, sms;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(histogram_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kMaxTiles * (int)sizeof(int));
+  const long long hist_blocks = (n + kScanThreads - 1) / kScanThreads;
+  const unsigned key_tiles = (unsigned)((n + kTileKeys - 1) / kTileKeys);
+  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, histogram_kernel, kScanThreads, pt.tiles * sizeof(int));
+  histogram_kernel<<<(unsigned)min(hist_blocks,
+                                   (long long)sms * max(per_sm, 1)),
+                     kScanThreads, pt.tiles * sizeof(int), s>>>(
+      keys, mask, planes, n, geo, pt, counts);
+  scan_kernel<<<1, kScanThreads, 0, s>>>(pt, counts);
+  // the insert's scatters carry no slot code, which slowed them (by range
+  // and by tile 1.439 + 1.678 ms against 1.377 + 1.462 at 2^28 keys on an
+  // NVIDIA H100 80GB HBM3 at 700 W)
+  auto first = s1_slots ? scatter_kernel<false, true>
+                        : scatter_kernel<false, false>;
+  auto second = s1_slots ? scatter_kernel<true, true>
+                         : scatter_kernel<true, false>;
+  first<<<key_tiles, kThreads, 0, s>>>(
+      keys, mask, planes, n, geo, pt, counts, s1_keys, s1_planes, s1_slots);
+  second<<<key_tiles + pt.ranges, kThreads, 0, s>>>(
+      s1_keys, nullptr, planes ? s1_planes : nullptr, n, geo, pt, counts,
+      s2_keys, s2_planes, s2_slots);
 }
 
 }  // namespace
@@ -582,55 +758,25 @@ extern "C" int bloom_insert_partitioned(
     int ranges, void* s1_keys, void* s1_planes, void* s2_keys,
     void* s2_planes, void* counts, void* stream) {
   Geometry geo;
-  const long long rows = (long long)planes * num_blocks;
+  Parts pt;
   if (!make_geometry(&geo, n, planes, num_blocks, wpb, k, seed) ||
-      n >= (1LL << 31) || rows > 0xFFFFFFFFLL || rows_per_tile < 1 ||
-      (long long)rows_per_tile * wpb > kTileWords || tiles < 1 ||
-      tiles > kMaxTiles || (long long)tiles * rows_per_tile < rows ||
-      (long long)(tiles - 1) * rows_per_tile >= rows ||
-      tiles_per_range < 1 || tiles_per_range > kMaxLocal || ranges < 1 ||
-      ranges > kMaxLocal || (long long)ranges * tiles_per_range < tiles ||
-      (long long)(ranges - 1) * tiles_per_range >= tiles ||
+      !make_parts(&pt, n, planes, num_blocks, wpb, rows_per_tile, tiles,
+                  tiles_per_range, ranges) ||
       (plane && (!s1_planes || !s2_planes)))
     return (int)cudaErrorInvalidValue;
   if (n == 0 || k == 0) return 0;
-  const Parts pt{rows_per_tile, tiles, tiles_per_range, ranges,
-                 make_divider(num_blocks), make_divider(rows_per_tile),
-                 make_divider(rows_per_tile * (uint32_t)tiles_per_range)};
   const cudaStream_t s = (cudaStream_t)stream;
-  int dev, sms;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int tile_bytes = (int)(rows_per_tile * wpb * sizeof(uint32_t));
-  cudaFuncSetAttribute(histogram_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kMaxTiles * (int)sizeof(int));
+  const int32_t* p = (const int32_t*)plane;
+  sort_by_tile((const uint32_t*)keys, (const uint8_t*)mask, p, n, geo, pt,
+               (int*)counts, (uint32_t*)s1_keys, (int32_t*)s1_planes,
+               (uint32_t*)s2_keys, (int32_t*)s2_planes, nullptr, nullptr, s);
   cudaFuncSetAttribute(tile_insert_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kTileWords * (int)sizeof(uint32_t));
-  const long long hist_blocks = (n + kScanThreads - 1) / kScanThreads;
-  const unsigned key_tiles = (unsigned)((n + kTileKeys - 1) / kTileKeys);
-  const uint8_t* m = (const uint8_t*)mask;
-  const int32_t* p = (const int32_t*)plane;
-  int* c = (int*)counts;
-  int per_sm = 1;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, histogram_kernel, kScanThreads, tiles * sizeof(int));
-  histogram_kernel<<<(unsigned)min(hist_blocks,
-                                   (long long)sms * max(per_sm, 1)),
-                     kScanThreads, tiles * sizeof(int), s>>>(
-      (const uint32_t*)keys, m, p, n, geo, pt, c);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(pt, c);
-  scatter_kernel<false><<<key_tiles, kThreads, 0, s>>>(
-      (const uint32_t*)keys, m, p, n, geo, pt, c, (uint32_t*)s1_keys,
-      (int32_t*)s1_planes);
-  scatter_kernel<true><<<key_tiles + ranges, kThreads, 0, s>>>(
-      (const uint32_t*)s1_keys, nullptr, p ? (const int32_t*)s1_planes
-                                           : nullptr,
-      n, geo, pt, c, (uint32_t*)s2_keys, (int32_t*)s2_planes);
-  tile_insert_kernel<<<tiles, kTileThreads, tile_bytes, s>>>(
+  tile_insert_kernel<<<tiles, kTileThreads,
+                       rows_per_tile * wpb * sizeof(uint32_t), s>>>(
       (uint32_t*)words, (const uint32_t*)s2_keys,
-      p ? (const int32_t*)s2_planes : nullptr, geo, pt, c);
+      p ? (const int32_t*)s2_planes : nullptr, geo, pt, (const int*)counts);
   return (int)cudaGetLastError();
 }
 
@@ -648,5 +794,52 @@ extern "C" int bloom_query(const void* words, const void* keys,
                  (cudaStream_t)stream>>>(
       (const uint32_t*)words, (const uint32_t*)keys, (const int32_t*)plane,
       (uint8_t*)out, n, geo);
+  return (int)cudaGetLastError();
+}
+
+// The partitioned query (see the header), cut as bloom_insert_partitioned.
+// Scratch: as the insert's, and `s1_slots`, `s2_slots` (n,) int32 and
+// `s1_answers`, `s2_answers` (n,) uint8, each 16-byte aligned; `out` 4-byte
+// aligned.
+// Launches the seven steps on `stream`; otherwise as bloom_query.
+extern "C" int bloom_query_partitioned(
+    const void* words, const void* keys, const void* plane, void* out,
+    long long n, int planes, unsigned num_blocks, int wpb, int k,
+    unsigned seed, unsigned rows_per_tile, int tiles, int tiles_per_range,
+    int ranges, void* s1_keys, void* s1_planes, void* s2_keys,
+    void* s2_planes, void* s1_slots, void* s2_slots, void* s1_answers,
+    void* s2_answers, void* counts, void* stream) {
+  Geometry geo;
+  Parts pt;
+  if (!make_geometry(&geo, n, planes, num_blocks, wpb, k, seed) ||
+      !make_parts(&pt, n, planes, num_blocks, wpb, rows_per_tile, tiles,
+                  tiles_per_range, ranges) ||
+      (plane && (!s1_planes || !s2_planes)) ||
+      (((uintptr_t)s1_slots | (uintptr_t)s2_slots | (uintptr_t)s1_answers |
+        (uintptr_t)s2_answers) & 15u) || ((uintptr_t)out & 3u))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* p = (const int32_t*)plane;
+  int* c = (int*)counts;
+  sort_by_tile((const uint32_t*)keys, nullptr, p, n, geo, pt, c,
+               (uint32_t*)s1_keys, (int32_t*)s1_planes, (uint32_t*)s2_keys,
+               (int32_t*)s2_planes, (int32_t*)s1_slots, (int32_t*)s2_slots,
+               s);
+  const int tile_bytes = (int)((rows_per_tile * wpb + 8) * sizeof(uint32_t));
+  cudaFuncSetAttribute(tile_query_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (kTileWords + 8) * (int)sizeof(uint32_t));
+  tile_query_kernel<<<tiles, kTileThreads, tile_bytes, s>>>(
+      (const uint32_t*)words, (const uint32_t*)s2_keys,
+      p ? (const int32_t*)s2_planes : nullptr, geo, pt, c,
+      (uint8_t*)s2_answers);
+  const unsigned quads = (unsigned)((n + 4 * kThreads - 1) / (4 * kThreads));
+  gather_kernel<<<quads, kThreads, 0, s>>>(
+      (const uint8_t*)s2_answers, (const int32_t*)s2_slots,
+      (uint8_t*)s1_answers, n, pt.begin(c) + tiles);
+  gather_kernel<<<quads, kThreads, 0, s>>>(
+      (const uint8_t*)s1_answers, (const int32_t*)s1_slots, (uint8_t*)out,
+      n, nullptr);
   return (int)cudaGetLastError();
 }

@@ -13,15 +13,20 @@ on CPU tensors they run the plain versions below; on any other device
 they raise.  There is no fallback: a CUDA tensor launches the kernel or
 raises.
 
-The insert has two paths, picked by ``insert_plan`` from the batch's keys
-per filter sector: the direct one (one thread per key, in batch order)
-and, for a batch that visits each sector many times, the partitioned one
-(``bloom_insert_partitioned``: the keys sorted by 64 KiB tile of the
-filter in two passes, then each tile's keys ORed in shared memory and the
-tile ORed into the filter once), whose scratch (two copies of the keys,
-and of their planes, in tile order; the tiles' counts) the wrapper
-allocates.  Either is one wrapper call: one count in ``LAUNCHES``;
-``PATHS`` counts which path each took.
+Each has two paths, picked by ``insert_plan`` / ``query_plan`` from the
+batch's keys per filter sector: the direct one (one thread per key, in
+batch order) and, for a batch that visits each sector many times, the
+partitioned one (``bloom_insert_partitioned`` / ``bloom_query_partitioned``:
+the keys sorted by 64 KiB tile of the filter in two passes, then each
+tile's keys meet the tile in shared memory: the insert ORs them in and
+ORs the tile into the filter once; the query tests them there and brings
+the answers back to batch order through the slots each pass gave the
+keys), whose scratch (two copies of the keys, and of their planes, in
+tile order; the tiles' counts; for the query two slot arrays and two
+arrays of answers) the wrapper allocates.  Either is one wrapper call:
+one count in ``LAUNCHES``; ``PATHS`` counts which path each took.
+``insert_launch`` / ``query_launch`` take a plan, so a caller can force a
+path to time or test it.
 
 Unlike the reference, the insert updates ``words`` **in place** (and
 returns it): a filter of the card's size is never copied per batch.  A
@@ -50,9 +55,11 @@ LAUNCHES = {"bloom_insert": 0, "bloom_query": 0}
 #: the keys those launches took
 ELEMENTS = dict.fromkeys(LAUNCHES, 0)
 
-#: the path each ``bloom_insert`` launch took since the last
-#: ``reset_launches``
-PATHS = {"direct": 0, "partitioned": 0}
+#: the path each ``bloom_insert`` ("direct", "partitioned") and
+#: ``bloom_query`` ("query_direct", "query_partitioned") launch took since
+#: the last ``reset_launches``
+PATHS = {"direct": 0, "partitioned": 0, "query_direct": 0,
+         "query_partitioned": 0}
 
 #: keys per pass of the plain versions (bounds their (n, k) temporaries)
 PLAIN_CHUNK = 1 << 22
@@ -75,10 +82,18 @@ MAX_LOCAL = 1024
 #: tools/probe_cops_update.py bloom): at 0.25 keys a sector direct 0.584 ms,
 #: partitioned 0.659; at 0.5, 1.031 and 0.803; they cross near 0.3
 PARTITION_KEYS_PER_SECTOR = 0.3
+#: the same for the query of a lone filter.  Into phase 21's 512 MiB filter
+#: (same card; tools/probe_cops_update.py bloom; half the keys absent):
+#: at 1 key a sector direct 0.612 ms, partitioned 0.726; at 2, 1.153 and
+#: 1.097; at 16, 8.970 and 7.064.  A batch with a plane per key stays
+#: direct: into fig12's stack the direct query was faster at every batch up
+#: to 16 keys a sector (10.263 against 11.021 ms there), since the planes
+#: ride along every pass of the partitioned one
+QUERY_KEYS_PER_SECTOR = 2.0
 
 
-class InsertPlan(NamedTuple):
-    """How ``bloom_insert`` runs a batch: ``partitioned`` or direct; the
+class Plan(NamedTuple):
+    """How a bloom kernel runs a batch: ``partitioned`` or direct; the
     partitioned path's ``tiles`` of ``rows_per_tile`` filter rows, in
     ``ranges`` of ``tiles_per_range`` tiles."""
 
@@ -89,24 +104,37 @@ class InsertPlan(NamedTuple):
     ranges: int = 0
 
 
-def insert_plan(n: int, num_rows: int, wpb: int) -> InsertPlan:
-    """The insert's path for ``n`` keys into a filter of ``num_rows``
-    rows (planes x blocks) of ``wpb`` words: partitioned when the filter
-    spans more than one range of ``RANGE_BYTES`` (a filter of one range
-    lies in the card's L2 as it is), the keys per 32-byte sector of it reach
-    ``PARTITION_KEYS_PER_SECTOR`` and the cut fits the kernel's limits,
-    else direct."""
+def _plan(n: int, num_rows: int, wpb: int, keys_per_sector: float) -> Plan:
+    """Partitioned when the filter spans more than one range of
+    ``RANGE_BYTES`` (a filter of one range lies in the card's L2 as it
+    is), the keys per 32-byte sector of it reach ``keys_per_sector`` and
+    the cut fits the kernels' limits, else direct."""
     rows_per_tile = max(1, TILE_WORDS // wpb)
     tiles = -(-num_rows // rows_per_tile)
     per_range = max(1, RANGE_BYTES // (4 * wpb * rows_per_tile))
     per_range = max(per_range, -(-tiles // MAX_LOCAL))
     ranges = -(-tiles // per_range)
     sectors = num_rows * wpb * 4 / 32
-    if (ranges < 2 or n < PARTITION_KEYS_PER_SECTOR * sectors
+    if (ranges < 2 or n < keys_per_sector * sectors
             or tiles > MAX_TILES or per_range > MAX_LOCAL
             or num_rows >= 2 ** 32 or n >= 2 ** 31):
-        return InsertPlan(False)
-    return InsertPlan(True, rows_per_tile, tiles, per_range, ranges)
+        return Plan(False)
+    return Plan(True, rows_per_tile, tiles, per_range, ranges)
+
+
+def insert_plan(n: int, num_rows: int, wpb: int) -> Plan:
+    """The insert's path for ``n`` keys into a filter of ``num_rows``
+    rows (planes x blocks) of ``wpb`` words, at
+    ``PARTITION_KEYS_PER_SECTOR`` (see ``_plan``)."""
+    return _plan(n, num_rows, wpb, PARTITION_KEYS_PER_SECTOR)
+
+
+def query_plan(n: int, num_rows: int, wpb: int, planes: bool = False) -> Plan:
+    """The query's path, as ``insert_plan``'s at ``QUERY_KEYS_PER_SECTOR``;
+    direct for a batch with a plane per key (``planes``)."""
+    if planes:
+        return Plan(False)
+    return _plan(n, num_rows, wpb, QUERY_KEYS_PER_SECTOR)
 
 
 def reset_launches() -> None:
@@ -125,9 +153,13 @@ def _lib() -> ctypes.CDLL:
     geometry = [ll, i, ui, i, i, ui, vp]   # n, planes, blocks, wpb, k, seed, stream
     lib.bloom_insert.argtypes = [vp] * 4 + geometry
     lib.bloom_query.argtypes = [vp] * 4 + geometry
+    cut = [ui, i, i, i]   # rows_per_tile, tiles, tiles_per_range, ranges
     lib.bloom_insert_partitioned.argtypes = (
-        [vp] * 4 + geometry[:-1] + [ui, i, i, i] + [vp] * 6)
-    for f in (lib.bloom_insert, lib.bloom_query, lib.bloom_insert_partitioned):
+        [vp] * 4 + geometry[:-1] + cut + [vp] * 6)
+    lib.bloom_query_partitioned.argtypes = (
+        [vp] * 4 + geometry[:-1] + cut + [vp] * 10)
+    for f in (lib.bloom_insert, lib.bloom_query, lib.bloom_insert_partitioned,
+              lib.bloom_query_partitioned):
         f.restype = ctypes.c_int
     return lib
 
@@ -257,7 +289,7 @@ def insert_words(words, keys, mask=None, *, k_hashes, seed, planes=None):
 
 
 def insert_launch(words, keys, mask, planes, k_hashes, seed,
-                  plan: InsertPlan) -> None:
+                  plan: Plan) -> None:
     """One ``bloom_insert`` launch of a non-empty batch on CUDA tensors by
     ``plan``'s path (``insert_words`` takes ``insert_plan``'s; a caller
     may give another to time or test a path)."""
@@ -288,13 +320,44 @@ def query_words(words, keys, *, k_hashes, seed, planes=None):
     if _check(words, keys, None, planes):
         return query_plain(words, keys, k_hashes=k_hashes, seed=seed,
                            planes=planes)
-    out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-    if keys.shape[0]:
-        _launch("bloom_query", words, keys,
-                (words, keys.contiguous(),
-                 None if planes is None
-                 else planes.to(torch.int32).contiguous(), out),
-                k_hashes, seed)
+    stack = _stack(words)
+    plan = query_plan(keys.shape[0], stack.shape[0] * stack.shape[1],
+                      stack.shape[2], planes is not None)
+    return query_launch(words, keys, planes, k_hashes, seed, plan)
+
+
+def query_launch(words, keys, planes, k_hashes, seed,
+                 plan: Plan) -> torch.Tensor:
+    """One ``bloom_query`` launch on CUDA tensors by ``plan``'s path
+    (``query_words`` takes ``query_plan``'s; a caller may give another to
+    time or test a path); an empty batch launches nothing.  Returns the
+    (n,) bool answers."""
+    n, dev = keys.shape[0], keys.device
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    if not n:
+        return out
+    args = (words, keys.contiguous(),
+            None if planes is None else planes.to(torch.int32).contiguous(),
+            out)
+    if not plan.partitioned:
+        _launch("bloom_query", words, keys, args, k_hashes, seed)
+        PATHS["query_direct"] += 1
+        return out
+    # each row of a (., m) scratch starts 16-byte aligned
+    m = -(-n // 16) * 16
+    scratch = torch.empty((4 if planes is None else 6, m), dtype=torch.int32,
+                          device=dev)
+    answers = torch.empty((2, m), dtype=torch.uint8, device=dev)
+    counts = torch.zeros((3 * plan.tiles + 3 * plan.ranges + 3,),
+                         dtype=torch.int32, device=dev)
+    _launch("bloom_query", words, keys, args, k_hashes, seed,
+            entry="bloom_query_partitioned",
+            extra=(plan.rows_per_tile, plan.tiles, plan.tiles_per_range,
+                   plan.ranges, scratch[0],
+                   None if planes is None else scratch[4], scratch[1],
+                   None if planes is None else scratch[5], scratch[2],
+                   scratch[3], answers[0], answers[1], counts))
+    PATHS["query_partitioned"] += 1
     return out
 
 

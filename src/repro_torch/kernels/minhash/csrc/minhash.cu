@@ -14,25 +14,39 @@
 // the window holds an N.  Bit-identical to the plain version in
 // repro_torch/kernels/minhash/ref.py.
 //
-// What bounds it: each base is read once per tile (plus the k - 1 bases of
-// overlap with the next tile) and each hash written once: 1 byte in, 4
-// bytes out per k-mer, far below the card's 3.35 TB/s only if the k
-// shift-or steps per k-mer keep up.  The design: one block of kTile
-// threads per (row, tile of kTile starts) stages the tile's kTile + k - 1
-// bases in shared memory with coalesced byte loads (past the row's end it
-// stores the invalid code 255, as the JAX wrapper's padding does); each
-// thread then builds its two words in k steps from shared memory and
-// writes one coalesced word.
+// What bounds it: 1 byte in and 4 bytes out per k-mer, a stream, if the
+// arithmetic keeps up (about 20 integer operations a k-mer).  The rows of
+// the path are short (reads of 150 bases, genome windows of 127), so the
+// design does not tile by row.  The output is (rows, n_out) row-major with
+// n_out = length - k + 1, and output f = row * n_out + t reads bases f +
+// row * (k - 1) onwards: a run of outputs reads a run of bases, whatever
+// the rows.  So:
+// - the grid runs over the flat output index: a thread owns kOut
+//   consecutive outputs, a block kBlockOut;
+// - a block stages the span of bases its outputs read in shared memory
+//   with 16-byte loads (a span wider than kSpan, at a large k, is read
+//   from device memory directly);
+// - a thread builds its first k-mer in k steps and rolls each later one in
+//   by one base: fwd takes the new last base (masked to 2k bits below
+//   k = 16), rev drops its first base and takes the base min(k, 16) - 1
+//   of the new window at the top, and the N test compares the window's
+//   start with the position of the last N read.  At a row's end the
+//   thread skips the k - 1 bases that start no k-mer and builds anew;
+// - each thread writes its outputs with 16-byte stores.  (Staging the
+//   block's outputs in shared memory, so that a warp writes whole lines,
+//   took 10% longer on an NVIDIA H100 80GB HBM3 at 700 W:
+//   tools/probe_cops_update.py kmer.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 256;  // k-mer starts per block, one per thread
+constexpr int kThreads = 256;
+constexpr int kOut = 8;                      // outputs a thread
+constexpr int kBlockOut = kThreads * kOut;   // outputs a block
+constexpr int kSpan = 2 * kBlockOut;         // bytes of bases staged, at most
 constexpr uint32_t kInvalid = 0xFFFFFFFFu;
-constexpr uint8_t kPad = 255;
-constexpr int kMaxShared = 48 * 1024;  // static-launch shared memory limit
 
 __device__ __forceinline__ uint32_t mix_murmur3(uint32_t x) {
   x ^= x >> 16;
@@ -43,48 +57,144 @@ __device__ __forceinline__ uint32_t mix_murmur3(uint32_t x) {
   return x;
 }
 
-__global__ void __launch_bounds__(kTile)
+// x / d for u32 x by a u32 d fixed at launch: c = ceil(2^64 / d), x / d =
+// (c * x) >> 64, exact for every 32-bit x and d >= 2 (Lemire, Kaser, Kurz,
+// "Faster remainder by direct computation", 2019); d = 1 is its own case.
+struct Divider {
+  unsigned long long c;
+  uint32_t d;
+  __device__ __forceinline__ uint32_t div(uint32_t x) const {
+    return d == 1u ? x : (uint32_t)__umul64hi(c, x);
+  }
+};
+
+Divider make_divider(uint32_t d) {
+  return Divider{d > 1u ? ~0ULL / d + 1 : 0ULL, d};
+}
+
+// The outputs' rows: by multiplies while every output index fits 32 bits
+// (`narrow`), else by a 64-bit division.
+struct Rows {
+  Divider per_row;  // n_out, when narrow
+  long long n_out;
+  bool narrow;
+  __device__ __forceinline__ long long of(long long f) const {
+    return narrow ? (long long)per_row.div((uint32_t)f) : f / n_out;
+  }
+};
+
+// The hashes of one thread's outputs: `count` (<= kOut) outputs from base
+// `p` of `src`, the first `left` of them in the current row.  K is k when
+// fixed at compile time (the path's 16), else 0 and k is `k_arg`.
+template <int K>
+__device__ __forceinline__ void hash_run(const uint8_t* src, int p, int left,
+                                         int k_arg, int count, int n_out,
+                                         uint32_t (&h)[kOut]) {
+  const int k = K ? K : k_arg;
+  const uint32_t fmask = k >= 16 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1u;
+  const int top = 2 * (min(k, 16) - 1);  // rev's entering base
+  uint32_t fwd = 0, rev = 0;
+  int last_n = p - 1;  // the position of the last N read
+  bool fresh = true;
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    if (j < count) {
+      if (fresh) {
+        fwd = rev = 0;
+        last_n = p - 1;
+        for (int i = 0; i < k; ++i) {
+          const uint32_t b = src[p + i];
+          if (b > 3u) last_n = p + i;
+          fwd = (fwd << 2) | (b & 3u);
+          if (i < 16) rev |= (3u - (b & 3u)) << (2 * i);
+        }
+        fresh = false;
+      } else {
+        const uint32_t b = src[p + k - 1];
+        if (b > 3u) last_n = p + k - 1;
+        fwd = ((fwd << 2) | (b & 3u)) & fmask;
+        const uint32_t c = k > 16 ? src[p + 15] : b;
+        rev = (rev >> 2) | ((3u - (c & 3u)) << top);
+      }
+      h[j] = last_n >= p ? kInvalid : mix_murmur3(min(fwd, rev));
+      ++p;
+      if (--left == 0) {  // the row ends: the next starts k - 1 bases on
+        p += k - 1;
+        left = n_out;
+        fresh = true;
+      }
+    }
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
 kmer_kernel(const uint8_t* __restrict__ bases, uint32_t* __restrict__ out,
-            long long length, long long n_out, int k, long long tiles) {
-  extern __shared__ uint8_t tile[];
-  const long long row = blockIdx.x / tiles;
-  const long long t0 = (blockIdx.x % tiles) * kTile;
-  const uint8_t* src = bases + row * length;
-  for (int i = threadIdx.x; i < kTile + k - 1; i += kTile) {
-    const long long pos = t0 + i;
-    tile[i] = pos < length ? src[pos] : kPad;
+            long long total, Rows rows, int k_arg) {
+  __shared__ __align__(16) uint8_t span[kSpan];
+  const int k = K ? K : k_arg;
+  const long long f0 = (long long)blockIdx.x * kBlockOut;
+  const long long f1 = min(total, f0 + kBlockOut);
+  const long long lo = f0 + rows.of(f0) * (k - 1);
+  const long long hi = f1 - 1 + rows.of(f1 - 1) * (k - 1) + k;
+  const int mis = (int)((uintptr_t)(bases + lo) & 15u);
+  const long long chunks = (hi - lo + mis + 15) >> 4;
+  const bool staged = chunks * 16 <= kSpan;
+  if (staged) {
+    const uint4* from = reinterpret_cast<const uint4*>(bases + lo - mis);
+    for (int c = threadIdx.x; c < chunks; c += kThreads)
+      reinterpret_cast<uint4*>(span)[c] = __ldg(from + c);
   }
   __syncthreads();
-  const long long t = t0 + threadIdx.x;
-  if (t >= n_out) return;
-  uint32_t fwd = 0, rev = 0;
-  bool bad = false;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t b = tile[threadIdx.x + j];
-    bad |= b > 3u;
-    const uint32_t code = b & 3u;
-    fwd = (fwd << 2) | code;
-    if (j < 16) rev |= (3u - code) << (2 * j);
+  const long long f = f0 + (long long)threadIdx.x * kOut;
+  uint32_t h[kOut];
+  if (f < f1) {
+    const long long row = rows.of(f);
+    const long long t = f - row * rows.n_out;
+    const int p = (int)(f + row * (k - 1) - lo);
+    // at most kOut outputs follow, so the rows' lengths clamp to kOut + 1
+    const int left = (int)min(rows.n_out - t, (long long)kOut + 1);
+    const int n_out = (int)min(rows.n_out, (long long)kOut + 1);
+    const int count = (int)min(f1 - f, (long long)kOut);
+    if (staged)
+      hash_run<K>(span + mis, p, left, k, count, n_out, h);
+    else
+      hash_run<K>(bases + lo, p, left, k, count, n_out, h);
   }
-  out[row * n_out + t] = bad ? kInvalid : mix_murmur3(min(fwd, rev));
+  if (f + kOut <= f1) {
+#pragma unroll
+    for (int q = 0; q < kOut / 4; ++q)
+      reinterpret_cast<uint4*>(out + f)[q] =
+          make_uint4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kOut; ++j)
+      if (f + j < f1) out[f + j] = h[j];
+  }
 }
 
 }  // namespace
 
-// `bases` (rows, length) uint8, `out` (rows, length - k + 1) u32.  Launches
-// on `stream`, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() of the launch (0 = success).
+// `bases` (rows, length) uint8, `out` (rows, length - k + 1) u32, 16-byte
+// aligned.  Launches on `stream`, allocates nothing, does not synchronise,
+// and returns cudaGetLastError() of the launch (0 = success).
 extern "C" int kmer_hash(const void* bases, void* out, long long rows,
                          long long length, int k, void* stream) {
   const long long n_out = length - k + 1;
   if (rows <= 0 || n_out <= 0) return 0;
-  const long long tiles = (n_out + kTile - 1) / kTile;
-  const long long shared = kTile + (long long)k - 1;
-  if (k < 1 || shared > kMaxShared || rows * tiles >= (1LL << 31))
+  const long long total = rows * n_out;
+  const long long blocks = (total + kBlockOut - 1) / kBlockOut;
+  if (k < 1 || ((uintptr_t)out & 15u) || blocks >= (1LL << 31) ||
+      (long long)kBlockOut * k + k >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  kmer_kernel<<<(unsigned)(rows * tiles), kTile, (size_t)shared,
-                (cudaStream_t)stream>>>((const uint8_t*)bases,
-                                        (uint32_t*)out, length, n_out, k,
-                                        tiles);
+  const bool narrow = total <= 0xFFFFFFFFLL;
+  const Rows r{make_divider(narrow ? (uint32_t)n_out : 1u), n_out, narrow};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k == 16)
+    kmer_kernel<16><<<(unsigned)blocks, kThreads, 0, s>>>(
+        (const uint8_t*)bases, (uint32_t*)out, total, r, k);
+  else
+    kmer_kernel<0><<<(unsigned)blocks, kThreads, 0, s>>>(
+        (const uint8_t*)bases, (uint32_t*)out, total, r, k);
   return (int)cudaGetLastError();
 }

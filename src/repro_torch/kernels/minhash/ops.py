@@ -29,7 +29,9 @@ LAUNCHES = {"kmer_hash": 0}
 #: the k-mers those launches hashed
 ELEMENTS = dict.fromkeys(LAUNCHES, 0)
 
-#: the largest k the kernel's shared-memory tile (256 + k - 1 bytes) takes
+#: the largest k the wrappers take: the limit the first kernel's shared-memory
+#: tile (256 + k - 1 bytes) set; the kernel now reads a span of bases too
+#: wide for its shared memory from device memory, and takes any k below 2^20
 MAX_K = 48 * 1024 - 255
 
 

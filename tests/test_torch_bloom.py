@@ -19,6 +19,8 @@ the whole u32 range (the default seed and the step constant wrap u32),
 with duplicates, masks and empty batches.  About 10 s on one core.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -294,3 +296,31 @@ def test_insert_plan_picks_the_path_by_keys_per_sector():
             plan.ranges * plan.tiles_per_range), (name, plan)
     odd = ops.insert_plan(2 ** 24, 3 * 2 ** 20, 3)
     assert odd.partitioned and odd.rows_per_tile == ops.TILE_WORDS // 3
+
+
+def test_query_plan_picks_the_path_by_its_own_threshold():
+    """``query_plan``: the insert's cut, at ``QUERY_KEYS_PER_SECTOR``.  The
+    partitioned query for chip_smoke.py phase 21's shape (2^28 keys into
+    2^32 bits, 16 keys a sector); the direct query for the serve step's
+    2^20 lookups into fig12's 8 planes (1/16 a sector), a filter of one
+    range, more than ``MAX_TILES`` tiles, an empty batch and any batch with
+    a plane per key; at the threshold partitioned, one key below it
+    direct."""
+    from repro_torch.core.common import table_geometry
+    stack = 8 * tbloom.num_blocks_for(16 * table_geometry(2 ** 25, 32)[1])
+    shapes = {"phase 21": (2 ** 28, tbloom.num_blocks_for(2 ** 32), True),
+              "serve step": (2 ** 20, stack, False),
+              "one range": (2 ** 28, ops.RANGE_BYTES // 64, False),
+              "too many tiles": (2 ** 30, 2 ** 26, False),
+              "empty": (0, stack, False)}
+    for name, (n, rows, partitioned) in shapes.items():
+        plan = ops.query_plan(n, rows, 16)
+        assert plan.partitioned == partitioned, (name, plan)
+        if partitioned:
+            assert plan == ops.insert_plan(n, rows, 16), name
+    at = math.ceil(ops.QUERY_KEYS_PER_SECTOR * stack * 16 * 4 / 32)
+    assert ops.query_plan(at, stack, 16).partitioned
+    assert not ops.query_plan(at - 1, stack, 16).partitioned
+    assert not ops.query_plan(2 ** 28, stack, 16, planes=True).partitioned
+    assert ops.query_plan(at, stack, 16)[1:] == ops.insert_plan(
+        2 ** 24, stack, 16)[1:]

@@ -372,6 +372,42 @@ def test_kmer_hash_holds_to_plain(rows, length, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 31, 32, 33, 64, 1000])
+def test_kmer_hash_rolls_across_rows(k):
+    """``kmer_hash``, whose threads roll a run of outputs over a flat span
+    of bases, bit-exact against ``ref.kmer_hashes`` on rows of k, k + 1,
+    127, 150, 300 and 1337 bases (those at least k long): one row, 3 rows,
+    and as many rows as put row boundaries inside threads' runs and across
+    several blocks' spans; N codes 4 and 255 at row starts, row ends and
+    inside windows; the bases also at an odd address."""
+    _need_card()
+    mh.reset_launches()
+    launches = 0
+    for length in (k, k + 1, 127, 150, 300, 1337):
+        if length < k:
+            continue
+        n_out = length - k + 1
+        for rows in sorted({1, 3, 4099 // n_out + 1, 3 * 4096 // n_out + 5}):
+            rng = np.random.default_rng([k, length, rows])
+            bases = rng.integers(0, 4, (rows, length)).astype(np.uint8)
+            bases[rng.random(bases.shape) < 0.003] = 4
+            bases[rng.random(bases.shape) < 0.003] = 255
+            bases[::2, 0], bases[1::3, -1] = 4, 255
+            bases[::5, length // 2] = 4
+            want = mh.kmer_hash(torch.from_numpy(bases), k)
+            flat = torch.zeros((bases.size + 1,), dtype=torch.uint8,
+                               device="cuda")
+            flat[1:] = torch.from_numpy(bases.reshape(-1)).cuda()
+            for card in (torch.from_numpy(bases).cuda(),
+                         flat[1:].view(rows, length)):
+                got = mh.kmer_hash(card, k)
+                torch.cuda.synchronize()
+                launches += 1
+                assert torch.equal(got.cpu(), want), (length, rows)
+    assert mh.LAUNCHES == {"kmer_hash": launches}
+
+
+@pytest.mark.cuda
 def test_bucket_list_and_sketches_on_card_go_through_kernels():
     """The metagenomics front end and the bucket list on the card launch
     ``kmer_hash``, ``cops_lookup`` and ``cops_bucket_walk`` and give the
@@ -845,6 +881,90 @@ def test_bloom_insert_paths_hold_to_plain(case, monkeypatch):
     assert bloom_ops.LAUNCHES == {"bloom_insert": 1, "bloom_query": 0}
     assert bloom_ops.PATHS[path] == 1 and sum(bloom_ops.PATHS.values()) == 1
     assert bloom_ops.ELEMENTS["bloom_insert"] == n
+
+
+#: the query's path cases: name -> (queries, planes, blocks, words a
+#: block, k, (tile words, range bytes) or None for ``TILE_WORDS`` and
+#: ``RANGE_BYTES``, the path ``query_plan`` picks)
+_QUERY_PATHS = {
+    "wide filter": (1 << 23, 1, 2097143, 16, 4, None, "query_partitioned"),
+    "many ranges": ((1 << 20) + 77, 1, 65537, 16, 4, _SMALL_CUT,
+                    "query_partitioned"),
+    "most ranges": (1 << 20, 1, 65537, 16, 4, (256, 1024),
+                    "query_partitioned"),
+    "planes out of range": (1 << 20, 5, 16411, 16, 4, _SMALL_CUT,
+                            "query_direct"),
+    "k 17": (1 << 20, 1, 65537, 16, 17, _SMALL_CUT, "query_partitioned"),
+    "3 words a block": (1 << 20, 1, 65537, 3, 8, _SMALL_CUT,
+                        "query_partitioned"),
+    "one row": (1 << 20, 1, 65537, 16, 4, _SMALL_CUT, "query_partitioned"),
+    "one key": (1, 3, 16411, 16, 4, _SMALL_CUT, "query_direct"),
+    "2049 keys": (2049, 5, 16411, 16, 4, _SMALL_CUT, "query_direct"),
+    "below the threshold": (1 << 14, 1, 65537, 16, 4, _SMALL_CUT,
+                            "query_direct"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_QUERY_PATHS))
+def test_bloom_query_paths_hold_to_plain(case, monkeypatch):
+    """``bloom_query`` against ``query_plain`` on the path ``query_plan``
+    picks and on both paths forced through ``query_launch``, on the same
+    batch: half of it keys inserted (repeats among them), half absent; a
+    filter of 128 MiB at the kernels' own cut and filters cut into small
+    tiles and many ranges (up to ``MAX_LOCAL``); a stack of planes with
+    some queries' planes out of range (answer 0; a batch with planes is
+    planned direct); k = 17 (bits tested one at a time); 96-bit blocks;
+    every query in one row; one query, 2049 queries (not a multiple of a
+    scatter block's 2048 keys), and an empty batch, which launches
+    nothing.  ``PATHS`` counts each launch's path."""
+    _need_card()
+    n, planes, nb, wpb, k, cut, path = _QUERY_PATHS[case]
+    if cut:
+        monkeypatch.setattr(bloom_ops, "TILE_WORDS", cut[0])
+        monkeypatch.setattr(bloom_ops, "RANGE_BYTES", cut[1])
+    gen = torch.Generator().manual_seed(len(case) * 1000 + n % 997)
+    keys, _, plane, words = _bloom_case(gen, max(n, 2), planes, nb, wpb)
+    if planes == 1:
+        plane, words = None, words[0]
+    half = max(n, 2) // 2
+    bloom_ops.insert_plain(words, keys[:half], k_hashes=k, seed=7,
+                           planes=None if plane is None else plane[:half])
+    queries = torch.cat([keys[:half], keys[half:] ^ 0x5A5A5A5A])[:n]
+    if case == "one row":
+        queries = queries[:1].repeat(n)
+    qplane = None if plane is None else plane[:n]
+    want = bloom_ops.query_plain(words, queries, k_hashes=k, seed=7,
+                                 planes=qplane)
+    rows = planes * nb
+    assert bloom_ops.query_plan(n, rows, wpb, qplane is not None).partitioned \
+        == (path == "query_partitioned")
+    threshold = bloom_ops.QUERY_KEYS_PER_SECTOR
+    monkeypatch.setattr(bloom_ops, "QUERY_KEYS_PER_SECTOR", 0.0)
+    forced = bloom_ops.query_plan(n, rows, wpb)
+    monkeypatch.setattr(bloom_ops, "QUERY_KEYS_PER_SECTOR", threshold)
+    assert forced.partitioned
+    bloom_ops.reset_launches()
+    got = bloom_ops.query_words(words, queries, k_hashes=k, seed=7,
+                                planes=qplane)
+    part = bloom_ops.query_launch(words, queries, qplane, k, 7, forced)
+    direct = bloom_ops.query_launch(words, queries, qplane, k, 7,
+                                    bloom_ops.Plan(False))
+    empty = bloom_ops.query_launch(words, queries[:0], None, k, 7, forced)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(part, want) and torch.equal(direct, want)
+    assert empty.shape == (0,)
+    live = torch.arange(n, device="cuda") < half
+    if qplane is not None:
+        out_of_range = (qplane < 0) | (qplane >= planes)
+        assert not bool(want[out_of_range].any())
+        live &= ~out_of_range
+    assert bool(want[live].all())
+    assert bloom_ops.LAUNCHES == {"bloom_insert": 0, "bloom_query": 3}
+    other = ({"query_direct", "query_partitioned"} - {path}).pop()
+    assert bloom_ops.PATHS == {"direct": 0, "partitioned": 0, path: 2,
+                               other: 1}
 
 
 @pytest.mark.cuda

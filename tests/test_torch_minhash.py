@@ -8,6 +8,11 @@ the port runs its plain versions.  Hashes are u32 words and the tolerance
 is zero.
 """
 
+import functools
+import re
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +24,8 @@ from repro_torch.core.common import to_numpy_u32
 from repro_torch.kernels.minhash import ops as tmh
 from repro_torch.kernels.minhash import ref as tref
 
+_FAST = {"xla_backend_optimization_level": 0,
+         "xla_cpu_use_fusion_emitters": False}
 
 def _bases(rng, shape, n_rate=0.01):
     """Random base codes, with N (codes 4 and 255) at ``n_rate``, and
@@ -91,6 +98,98 @@ def test_sketch_pads_with_invalid():
     assert (got[0, :2] != tref.INVALID).all() and (got[0, 4:] == tref.INVALID).all()
     assert (got[1] == tref.INVALID).all()
     assert (np.diff(got[0][got[0] != tref.INVALID].astype(np.int64)) > 0).all()
+
+
+def _rolling_kmer_hashes(bases, k, per_thread):
+    """The card kernel's recurrence (``csrc/minhash.cu``: ``hash_run``)
+    written in torch: the flat outputs of (R, L) bases cut into runs of
+    ``per_thread``; a run builds its first k-mer in k steps and rolls each
+    later one in by one base (fwd takes the new last base, masked to 2k
+    bits below k = 16; rev drops its first base and takes base min(k, 16)
+    - 1 of the new window at the top; the N test compares the window's
+    start with the last N's position), and where a row ends it skips the
+    k - 1 bases that start no k-mer and builds anew."""
+    from repro_torch.core.common import MASK32, as_word
+    from repro_torch.core.hashing import mix_murmur3
+    rows, length = bases.shape
+    n_out = length - k + 1
+    flat = bases.reshape(-1).to(torch.int64)
+    total = rows * n_out
+    f = torch.arange(0, total, per_thread)
+    row = f // n_out
+    p = f + row * (k - 1)
+    left = n_out - (f - row * n_out)
+    fmask = MASK32 if k >= 16 else (1 << 2 * k) - 1
+    top = 2 * (min(k, 16) - 1)
+    fwd = torch.zeros_like(f)
+    rev = torch.zeros_like(f)
+    last_n = p - 1
+    fresh = torch.ones_like(f, dtype=torch.bool)
+
+    def base(at):
+        return flat[at.clamp(max=flat.numel() - 1)]
+
+    out = []
+    for _ in range(per_thread):
+        bf, br, bl = torch.zeros_like(f), torch.zeros_like(f), p - 1
+        for i in range(k):
+            b = base(p + i)
+            bl = torch.where(b > 3, p + i, bl)
+            bf = ((bf << 2) | (b & 3)) & MASK32
+            if i < 16:
+                br |= (3 - (b & 3)) << (2 * i)
+        b = base(p + k - 1)
+        rl = torch.where(b > 3, p + k - 1, last_n)
+        rf = ((fwd << 2) | (b & 3)) & fmask
+        c = base(p + 15) if k > 16 else b
+        rr = (rev >> 2) | ((3 - (c & 3)) << top)
+        fwd, rev = torch.where(fresh, bf, rf), torch.where(fresh, br, rr)
+        last_n = torch.where(fresh, bl, rl)
+        out.append(torch.where(last_n >= p, tref.INVALID_WORD,
+                               as_word(mix_murmur3(torch.minimum(fwd, rev)))))
+        p, left = p + 1, left - 1
+        fresh = left == 0
+        p = torch.where(fresh, p + k - 1, p)
+        left = torch.where(fresh, n_out, left)
+    return torch.stack(out, 1).reshape(-1)[:total].reshape(rows, n_out)
+
+
+@functools.cache
+def _rolling_case(k):
+    """Seeded bases for k: 5 rows of each length k, k + 3 (4 k-mers a row,
+    so row boundaries fall inside a thread's run) and 61, with N codes 4
+    and 255 at row starts, row ends and inside windows; and the JAX
+    oracle's hashes of each row (one jitted call on the rows padded to 61
+    bases: the first L - k + 1 windows of a padded row are the row's)."""
+    rng = np.random.default_rng(k)
+    layouts = []
+    for length in (k, k + 3, 61):
+        bases = _bases(rng, (5, length), n_rate=0.03)
+        bases[0, 0], bases[1, -1], bases[2, length // 2] = 4, 255, 4
+        layouts.append(bases)
+    padded = np.concatenate([np.pad(b, ((0, 0), (0, 61 - b.shape[1])))
+                             for b in layouts])
+    oracle = jax.jit(jax.vmap(lambda r: jref.kmer_hashes(r, k)),
+                     compiler_options=_FAST)
+    want = np.asarray(oracle(jnp.asarray(padded)))
+    return [(b, want[5 * i:5 * i + 5, :b.shape[1] - k + 1])
+            for i, b in enumerate(layouts)]
+
+
+@pytest.mark.parametrize("per_thread", [8, 16])
+def test_rolling_recurrence_matches_for_every_k(per_thread):
+    """The kernel's rolling recurrence, for every k from 1 to 40, across
+    row restarts inside and between runs (``_rolling_case``): equal to
+    ``ref.kmer_hashes`` and to the JAX package's oracle.  The kernel's
+    outputs a thread (``kOut``) is one of the runs tested."""
+    source = (Path(tmh.__file__).parent / "csrc" / "minhash.cu").read_text()
+    assert int(re.search(r"kOut = (\d+);", source)[1]) in (8, 16)
+    for k in range(1, 41):
+        for bases, want in _rolling_case(k):
+            tb = torch.from_numpy(bases)
+            got = _rolling_kmer_hashes(tb, k, per_thread)
+            assert torch.equal(got, tref.kmer_hashes(tb, k)), k
+            np.testing.assert_array_equal(to_numpy_u32(got), want)
 
 
 def test_cpu_launches_no_kernel():

@@ -3,7 +3,7 @@
 card.
 
     python3 tools/probe_cops_update.py [insert] [retrieve] [update] [walk]
-                                       [bloom]
+                                       [bloom] [kmer]
 
 (the sections named; the first three by default).  Builds variants of
 ``src/repro_torch/kernels/cops/csrc/cops.cu`` that differ from the source
@@ -69,7 +69,25 @@ and at fig12's filter stack (8 planes
 of 16 bits per slot of 2^25 slots, a plane per key) the two paths at
 each batch of ``BLOOM_BATCHES`` keys (keys per filter sector 1/64 .. 1),
 and a shard's rebuild (2^25 slots, half live, into one plane); each
-partitioned filter held equal to the direct one.
+partitioned filter held equal to the direct one.  Then the query, under
+the source and each variant of
+``src/repro_torch/kernels/bloom/csrc/bloom.cu`` ("bit by bit": the direct
+query loading and testing each bit in turn to the first clear one; "tile
+words first": the tile query loading every word of a key first): both
+paths at phase 21's shape, present and absent keys, the direct path at
+the serve step's (2^20 keys, half absent, into the 8-plane stack after
+2^27 keys preloaded), and the kernels of both named with their device
+times (``torch.profiler``); then, under the source, both paths at each
+batch of ``QUERY_BATCHES`` keys, half absent, into the stack with a plane
+per key and into phase 21's filter (the threshold), every answer held
+equal to the plain version's or the other path's.
+Then ("kmer") it times ``kmer_hash`` under each variant of
+``src/repro_torch/kernels/minhash/csrc/minhash.cu`` (``kThreads`` at each
+of ``KMER_THREADS``, ``kOut`` outputs a thread at each of ``KMER_OUTS``)
+on ``chip_smoke.py`` phase 14's reads (2^20 x 150 bases, k = 16 and 31)
+and one genome's windows (k = 16), by CUDA events and by the profiler's
+device time, each held equal to the plain version.  Both print ptxas's
+registers and spills of every kernel of each variant.
 Needs one card and nvcc; imports no JAX.
 """
 
@@ -94,6 +112,9 @@ BUCKET_KEYS = (4, 8, 16, 32)          # the bucket walk's K variants
 RANGE_MIB = (2, 4, 16)                # the partitioned insert's range sizes
 TILE_WORDS = (8192, 16384)            # ... and its tile sizes
 BLOOM_BATCHES = tuple(2 ** e for e in range(18, 25))
+QUERY_BATCHES = tuple(2 ** e for e in range(18, 29))
+KMER_OUTS = (4, 8, 16)                # kmer_hash's outputs a thread
+KMER_THREADS = (128, 256, 512)        # ... and threads a block
 # the per-warp step of the combine in the source, and the two it replaced
 STEP = re.compile(r"      // a warp whose rows all belong to one group.*?"
                   r"\n      }\n", re.S)
@@ -155,6 +176,52 @@ def bucket_variants(text):
             for k in BUCKET_KEYS if k != own}
 
 
+def kmer_variants(text):
+    """{name: source} of ``kmer_hash``'s variants: each block of
+    ``KMER_THREADS`` threads and outputs a thread of ``KMER_OUTS``; the one
+    equal to the source as "source"."""
+    out = {}
+    for threads in KMER_THREADS:
+        for m in KMER_OUTS:
+            v = re.sub(r"kThreads = \d+;", f"kThreads = {threads};", text)
+            v = re.sub(r"kOut = \d+;", f"kOut = {m};", v)
+            out["source" if v == text else f"{threads} threads, kOut={m}"] = v
+    assert "source" in out, "kmer_hash's constants moved"
+    return out
+
+
+def query_variants(text):
+    """{name: source} of the queries' variants: "bit by bit", the direct
+    query with each bit loaded and tested in turn, stopping at the first
+    clear one (the first design's loop), where the source loads every word
+    of a key first; "tile words first", the tile query loading every word
+    first, where the source goes bit by bit; the source as "source"."""
+    direct = "holds_bits(geo, words + row, h, g, kLoadBits)"
+    tile = "mix_murmur3(key[u] + kStepAdd), 0);"
+    assert direct in text and tile in text, "the queries' bit tests moved"
+    return {"source": text,
+            "bit by bit": text.replace(direct, direct.replace("kLoadBits",
+                                                              "0")),
+            "tile words first": text.replace(tile, tile.replace(
+                ", 0);", ", kLoadBits);"))}
+
+
+def kernel_registers(log):
+    """``kernel<args> R registers, S B spilled`` for every kernel in
+    ptxas's ``-v`` report ``log``."""
+    out = []
+    for name, spill, regs in re.findall(
+            r"Compiling entry function '(\S+)'.*?\n.*?\n\s+\d+ bytes stack "
+            r"frame, (\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
+            log):
+        m = re.search(r"\d+([a-z_]+_kernel)(I.*?E)?E", name)
+        if m:
+            args = ", ".join(v for _, v in re.findall(r"L(i|b)(\d+)E",
+                                                      m[2] or ""))
+            out.append(f"{m[1]}<{args}> {regs} registers, {spill} B spilled")
+    return out
+
+
 def walk_registers(log):
     """``kernel<args> R registers, S bytes of spill stores`` for every walk,
     lookup and retrieve kernel in ptxas's ``-v`` report ``log``."""
@@ -190,10 +257,10 @@ def main() -> int:
     out_dir = ROOT / "build" / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    def compile_one(item):
+    def compile_one(item, stem="cops"):
         name, text = item
         tag = re.sub(r"[^A-Za-z0-9]+", "_", name)
-        src, lib = out_dir / f"cops_{tag}.cu", out_dir / f"libcops_{tag}.so"
+        src, lib = out_dir / f"{stem}_{tag}.cu", out_dir / f"lib{stem}_{tag}.so"
         src.write_text(text)
         res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-Xptxas",
                               "-v", "-o", str(lib), str(src)], check=True,
@@ -203,12 +270,28 @@ def main() -> int:
     sections = set(sys.argv[1:]) or {"insert", "retrieve", "update"}
     text = build.sources()["cops"].read_text()
     todo = (variants(text) if sections & {"insert", "retrieve", "update"}
-            else {"source": text})
+            else {"source": text} if "walk" in sections else {})
     if "walk" in sections:
         todo.update(bucket_variants(text))
+    others = {}   # {stem: {name: source}} of the minhash and bloom variants
+    if "kmer" in sections:
+        others["minhash"] = kmer_variants(
+            build.sources()["minhash"].read_text())
+    if "bloom" in sections:
+        others["bloom"] = query_variants(build.sources()["bloom"].read_text())
+    jobs = [(item, "cops") for item in todo.items()] + [
+        (item, stem) for stem, v in others.items() for item in v.items()]
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        built = list(pool.map(compile_one, todo.items()))
+        done = list(pool.map(lambda job: (job[1], *compile_one(*job)), jobs))
+    built = [(name, lib, log) for stem, name, lib, log in done
+             if stem == "cops"]
     libs = {name: lib for name, lib, _ in built}
+    other_libs = {stem: {name: lib for st, name, lib, _ in done if st == stem}
+                  for stem in others}
+    for stem, name, _, log in done:
+        if stem != "cops":
+            print(f"ptxas {stem} {name}: " + "; ".join(
+                kernel_registers(log)), flush=True)
     walk_k, retrieve_k = own_keys(build.sources()["cops"].read_text())
 
     def timed_here(name, own, retrieve=False):
@@ -220,12 +303,13 @@ def main() -> int:
     for name, _, log in built:
         print(f"ptxas {name}: " + "; ".join(walk_registers(log)), flush=True)
 
-    def use(lib):
-        ops._lib.cache_clear()
+    def use(lib, module=ops):
+        """Load ``lib`` as the library of wrapper ``module``."""
+        module._lib.cache_clear()
         real = build.library
         build.library = lambda name: ctypes.CDLL(str(lib))
         try:
-            ops._lib()
+            module._lib()
         finally:
             build.library = real
 
@@ -408,8 +492,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "walk" in sections:
         probe_bucket_walk(torch, libs, use, median_ms)
+    if "kmer" in sections:
+        probe_kmer(torch, other_libs["minhash"], use, median_ms)
     if "bloom" in sections:
-        probe_bloom(torch, median_ms)
+        probe_bloom(torch, median_ms, other_libs["bloom"], use)
     ops._lib.cache_clear()
     print(card, flush=True)
     return 0
@@ -490,7 +576,167 @@ def probe_bucket_walk(torch, libs, use, median_ms):
     torch.cuda.empty_cache()
 
 
-def probe_bloom(torch, median_ms):
+def probe_kmer(torch, libs, use, median_ms):
+    """The "kmer" section (see the module's docstring)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as smoke
+    from repro_torch.kernels.minhash import ops as mh
+    from repro_torch.kernels.minhash import ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    reads = smoke.random_bases(torch, gen, (smoke.N_READS, smoke.READ_LEN),
+                               0.001)
+    genome = smoke.random_bases(torch, gen, (smoke.GENOME_LEN,), 0.0)
+    windows = smoke.genome_windows(torch, genome).contiguous()
+    cases = {f"reads {tuple(reads.shape)} k=16": (reads, 16),
+             f"reads {tuple(reads.shape)} k=31": (reads, 31),
+             f"one genome's windows {tuple(windows.shape)} k=16":
+                 (windows, 16)}
+    want = {tag: ref.kmer_hashes(x, k) for tag, (x, k) in cases.items()}
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, reps=5):
+        """The kernel's mean device time over ``reps`` calls (the
+        profiler), or None where the profiler saw no device time."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if "kmer_kernel" in e.key]
+        total = sum(e.device_time_total for e in ev)
+        return total / reps / 1e3 if total else None
+
+    for name, lib in libs.items():
+        use(lib, mh)
+        line = []
+        for tag, (x, k) in cases.items():
+            ms, ts = median_ms(lambda: mh.kmer_hash(x, k))
+            dev = device_ms(lambda: mh.kmer_hash(x, k))
+            same = torch.equal(mh.kmer_hash(x, k), want[tag])
+            line.append(f"{tag} {ms:.4f} ms (min {min(ts):.4f}, max "
+                        f"{max(ts):.4f}; device "
+                        f"{'not measured' if dev is None else f'{dev:.4f}'}"
+                        f"; as plain: {same})")
+        print(f"kmer_hash {name}: " + "; ".join(line), flush=True)
+    mh._lib.cache_clear()
+    del reads, genome, windows, want
+    torch.cuda.empty_cache()
+
+
+def probe_query(torch, median_ms, libs, use):
+    """The query's part of the "bloom" section: the direct path under each
+    variant at phase 21's shape and at the serve step's, the partitioned
+    path at phase 21's shape with its kernels, and the threshold."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import bloom
+    from repro_torch.kernels.bloom import ops
+    from repro_torch.kernels.cops import contract
+
+    def forced(n, rows, wpb):
+        saved = ops.QUERY_KEYS_PER_SECTOR
+        ops.QUERY_KEYS_PER_SECTOR = 0
+        try:
+            return ops.query_plan(n, rows, wpb)
+        finally:
+            ops.QUERY_KEYS_PER_SECTOR = saved
+
+    f = bloom.create(2 ** 32, device="cuda")
+    keys = contract.distinct_keys(0, 2 ** 28, "cuda")
+    ops.insert_words(f.words, keys, k_hashes=f.k, seed=f.seed)
+    absent = contract.distinct_keys(2 ** 31, 2 ** 28, "cuda")
+    shards, slots = 8, 2 ** 25
+    nb = bloom.num_blocks_for(16 * slots)
+    stack = torch.zeros((shards, nb, 16), dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    live = contract.distinct_keys(0, 2 ** 27, "cuda")
+    owners = torch.randint(0, shards, live.shape, generator=gen,
+                           device="cuda")
+    ops.insert_words(stack, live, k_hashes=4, seed=0x9E3779B9, planes=owners)
+    half = 2 ** 19
+    serve = torch.cat([live[:half], contract.distinct_keys(2 ** 31, half,
+                                                           "cuda")])
+    serve_planes = torch.cat([owners[:half], owners[half:2 * half]])
+    shapes = {"phase 21 present": (f.words, keys, None, f.k, f.seed),
+              "phase 21 absent": (f.words, absent, None, f.k, f.seed),
+              "serve step (2^20 into 8 planes, half absent)":
+                  (stack, serve, serve_planes, 4, 0x9E3779B9)}
+    want = {tag: ops.query_plain(w, q, k_hashes=k, seed=sd, planes=p)
+            for tag, (w, q, p, k, sd) in shapes.items()}
+    direct = ops.Plan(False)
+    part = forced(2 ** 28, f.num_blocks, 16)
+    for name, lib in libs.items():
+        use(lib, ops)
+        line = []
+        for tag, (w, q, p, k, sd) in shapes.items():
+            for path, plan in (("direct", direct), ("partitioned", part)):
+                if path == "partitioned" and p is not None:
+                    continue
+                ms, ts = median_ms(lambda: ops.query_launch(w, q, p, k, sd,
+                                                            plan))
+                same = torch.equal(ops.query_launch(w, q, p, k, sd, plan),
+                                   want[tag])
+                line.append(f"{tag} {path} {ms:.3f} ms (min {min(ts):.3f}, "
+                            f"max {max(ts):.3f}; as plain: {same})")
+        # one profile: the serve step's direct query thrice, then phase
+        # 21's partitioned query once
+        w, q, p, k, sd = shapes["serve step (2^20 into 8 planes, half absent)"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ops.query_launch(w, q, p, k, sd, direct)
+            ops.query_launch(f.words, keys, None, f.k, f.seed, part)
+            torch.cuda.synchronize()
+        split = "; ".join(
+            f"{re.search(r'(\w+_kernel)', e.key)[1]} "
+            f"{e.device_time_total / 1e3:.3f} ms / {e.count}"
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and "_kernel" in e.key
+            and "elementwise" not in e.key)
+        print(f"bloom query {name}: " + "; ".join(line) + "; the profile "
+              f"(the serve step's direct query x3, phase 21's partitioned "
+              f"one, {part.tiles} tiles in {part.ranges} ranges): "
+              f"{split or 'not measured'}", flush=True)
+    use(libs["source"], ops)
+    del want, shapes
+    torch.cuda.empty_cache()
+    filters = {f"fig12 stack {shards} x {nb} blocks, a plane per key":
+                   (stack, live, owners, 4, 0x9E3779B9),
+               f"phase 21's filter, {f.num_blocks} blocks":
+                   (f.words, keys, None, f.k, f.seed)}
+    for tag, (w, present, own, k, sd) in filters.items():
+        rows = w.shape[0] * w.shape[1] if w.ndim == 3 else w.shape[0]
+        for n in QUERY_BATCHES:
+            if own is None and n < 2 ** 24:
+                continue
+            q = torch.cat([present[:n // 2], contract.distinct_keys(
+                2 ** 31, n - n // 2, "cuda")])
+            p = None if own is None else torch.cat([
+                own[:n // 2], torch.randint(0, shards, (n - n // 2,),
+                                            generator=gen, device="cuda")])
+            plan = forced(n, rows, 16)
+            d_ms, dt = median_ms(lambda: ops.query_launch(w, q, p, k, sd,
+                                                          direct))
+            p_ms, pt = median_ms(lambda: ops.query_launch(w, q, p, k, sd,
+                                                          plan))
+            same = torch.equal(ops.query_launch(w, q, p, k, sd, direct),
+                               ops.query_launch(w, q, p, k, sd, plan))
+            picks = ops.query_plan(n, rows, 16).partitioned
+            print(f"bloom query {tag}: {n} keys (half absent), "
+                  f"{n / (rows * 2):.4f} a filter sector; direct {d_ms:.3f} "
+                  f"ms (min {min(dt):.3f}, max {max(dt):.3f}); partitioned "
+                  f"{p_ms:.3f} ms (min {min(pt):.3f}, max {max(pt):.3f}; as "
+                  f"direct: {same}); query_plan: "
+                  f"{'partitioned' if picks else 'direct'}", flush=True)
+            del q, p
+    ops._lib.cache_clear()
+    del f, keys, absent, stack, live, owners, filters
+    torch.cuda.empty_cache()
+
+
+def probe_bloom(torch, median_ms, libs, use):
     """The "bloom" section (see the module's docstring)."""
     from repro_torch.core import bloom
     from repro_torch.kernels.bloom import ops
@@ -520,7 +766,7 @@ def probe_bloom(torch, median_ms):
                 lambda: (words.zero_(),))
             return ms, ts, words.clone()
 
-        d_ms, d_ts, want = run(ops.InsertPlan(False))
+        d_ms, d_ts, want = run(ops.Plan(False))
         line = [f"direct {d_ms:.3f} ms (min {min(d_ts):.3f}, max "
                 f"{max(d_ts):.3f})"]
         for tile_words, range_bytes in cuts or [(ops.TILE_WORDS,
@@ -575,6 +821,7 @@ def probe_bloom(torch, median_ms):
           k_hashes=4, seed=0x9E3779B9)
     del words, keys, live
     torch.cuda.empty_cache()
+    probe_query(torch, median_ms, libs, use)
 
 
 if __name__ == "__main__":
