@@ -8,9 +8,10 @@ single-value COPS table, the paper's headline (§IV-B, Fig. 5), on the
 multi-value table and the bucket list (§IV-B.4, §IV-C, Fig. 7), the
 metagenomics pipeline (§V-C, Fig. 8), the relational layer (fig9) and the
 bloom-filtered elastic service (fig12) — at the paper's scale, flash
-attention at starcoder2-3b's attention widths, and holds
-every kernel of each path against its plain PyTorch version.  Phases, one
-status line each:
+attention at starcoder2-3b's attention widths, and the tables' telemetry
+(``stats=True``) and growth (``insert_or_grow``), and holds every kernel
+of each path against its plain PyTorch version.  Phases, one status line
+each:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``src/repro_torch/kernels/*/csrc``;
@@ -220,7 +221,33 @@ status line each:
     each named by ``torch.profiler`` (which SDPA backend ran); the bound:
     the flops (4 hd per visible pair) at the type's peak (989 TFLOP/s
     bf16, 67 f32), the bytes (q, k, v, o once) and the exponentials beside
-    it.
+    it;
+24. the lookups' probe-length launches (``plen=True``, the ``PLEN``
+    instantiations of ``cops_lookup`` / ``cops_lookup64``) vs
+    ``lookup_plain``'s probe lengths, bit-exact, the lookup's outputs
+    unchanged (``contract.run_plen_case``): 2^20 keys at rho = 0.9 in
+    phase 2's four geometries, u32 and two-plane keys, with absent and
+    sentinel keys, TOMBSTONE-only windows and budgets of 1 and 2 windows;
+    budgets of num_rows + 3 on a 2^12-slot store without an EMPTY slot;
+    batches of 1, 7, 8, 9 and 33 keys; then the lookup of fig5's 2^28
+    keys (u32, u64) with and without ``plen``, in turns, with its bound;
+25. ``stats=True`` on the main paths (``obs.metrics``): fig5's u32 and
+    u64 cells through ``sv.insert`` and ``sv.retrieve``, fig9's group-by
+    rows through ``counting.insert`` and the wc-oa r = 8 cell through
+    ``mv.count_values``, each ``TableStats`` held to a ``bincount`` of the
+    statuses, a count over key plane 0 and the plain walk of the same
+    store, the outputs to the call's without stats; each call timed with
+    and without stats, each cell's mean / p50 / p99 probe length printed.
+    The counters are zeroed just before and read just after;
+26. growth at full width (``core.migrate``): fig5's 2^28 keys in 16
+    batches through ``sv.insert_or_grow`` from ``create(2^24)``, then
+    erases past the tombstone density and a batch that compacts; fig9's
+    2^27 rows through ``counting.insert_or_grow`` from ``create(2^20)``;
+    wc-oa's 2^28 pairs through ``mv.insert_or_grow`` from
+    ``create(2^24)``, all under ``GrowthPolicy(max_capacity=2^30)``, each
+    checked (no FULL, every key and count, ``retrieve_all`` per key) and
+    timed, its migrations apart.  The counters are zeroed just before and
+    read just after.
 
 The second-to-last line is the ``{"kernels": [...]}`` record, one entry per
 kernel; its ``bound_by`` is "bytes" or "operations" (the larger term), and
@@ -274,6 +301,10 @@ RETRIEVE_CAPACITY = 2 ** 14
 SINGLE_CASES = ((32, "cops"), (1, "cops"), (1, "linear"), (128, "linear"))
 R_WIDE = 32               # phase 7's r = 32 variant: 2^23 keys
 SHUFFLE_SEED = 7          # phase 7's shuffled variant
+PLEN_BATCHES = (1, 7, 8, 9, 33)  # phase 24: around a warp's 8 walks
+GROW_START = 2 ** 24      # phase 26: the tables the streams start from
+GROW_BATCHES = 16         # phase 26: fig5's keys in batches of 2^24
+GROW_CAP = 1 << 30        # phase 26: the policy's cap (default 2^24)
 N_BL = 2 ** 28            # fig7 wc-bl: 2^25 keys x r = 8, as phase 6
 BL_CASES = (("wc-bl-1", 1.1, 1, 1), ("wc-bl-1", 1.1, 1, 8),
             ("wc-bl-1", 1.1, 1, 32), ("wc-bl-2", 1.0, 1, 1),
@@ -2760,6 +2791,451 @@ def flash_path(torch, card, check, phase, err_before):
                          library_times=lib_t)
 
 
+def walk_lengths(torch, table_keys, keys, seed, scheme, budget):
+    """(n,) int64: the windows the read-only walk of each of ``keys`` reads
+    on the store ``table_keys`` to its match or its first window holding an
+    EMPTY (the budget where it reads neither), by ``probe_walks``: the
+    plain walk of ``walk_windows``."""
+    from repro_torch.core.common import EMPTY_WORD
+    out = torch.zeros(keys.shape[:1], dtype=torch.int64, device=keys.device)
+    for attempt, idx, _, _, _ in probe_walks(
+            torch, table_keys, keys, seed, scheme, budget,
+            lambda w, m: (m | (w == EMPTY_WORD)).any(1)):
+        out[idx] = attempt + 1
+    return out
+
+
+def length_hist(torch, lengths):
+    """The probe histogram of ``lengths`` (>= 1) computed apart from
+    ``obs.metrics``: bin ceil(log2(length)), the last bin open-ended."""
+    from repro_torch.obs import metrics
+    b = torch.ceil(torch.log2(lengths.double())).long()
+    b = b.clamp(0, metrics.NUM_PROBE_BINS - 1)
+    return torch.bincount(b, minlength=metrics.NUM_PROBE_BINS)
+
+
+def plen_cases(torch, card, check, phase):
+    """Phase 24: the lookups' probe-length launches (``plen=True``: the
+    ``PLEN`` instantiations of ``cops_lookup`` / ``cops_lookup64``) against
+    ``lookup_plain``'s probe lengths, bit-exact, with values, found and
+    slots unchanged (``contract.run_plen_case``): at N_CHECK keys, rho =
+    0.9, in phase 2's four geometries, u32 and two-plane keys, absent and
+    sentinel keys, TOMBSTONE-only windows, budgets of the table's, 1 and 2
+    windows; at 2^12 slots also num_rows + 3 on a store with no EMPTY
+    slot; and batches of PLEN_BATCHES keys.  Then at fig5's N_MAIN keys
+    the lookup of every key with and without ``plen``, timed in turns
+    (without, with, with, without; median of 5 each after a warm-up), the
+    probe lengths held against the plain version, with the lookup's byte
+    bound + 4 B a key."""
+    from repro_torch.core import bulk, single_value as sv
+    from repro_torch.kernels.cops import contract, ops
+    since = len(check.failed)
+    t0 = time.perf_counter()
+    n_cases = 0
+    for key_words in (1, 2):
+        for window, scheme in SINGLE_CASES:
+            kw = dict(window=window, scheme=scheme, device="cuda",
+                      key_words=key_words)
+            runs = {"2^20": contract.run_plen_case(
+                        capacity=int(N_CHECK / RHO), load=RHO, revisit=False,
+                        **kw),
+                    "rows3": contract.run_plen_case(**kw)}
+            for b in PLEN_BATCHES:
+                runs[f"batch{b}"] = contract.run_plen_case(batch=b, **kw)
+            for label, checks in runs.items():
+                n_cases += 1
+                for name, ok in checks.items():
+                    check(f"phase{phase} plen kw={key_words} W={window} "
+                          f"{scheme} {label} {name}", ok)
+    torch.cuda.synchronize()
+    case_s = time.perf_counter() - t0
+    lines = []
+    for key_words in (1, 2):
+        suffix = "" if key_words == 1 else "64"
+        keys = (contract.distinct_keys(0, N_MAIN, "cuda") if key_words == 1
+                else contract.distinct_keys64(0, N_MAIN, "cuda"))
+        table = sv.create(int(N_MAIN / RHO), window=WINDOW, device="cuda",
+                          key_words=key_words)
+        planes = contract.table_planes(table)
+        kw = dict(seed=table.seed, scheme=table.scheme,
+                  max_probes=bulk._tstatic(table)[3])
+        getattr(ops, "insert" + suffix)(*planes, keys,
+                                        contract.values_for(keys, 1),
+                                        count=0, **kw)
+        lookup = getattr(ops, "lookup" + suffix)
+        off1, base = timed(torch, lambda: lookup(*planes, keys, **kw))
+        on1, got = timed(torch, lambda: lookup(*planes, keys, plen=True,
+                                               **kw))
+        on2, _ = timed(torch, lambda: lookup(*planes, keys, plen=True, **kw))
+        off2, _ = timed(torch, lambda: lookup(*planes, keys, **kw))
+        want = ops.lookup_plain(*planes, keys, plen=True, **kw)
+        check(f"phase{phase} plen{suffix} at n={N_MAIN} bit-exact",
+              torch.equal(got[3], want[3]))
+        check(f"phase{phase} plen{suffix} at n={N_MAIN} outputs unchanged",
+              torch.equal(got[0], base[0]) and torch.equal(got[1], base[1]))
+        windows = int(want[3].sum())
+        p1 = 0 if key_words == 1 else walk_windows(
+            torch, planes[0], keys, kw["seed"], kw["scheme"],
+            kw["max_probes"])[1]
+        look_bytes = (windows * 4 * WINDOW + p1 * 32
+                      + N_MAIN * (32 + 4 * key_words + 5))
+        plen_bytes = look_bytes + 4 * N_MAIN
+        off, on = off1 + off2, on1 + on2
+        lines.append(
+            f"cops_lookup{suffix} of every key without plen {spread(off)}, "
+            f"with plen {spread(on)} "
+            f"({statistics.median(on) / statistics.median(off) - 1:+.2%}; "
+            f"runs in turns: without {statistics.median(off1):.3f} / "
+            f"{statistics.median(off2):.3f}, with "
+            f"{statistics.median(on1):.3f} / {statistics.median(on2):.3f}), "
+            f"bound without {look_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, "
+            f"with {plen_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; mean probe "
+            f"length {windows / N_MAIN:.4f}")
+        del keys, table, planes, base, got, want
+        torch.cuda.empty_cache()
+    print(f"phase {phase} lookup probe lengths vs plain: "
+          f"{check.status(since)}; {n_cases} cases ({N_CHECK} keys rho="
+          f"{RHO}, 2^12 slots with num_rows + 3 on a store without EMPTY, "
+          f"batches "
+          f"of {PLEN_BATCHES}) in {case_s:.1f} s; at n={N_MAIN} W={WINDOW} "
+          f"cops: " + "; ".join(lines) + f"; card {card}", flush=True)
+
+
+def telemetry_path(torch, card, check, phase):
+    """Phase 25: ``stats=True`` on the main paths.  fig5's cells (N_MAIN
+    distinct u32 keys, then u64 keys, into ``create(N_MAIN / RHO)``, W =
+    32, cops): ``sv.insert`` and ``sv.retrieve`` with and without stats;
+    fig9's group-by rows (N_REL keys uniform in [1, 2^25]) through
+    ``counting.insert``; the wc-oa r = 8 table through
+    ``mv.count_values``.  Each ``TableStats`` is held to the run: the
+    status histogram to a ``bincount`` of the statuses, the slot census to
+    a count over key plane 0, and the probe sum, count and histogram to
+    the plain walk of the same store (``walk_lengths``, ``probe_walks``)
+    of the batch's distinct keys; the outputs to the same call's without
+    stats (the same statuses, the same live map).  Each call timed with
+    and without stats (median of 5 after a warm-up), each cell's mean /
+    p50 / p99 probe length printed.  The counters are zeroed just before
+    and read just after: the bolt-on walks are lookup launches."""
+    from repro_torch.core import bulk, counting, multi_value as mv
+    from repro_torch.core import single_value as sv
+    from repro_torch.core.common import (
+        EMPTY_WORD, STATUS_INSERTED, TOMBSTONE_WORD)
+    from repro_torch.kernels.cops import contract, ops
+    from repro_torch.obs import metrics
+    from repro_torch.relational import groupby
+    since = len(check.failed)
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+
+    def held(tag, st, table, walkers, status=None, lengths=None):
+        """Hold ``st`` to the run; returns the plain walk's lengths."""
+        kp0 = table.store["keys"][0]
+        want_status = (torch.zeros(metrics.NUM_STATUS, dtype=torch.int64,
+                                   device="cuda") if status is None else
+                       torch.bincount(status.long(),
+                                      minlength=metrics.NUM_STATUS))
+        check(f"phase{phase} {tag} status_hist",
+              torch.equal(st.status_hist, want_status))
+        live = int(((kp0 != EMPTY_WORD) & (kp0 != TOMBSTONE_WORD)).sum())
+        check(f"phase{phase} {tag} slot census",
+              int(st.live_slots) == live
+              and int(st.tombstone_slots) == int((kp0 == TOMBSTONE_WORD)
+                                                 .sum())
+              and abs(float(st.load_factor) - live / table.capacity) < 1e-6)
+        if lengths is None:
+            lengths = walk_lengths(torch, contract.table_planes(table)[0],
+                                   walkers, table.seed, table.scheme,
+                                   bulk._tstatic(table)[3])
+        check(f"phase{phase} {tag} probe_sum / probe_n",
+              int(st.probe_sum) == int(lengths.sum())
+              and int(st.probe_n) == walkers.shape[0])
+        check(f"phase{phase} {tag} probe_hist",
+              torch.equal(st.probe_hist, length_hist(torch, lengths)))
+        check(f"phase{phase} {tag} fixpoint_iters 0",
+              int(st.fixpoint_iters) == 0)
+        return lengths
+
+    def cost(off_t, on_t):
+        off, on = statistics.median(off_t), statistics.median(on_t)
+        return (f"stats=False {spread(off_t)}, stats=True {spread(on_t)} "
+                f"({on / off - 1:+.1%})")
+
+    def probe(st):
+        return (f"probe length mean {st.mean_probe_len():.4f} p50 "
+                f"{st.probe_quantile(0.5):g} p99 {st.probe_quantile(0.99):g}")
+
+    for key_words in (1, 2):
+        tag = "fig5 u32" if key_words == 1 else "fig5 u64"
+        keys = (contract.distinct_keys(0, N_MAIN, "cuda") if key_words == 1
+                else contract.distinct_keys64(0, N_MAIN, "cuda"))
+        vals = contract.values_for(keys, 1)
+
+        def fresh():
+            return (sv.create(int(N_MAIN / RHO), window=WINDOW,
+                              device="cuda", key_words=key_words),)
+
+        off_t, (t_off, s_off) = timed(torch, lambda t: sv.insert(t, keys,
+                                                                 vals), fresh)
+        on_t, (t_on, s_on, st) = timed(
+            torch, lambda t: sv.insert(t, keys, vals, stats=True), fresh)
+        check(f"phase{phase} {tag} insert statuses as without stats",
+              torch.equal(s_on, s_off)
+              and bool((s_on == STATUS_INSERTED).all()))
+        v_off, f_off = sv.retrieve(t_off, keys)
+        check(f"phase{phase} {tag} insert live map as without stats",
+              t_on.count == t_off.count == N_MAIN and bool(f_off.all())
+              and torch.equal(v_off, vals))
+        del t_off, s_off, v_off, f_off
+        lengths = held(f"{tag} sv.insert", st, t_on, keys, s_on)
+        ins_line = f"sv.insert {cost(off_t, on_t)}, {probe(st)}"
+        roff_t, (v_off, f_off) = timed(torch, lambda: sv.retrieve(t_on, keys))
+        ron_t, (v_on, f_on, rst) = timed(
+            torch, lambda: sv.retrieve(t_on, keys, stats=True))
+        check(f"phase{phase} {tag} retrieve outputs as without stats",
+              torch.equal(v_on, v_off) and torch.equal(f_on, f_off)
+              and torch.equal(v_on, vals) and bool(f_on.all()))
+        held(f"{tag} sv.retrieve", rst, t_on, keys, lengths=lengths)
+        lines.append(f"{tag}: {ins_line}; sv.retrieve {cost(roff_t, ron_t)}"
+                     f", {probe(rst)}")
+        del keys, vals, t_on, s_on, lengths, v_off, f_off, v_on, f_on
+        torch.cuda.empty_cache()
+
+    # fig9's group-by rows through the counting table
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    rows = torch.randint(1, REL_GROUPS[-1] + 1, (N_REL,), dtype=torch.int32,
+                         generator=gen, device="cuda")
+    uk, ucnt = torch.unique(rows, return_counts=True)
+
+    def fresh_counting():
+        return (counting.create(groupby.capacity_for(REL_GROUPS[-1]),
+                                window=WINDOW, device="cuda"),)
+
+    off_t, (c_off, s_off) = timed(torch, lambda t: counting.insert(t, rows),
+                                  fresh_counting)
+    on_t, (c_on, s_on, st) = timed(
+        torch, lambda t: counting.insert(t, rows, stats=True), fresh_counting)
+    check(f"phase{phase} counting statuses as without stats",
+          torch.equal(s_on, s_off))
+    got = counting.counts(c_on, uk)
+    check(f"phase{phase} counting counts exact",
+          torch.equal(got, ucnt.to(torch.int32))
+          and torch.equal(counting.counts(c_off, uk), got))
+    held("fig9 counting.insert", st, c_on, uk, s_on)
+    lines.append(f"fig9 counting.insert n={N_REL} g={REL_GROUPS[-1]} "
+                 f"({uk.shape[0]} keys): {cost(off_t, on_t)}, {probe(st)}")
+    del rows, uk, ucnt, c_off, c_on, s_off, s_on, got
+    torch.cuda.empty_cache()
+
+    # the wc-oa r = 8 cell through the counting pass
+    base = contract.distinct_keys(0, N_MV // R_MV, "cuda")
+    mtab = mv.create(int(N_MV / contract.LOAD), window=WINDOW,
+                     device="cuda")
+    mtab, _ = mv.insert(mtab, base.repeat_interleave(R_MV),
+                        torch.arange(N_MV, dtype=torch.int32, device="cuda"))
+    off_t, c_off = timed(torch, lambda: mv.count_values(mtab, base))
+    on_t, (c_on, st) = timed(torch, lambda: mv.count_values(mtab, base,
+                                                            stats=True))
+    check(f"phase{phase} wc-oa counts as without stats",
+          torch.equal(c_on, c_off) and bool((c_on == R_MV).all()))
+    held("wc-oa mv.count_values", st, mtab, base)
+    lines.append(f"fig7 wc-oa r={R_MV} mv.count_values of {base.shape[0]} "
+                 f"keys: {cost(off_t, on_t)}, {probe(st)}")
+    del base, mtab, c_off, c_on
+    torch.cuda.synchronize()
+    launches = path_counts(ops)
+    for name in ("cops_lookup", "cops_lookup64"):
+        check(f"phase{phase} {name} launched on the path", launches[name] > 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    print(f"phase {phase} telemetry (stats=True): {check.status(since)}; "
+          + "; ".join(lines) + f" (5 runs each after a warm-up, CUDA events"
+          f"); peak {peak:.1f} GB; launches {launches}; card {card}",
+          flush=True)
+
+
+def growth_path(torch, card, check, phase):
+    """Phase 26: ``insert_or_grow`` at full width under
+    ``GrowthPolicy(max_capacity=GROW_CAP)``: fig5's N_MAIN distinct u32
+    keys in GROW_BATCHES batches into ``sv.create(GROW_START)`` (no element
+    FULL, at least one grow, the final capacity at least live / 0.85, every
+    key retrieved with its value), then erases past the tombstone density
+    and one more batch, which must compact first and keep every live key;
+    fig9's N_REL group-by rows in 8 batches through
+    ``counting.insert_or_grow`` from ``counting.create(2^20)`` (counts
+    equal to a ``torch.unique`` count); wc-oa's N_MV pairs in 8 batches
+    through ``mv.insert_or_grow`` from ``mv.create(GROW_START)``
+    (``retrieve_all``'s counts and offsets equal to ``pair_reference``'s,
+    each key's values as a multiset).  Each stream timed on
+    the host clock around synchronised work, its migrations (``grow`` /
+    ``compact``, wrapped) apart."""
+    from repro_torch.core import counting, migrate, multi_value as mv
+    from repro_torch.core import single_value as sv
+    from repro_torch.core.common import STATUS_FULL
+    from repro_torch.kernels.cops import contract, ops
+    from repro_torch.obs.registry import REGISTRY
+    since = len(check.failed)
+    policy = migrate.GrowthPolicy(max_capacity=GROW_CAP)
+    spent = {"ms": 0.0, "n": 0}
+    grow, compact = migrate.grow, migrate.compact
+
+    def clocked(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent["ms"] += (time.perf_counter() - t0) * 1e3
+            spent["n"] += 1
+            return out
+        return run
+
+    def counters():
+        return [REGISTRY.counter(n).value
+                for n in ("table.grows", "table.compactions")]
+
+    def stream(insert, table, batches):
+        """(table, FULL elements, ms, migration ms, migrations) of the
+        batches through ``insert``."""
+        spent.update(ms=0.0, n=0)
+        full = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            table, st = insert(table, *batch)
+            full += int((st == STATUS_FULL).sum())
+        torch.cuda.synchronize()
+        return (table, full, (time.perf_counter() - t0) * 1e3, spent["ms"],
+                spent["n"])
+
+    migrate.grow, migrate.compact = clocked(grow), clocked(compact)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    lines = []
+    try:
+        keys = contract.distinct_keys(0, N_MAIN, "cuda")
+        vals = contract.values_for(keys, 1)
+        step = N_MAIN // GROW_BATCHES
+        g0 = counters()
+        table, full, ms, mig_ms, mig_n = stream(
+            lambda t, k, v: sv.insert_or_grow(t, k, v, policy=policy),
+            sv.create(GROW_START, window=WINDOW, device="cuda"),
+            [(keys[i:i + step], vals[i:i + step])
+             for i in range(0, N_MAIN, step)])
+        grows = counters()[0] - g0[0]
+        check(f"phase{phase} sv stream no FULL", full == 0)
+        check(f"phase{phase} sv stream grew", grows >= 1)
+        check(f"phase{phase} sv stream count", table.count == N_MAIN)
+        check(f"phase{phase} sv stream capacity >= live / 0.85",
+              table.capacity >= table.count / policy.max_load_factor)
+        got, found = sv.retrieve(table, keys)
+        check(f"phase{phase} sv stream every key retrieved",
+              bool(found.all()) and torch.equal(got, vals))
+        del got, found
+        lines.append(f"sv.insert_or_grow of {N_MAIN} keys in {GROW_BATCHES}"
+                     f" batches from create({GROW_START}): {ms:.1f} ms, of "
+                     f"which {mig_n} migrations {mig_ms:.1f} ms ({grows:g} "
+                     f"grows), capacity {table.capacity}, load "
+                     f"{table.count / table.capacity:.4f}")
+        # tombstones past the policy's density, then one more batch
+        n_gone = int(policy.max_tombstone_density * table.capacity) + step
+        table, erased = sv.erase(table, keys[:n_gone])
+        check(f"phase{phase} sv erase", bool(erased.all()))
+        more = contract.distinct_keys(N_MAIN, step, "cuda")
+        c0 = counters()[1]
+        table, full, ms, mig_ms, mig_n = stream(
+            lambda t, k, v: sv.insert_or_grow(t, k, v, policy=policy),
+            table, [(more, contract.values_for(more, 1))])
+        check(f"phase{phase} sv batch after erases compacted",
+              counters()[1] == c0 + 1 and full == 0)
+        check(f"phase{phase} sv live keys after the compaction",
+              table.count == N_MAIN - n_gone + step
+              and migrate.occupancy(table)[1] == 0)
+        got, found = sv.retrieve(table, keys[n_gone:])
+        ok = bool(found.all()) and torch.equal(got, vals[n_gone:])
+        got, found = sv.retrieve(table, more)
+        check(f"phase{phase} sv every live key retrieved after it",
+              ok and bool(found.all())
+              and torch.equal(got, contract.values_for(more, 1)))
+        lines.append(f"erase of {n_gone} keys, then a batch of {step}: "
+                     f"{ms:.1f} ms, of which {mig_n} compaction "
+                     f"{mig_ms:.1f} ms")
+        del keys, vals, table, erased, more, got, found
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(26)
+        rows = torch.randint(1, REL_GROUPS[-1] + 1, (N_REL,),
+                             dtype=torch.int32, generator=gen, device="cuda")
+        step = N_REL // 8
+        g0 = counters()
+        table, full, ms, mig_ms, mig_n = stream(
+            lambda t, k: counting.insert_or_grow(t, k, policy=policy),
+            counting.create(2 ** 20, window=WINDOW, device="cuda"),
+            [(rows[i:i + step],) for i in range(0, N_REL, step)])
+        uk, ucnt = torch.unique(rows, return_counts=True)
+        check(f"phase{phase} counting stream no FULL", full == 0)
+        check(f"phase{phase} counting stream counts exact",
+              table.count == uk.shape[0] and torch.equal(
+                  counting.counts(table, uk), ucnt.to(torch.int32)))
+        lines.append(f"counting.insert_or_grow of {N_REL} rows "
+                     f"({uk.shape[0]} keys) in 8 batches from create(2^20):"
+                     f" {ms:.1f} ms, of which {mig_n} migrations "
+                     f"{mig_ms:.1f} ms ({counters()[0] - g0[0]:g} grows), "
+                     f"capacity {table.capacity}")
+        del rows, uk, ucnt, table
+        torch.cuda.empty_cache()
+
+        base = contract.distinct_keys(0, N_MV // R_MV, "cuda")
+        mkeys = base.repeat_interleave(R_MV)
+        mvals = torch.arange(N_MV, dtype=torch.int32, device="cuda")
+        step = N_MV // 8
+        g0 = counters()
+        table, full, ms, mig_ms, mig_n = stream(
+            lambda t, k, v: mv.insert_or_grow(t, k, v, policy=policy),
+            mv.create(GROW_START, window=WINDOW, device="cuda"),
+            [(mkeys[i:i + step], mvals[i:i + step])
+             for i in range(0, N_MV, step)])
+        check(f"phase{phase} mv stream no FULL", full == 0)
+        check(f"phase{phase} mv stream count", table.count == N_MV)
+        # a migration re-inserts the sweep in slot order, so a key whose
+        # pairs span windows of a walk that wraps past row 0 keeps its
+        # values but not their order (as the reference's): per-key
+        # multisets, the ROADMAP's multi-value contract
+        got = mv.retrieve_all(table, base, N_MV)
+        want = pair_reference(torch, mkeys, mvals, base)
+        check(f"phase{phase} mv stream retrieve_all counts and offsets",
+              torch.equal(got[2], want[2]) and torch.equal(got[1], want[1])
+              and bool((got[2] == R_MV).all()))
+        check(f"phase{phase} mv stream retrieve_all per-key values",
+              torch.equal(got[0].view(-1, R_MV).sort(dim=1).values,
+                          want[0].view(-1, R_MV).sort(dim=1).values))
+        del got, want
+        lines.append(f"mv.insert_or_grow of wc-oa's {N_MV} pairs (r = "
+                     f"{R_MV}) in 8 batches from create({GROW_START}): "
+                     f"{ms:.1f} ms, of which {mig_n} migrations "
+                     f"{mig_ms:.1f} ms ({counters()[0] - g0[0]:g} grows), "
+                     f"capacity {table.capacity}")
+        del base, mkeys, mvals, table
+    finally:
+        migrate.grow, migrate.compact = grow, compact
+    torch.cuda.synchronize()
+    launches = path_counts(ops)
+    for name in ("cops_insert", "cops_append", "cops_update",
+                 "cops_lookup", "cops_retrieve"):
+        check(f"phase{phase} {name} launched on the growth path",
+              launches[name] > 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    print(f"phase {phase} growth (insert_or_grow, GrowthPolicy(max_capacity="
+          f"{GROW_CAP})): {check.status(since)}; " + "; ".join(lines)
+          + f" (host clock around synchronised work); peak {peak:.1f} GB; "
+          f"launches {launches}; card {card}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2869,6 +3345,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     err22 = flash_cases(torch, check, 22)
     records.append(flash_path(torch, card, check, 23, err22))
+    torch.cuda.empty_cache()
+
+    # -- phases 24-26: telemetry and growth (item 8) ------------------------
+    plen_cases(torch, card, check, 24)
+    telemetry_path(torch, card, check, 25)
+    growth_path(torch, card, check, 26)
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

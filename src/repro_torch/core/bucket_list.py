@@ -43,8 +43,8 @@ that shares them, carrying the new ``alloc_top`` and key count.
 
 Not ported: ``insert_or_grow``, ``for_each``, the ``backend="scan"``
 references, the dense mode of ``chain_arena`` and two-word keys (ROADMAP.md
-queue 1 item 5b); ``stats=True`` is refused naming item 8, as on every
-table.
+queue 1 item 5b); ``stats=True`` is refused naming the same item (the
+open-addressing tables carry it, ``obs.metrics``).
 """
 
 from __future__ import annotations
@@ -179,6 +179,15 @@ def _schedule(table: BucketListHashTable):
             torch.tensor(table.cum, dtype=torch.int32, device=table.device))
 
 
+def _check_stats(stats: bool) -> None:
+    """Take the reference's ``stats`` keyword: ``False`` is the only value
+    the bucket list carries."""
+    if stats:
+        raise NotImplementedError(
+            "stats=True on a bucket list is not ported to repro_torch yet: "
+            "see ROADMAP.md queue 1 item 5b (the rest of the bucket list)")
+
+
 def _lookup(ks: sv.SingleValueHashTable, keys: torch.Tensor):
     """``(found, slot, handles)`` of (m,) keys: one ``cops_lookup`` walk
     each, its flat slot (-1 where absent), then both handle words gathered
@@ -202,7 +211,7 @@ def insert(table: BucketListHashTable, keys, values, mask=None,
     present key appends to its tail bucket and grows its list when the
     tail is full.  Returns (table, status (n,) int32: INSERTED / FULL /
     POOL_FULL / MASKED)."""
-    sv.check_stats(stats)
+    _check_stats(stats)
     keys = sv.normalize_key_batch(keys, 1, table.device)
     values = sv.normalize_words(values, 1, "values", table.device)
     if values.shape[0] != keys.shape[0]:
@@ -382,7 +391,7 @@ def _insert_bulk(table: BucketListHashTable, keys, values, mask):
 def count_values(table: BucketListHashTable, keys,
                  stats: bool = False) -> torch.Tensor:
     """Per-key value count, int32, read off the handle (no chain walk)."""
-    sv.check_stats(stats)
+    _check_stats(stats)
     keys = sv.normalize_key_batch(keys, 1, table.device)
     if keys.shape[0] == 0:
         return torch.zeros((0,), dtype=torch.int32, device=table.device)
@@ -423,7 +432,7 @@ def retrieve_all(table: BucketListHashTable, keys, out_capacity: int,
     with ``count_values``.  Duplicate queries walk once.
     """
     from repro_torch.kernels.cops import ops as cops_ops
-    sv.check_stats(stats)
+    _check_stats(stats)
     keys = sv.normalize_key_batch(keys, 1, table.device)
     n, dev = keys.shape[0], table.device
     if n == 0:

@@ -74,8 +74,10 @@ the per-key runs in batch order, and it places its new keys through
 ``place_claims`` with each claimer's batch position as ``prio``.
 
 Not ported yet: keys wider than two words, the bitwise combiner specs
-(``or``, ``and``, ``xor``) and combiner callables, the telemetry and
-quotient stores.
+(``or``, ``and``, ``xor``) and combiner callables, and quotient stores.
+The engines carry no telemetry: ``stats=True`` measures with a read-only
+walk after the operation (``obs.metrics.bolt_on_stats``), whose plain
+version is ``probe_matches(stats=True)``.
 """
 
 from __future__ import annotations
@@ -306,7 +308,8 @@ def _group_structure(flag, skeys):
 # probe — one walk per active element (batch version of the sequential walk)
 # ---------------------------------------------------------------------------
 
-def probe_matches(tstatic, store, keys, words, active, count=None):
+def probe_matches(tstatic, store, keys, words, active, count=None,
+                  stats=False):
     """One COPS walk for every active element against the current store.
 
     ``keys`` are (n,) 1-word keys or (n, kw) planes, ``words`` their probe
@@ -316,6 +319,10 @@ def probe_matches(tstatic, store, keys, words, active, count=None):
     the elements still walking are gathered each round.  When ``count`` is
     given and zero the walk is skipped (an empty store holds no match), and
     ``row`` is then the initial row, as in the JAX engine.
+
+    ``stats`` adds a fourth output, the JAX engine's per-element probe
+    length (int32): the windows each walk examined before it stopped, the
+    whole budget for a walk that spent it, 0 for an inactive element.
     """
     ops, scheme, seed, max_probes = tstatic
     num_rows, w = ops.num_rows, ops.window
@@ -324,8 +331,9 @@ def probe_matches(tstatic, store, keys, words, active, count=None):
     row0 = probing.initial_row(words, num_rows, seed)
     matched = torch.zeros((n,), dtype=torch.bool, device=dev)
     lane = torch.zeros((n,), dtype=_I64, device=dev)
+    plen = (torch.zeros((n,), dtype=torch.int32, device=dev),) if stats else ()
     if count is not None and count == 0:
-        return matched, row0, lane
+        return (matched, row0, lane) + plen
     mrow = torch.zeros((n,), dtype=_I64, device=dev)
     kps = ops.key_planes(store)
     act = torch.nonzero(active).squeeze(1)
@@ -334,6 +342,8 @@ def probe_matches(tstatic, store, keys, words, active, count=None):
     for _ in range(max_probes):
         if act.numel() == 0:
             break
+        if stats:
+            plen[0][act] += 1
         win, match = window_match(kps, row, key)              # (m, W)
         m_lane = probing.vote_lowest(match)
         hit = m_lane < w
@@ -345,7 +355,7 @@ def probe_matches(tstatic, store, keys, words, active, count=None):
         go = ~(hit | has_empty)
         act, key, step = act[go], key[go], step[go]
         row = probing.advance_row(row[go], step, num_rows)
-    return matched, mrow, lane
+    return (matched, mrow, lane) + plen
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,8 @@ from repro_torch.core import bulk, bulk_retrieve, layouts
 from repro_torch.core.common import DEFAULT_SEED, DEFAULT_WINDOW, table_geometry
 from repro_torch.core.single_value import (
     _refuse,
+    _with_stats,
     check_ported,
-    check_stats,
     normalize_key_batch,
     normalize_mask,
     normalize_words,
@@ -97,23 +97,38 @@ def create(min_capacity: int, *, key_words: int = 1, value_words: int = 1,
 def insert(table: MultiValueHashTable, keys, values, mask=None,
            stats: bool = False):
     """Append (key, value) pairs; duplicates of a key take distinct slots.
-    Returns (table, status (n,) int32: INSERTED / FULL / MASKED)."""
-    check_stats(stats)
+    Returns (table, status (n,) int32: INSERTED / FULL / MASKED), and with
+    ``stats=True`` an ``obs.metrics.TableStats``."""
     keys = normalize_key_batch(keys, table.key_words, table.device)
     values = normalize_words(values, table.value_words, "values", table.device)
     if values.shape[0] != keys.shape[0]:
         raise ValueError(f"{values.shape[0]} values for {keys.shape[0]} keys")
     mask = normalize_mask(mask, keys.shape[0], table.device)
-    return bulk.insert_multi(table, keys, values, mask)
+    out = bulk.insert_multi(table, keys, values, mask)
+    return _with_stats(stats, out, keys, out[1], mask)
+
+
+def insert_or_grow(table: MultiValueHashTable, keys, values, mask=None, *,
+                   policy=None, max_attempts: int = 4):
+    """``insert`` under the auto-growth policy: migrates (grow / compact)
+    instead of ever returning ``STATUS_FULL`` while capacity headroom
+    remains.  Host-side wrapper — see ``core.migrate``."""
+    from repro_torch.core import migrate
+    return migrate.insert_or_grow(
+        table, keys, values, mask,
+        policy=migrate.DEFAULT_POLICY if policy is None else policy,
+        max_attempts=max_attempts)
 
 
 def count_values(table: MultiValueHashTable, keys, mask=None,
-                 stats: bool = False) -> torch.Tensor:
-    """Number of stored values per queried key, int32 (0 where masked)."""
-    check_stats(stats)
+                 stats: bool = False):
+    """Number of stored values per queried key, int32 (0 where masked);
+    with ``stats=True`` the tuple ``(counts, TableStats)``."""
     keys = normalize_key_batch(keys, table.key_words, table.device)
     mask = normalize_mask(mask, keys.shape[0], table.device)
-    return bulk_retrieve.count_multi(table, keys, mask)
+    counts = bulk_retrieve.count_multi(table, keys, mask)
+    out = _with_stats(stats, (counts,), keys, mask=mask, table=table)
+    return out if stats else counts
 
 
 def retrieve_all(table: MultiValueHashTable, keys, out_capacity: int,
@@ -124,11 +139,12 @@ def retrieve_all(table: MultiValueHashTable, keys, out_capacity: int,
     query i's values are ``values[offsets[i]:offsets[i] + counts[i]]``, in
     walk order.  Entries past the true total are zero, and values past
     ``out_capacity`` are dropped: size it with ``count_values``.
+    ``stats=True`` appends an ``obs.metrics.TableStats``.
     """
-    check_stats(stats)
     keys = normalize_key_batch(keys, table.key_words, table.device)
     mask = normalize_mask(mask, keys.shape[0], table.device)
-    return bulk_retrieve.retrieve_all_multi(table, keys, out_capacity, mask)
+    out = bulk_retrieve.retrieve_all_multi(table, keys, out_capacity, mask)
+    return _with_stats(stats, out, keys, mask=mask, table=table)
 
 
 def erase(table: MultiValueHashTable, keys):

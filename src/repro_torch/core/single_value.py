@@ -70,7 +70,6 @@ _NOT_PORTED = {
               "the sequential update_values without a combiner",
     "layout": "queue 1 item 1b (the rest of the single-value table)",
     "bucketed": "queue 1 item 4 (high-load lane: bucketed, quotient)",
-    "stats": "queue 1 item 8 (growth, snapshots and telemetry)",
 }
 
 
@@ -108,13 +107,6 @@ def _refuse(what: str, detail: str):
     raise NotImplementedError(
         f"{detail} is not ported to repro_torch yet: see ROADMAP.md "
         f"{_NOT_PORTED[what]}")
-
-
-def check_stats(stats: bool) -> None:
-    """Take the reference's ``stats`` keyword: ``False`` is the only value
-    ported (the in-graph ``TableStats`` telemetry is not)."""
-    if stats:
-        _refuse("stats", "stats=True")
 
 
 def resolve_device(device) -> torch.device:
@@ -268,8 +260,9 @@ def normalize_mask(mask, n: int, device):
 def insert(table: SingleValueHashTable, keys, values, mask=None,
            stats: bool = False):
     """Batch upsert. Returns (table, status (n,) int32) — see STATUS_* codes.
-    ``values`` are (n, 0) for a table with no value word (a hash set)."""
-    check_stats(stats)
+    ``values`` are (n, 0) for a table with no value word (a hash set).
+    ``stats=True`` appends an ``obs.metrics.TableStats`` (measured after the
+    insert, ``metrics.bolt_on_stats``)."""
     if table.value_words > 1:
         # the insert kernels store one value word, or none
         _refuse("insert_words", f"insert into value_words={table.value_words}")
@@ -278,15 +271,29 @@ def insert(table: SingleValueHashTable, keys, values, mask=None,
     if values.shape[0] != keys.shape[0]:
         raise ValueError(f"{values.shape[0]} values for {keys.shape[0]} keys")
     mask = normalize_mask(mask, keys.shape[0], table.device)
-    return bulk.insert_single(table, keys, values, mask)
+    out = bulk.insert_single(table, keys, values, mask)
+    return _with_stats(stats, out, keys, out[1], mask)
+
+
+def _with_stats(stats: bool, out: tuple, keys, status=None, mask=None,
+                table=None):
+    """``out``, with ``stats`` the ``TableStats`` of the op appended: its
+    batch ``keys`` walked against the post-op store of ``table`` (default:
+    the table ``out`` starts with)."""
+    if not stats:
+        return out
+    from repro_torch.obs import metrics
+    return out + (metrics.bolt_on_stats(out[0] if table is None else table,
+                                        keys, status=status, mask=mask),)
 
 
 def retrieve(table: SingleValueHashTable, keys, stats: bool = False):
     """Batch lookup -> (values, found (n,) bool): int32 u32 bits, 0 where
-    absent, (n,) for one value word and (n, value_words) otherwise."""
-    check_stats(stats)
+    absent, (n,) for one value word and (n, value_words) otherwise;
+    ``stats=True`` appends an ``obs.metrics.TableStats``."""
     keys = normalize_key_batch(keys, table.key_words, table.device)
-    return bulk_retrieve.retrieve_single(table, keys)
+    out = bulk_retrieve.retrieve_single(table, keys)
+    return _with_stats(stats, out, keys, table=table)
 
 
 def contains(table: SingleValueHashTable, keys) -> torch.Tensor:
@@ -317,10 +324,11 @@ def update_values(table: SingleValueHashTable, keys, update, init, mask=None,
     (the JAX engine folds ``combine`` of them in once; the two agree
     wherever ``combine`` meets that contract).  ``values`` carries a
     per-element operand (default: ``init``, broadcast to the batch).
-    Returns (table, status (n,) int32).  Callables, the bitwise specs and ``combine=None`` (the
-    JAX package's sequential reference) are not ported.
+    Returns (table, status (n,) int32), and with ``stats=True`` an
+    ``obs.metrics.TableStats`` (whose ``fixpoint_iters`` is 0: see
+    ``obs.metrics``).  Callables, the bitwise specs and ``combine=None``
+    (the JAX package's sequential reference) are not ported.
     """
-    check_stats(stats)
     if combine is None:
         _refuse("update", "update_values without a combiner")
     bulk.check_spec(update, bulk.FOLD_OPS, "update")
@@ -344,5 +352,18 @@ def update_values(table: SingleValueHashTable, keys, update, init, mask=None,
     if values.shape[0] != n:
         raise ValueError(f"{values.shape[0]} values for {n} keys")
     two = (lambda x: x[:, None]) if vw == 1 else (lambda x: x)
-    return bulk.update_single(table, keys, update, two(init),
-                              two(values), mask)
+    out = bulk.update_single(table, keys, update, two(init), two(values),
+                             mask)
+    return _with_stats(stats, out, keys, out[1], mask)
+
+
+def insert_or_grow(table: SingleValueHashTable, keys, values, mask=None, *,
+                   policy=None, max_attempts: int = 4):
+    """``insert`` under the auto-growth policy: migrates (grow / compact)
+    instead of ever returning ``STATUS_FULL`` while capacity headroom
+    remains.  Host-side wrapper — see ``core.migrate``."""
+    from repro_torch.core import migrate
+    return migrate.insert_or_grow(
+        table, keys, values, mask,
+        policy=migrate.DEFAULT_POLICY if policy is None else policy,
+        max_attempts=max_attempts)

@@ -684,6 +684,108 @@ def run_lookup_case(*, window: int, scheme: str = "cops", device,
     return checks
 
 
+def run_plen_case(*, window: int, scheme: str = "cops", device,
+                  key_words: int = 1, capacity: int = 1 << 12,
+                  load: float = LOOKUP_LOAD, revisit: bool = True,
+                  batch: int | None = None,
+                  seed: int = DEFAULT_SEED) -> dict[str, bool]:
+    """Hold the lookups' probe lengths (``plen=True``: the ``PLEN``
+    instantiations of ``cops_lookup`` / ``cops_lookup64``, on the CPU
+    whatever the wrapper runs) bit-exact against ``lookup_plain``'s, and
+    the lookup's values, found and slots unchanged by them.
+
+    A table of ``capacity`` slots is filled through ``ops.insert`` to
+    ``load`` of its capacity (keys that find no free lane within the
+    budget stay out); then every third row that holds no EMPTY lane is
+    tombstoned whole, and one in eight of the other keys is erased.  The
+    queries: every key of the fill, as many absent keys, and
+    ``_sentinel_queries``; with ``batch``, only ``batch`` keys, a present
+    key and an absent one in turn.  Each is looked up with the table's
+    budget and with budgets of ``LOOKUP_BUDGETS`` windows, on a value
+    plane and on none; with ``revisit``, also with a budget of num_rows +
+    3 on a copy of the store whose EMPTY slots are TOMBSTONEs ("rows3":
+    the kernel stops reading at num_rows and reports the budget, as the
+    plain walk does after revisiting rows), there for at most 64 absent
+    keys beside the present ones, since each absent walk reads the whole
+    table.
+
+    Returns ``{check: holds}``: ``exact_{budget}_{values|set}`` (values,
+    found, slots and probe lengths equal to ``lookup_plain``'s),
+    ``same_{budget}_{values|set}`` (values, found and slots equal to the
+    lookup's without ``plen``); and, without ``batch``, that the case
+    reaches what it is for: a walk of more than two windows, a walk that
+    steps past a TOMBSTONE-only window to its match, a walk that a budget
+    of one window cuts, and (``revisit``) a walk that reports num_rows + 3.
+    """
+    from repro_torch.core import single_value
+    table = single_value.create(capacity, window=window, scheme=scheme,
+                                seed=seed, device=device, key_words=key_words)
+    planes = table_planes(table)
+    budget = bulk._tstatic(table)[3]
+    n = int(table.capacity * load)
+    pool = case_keys(key_words, 2 * n, device)
+    keys, absent = pool[:n], pool[n:]
+    kw = dict(seed=seed, scheme=scheme)
+    twin(ops.insert, planes[0])(*planes, keys, values_for(keys, 1), count=0,
+                                max_probes=budget, **kw)
+    plane0 = ops._planes(planes[0])[0]
+    full_rows = torch.nonzero(~(plane0 == EMPTY_WORD).any(dim=1)).squeeze(1)
+    dead = full_rows[::3]
+    _tombstone(planes[0], (dead[:, None] * window
+                           + torch.arange(window, device=device)).reshape(-1))
+    _tombstone(planes[0], _live_slots(planes[0])[::8])
+    if batch:
+        pick = torch.stack([keys[:batch], absent[:batch]], dim=1)
+        queries = pick.reshape(-1, *keys.shape[1:])[:batch]
+    else:
+        queries = torch.cat([keys, absent,
+                             _sentinel_queries(key_words, device)])
+    walks = ([("table", planes[0], queries, budget)]
+             + [(f"b{b}", planes[0], queries, b) for b in LOOKUP_BUDGETS])
+    if revisit:
+        closed = planes[0].clone()
+        flat0 = ops._planes(closed)[0].reshape(-1)
+        _tombstone(closed, torch.nonzero(flat0 == EMPTY_WORD).squeeze(1))
+        few = (queries if batch
+               else torch.cat([keys, absent[:64]]))
+        walks.append(("rows3", closed, few, table.num_rows + 3))
+    lookup = twin(ops.lookup, planes[0])
+
+    def same(a, b):
+        return all((x is None and y is None) or (
+            x is not None and y is not None and torch.equal(x, y))
+            for x, y in zip(a, b))
+
+    checks, plain = {}, {}
+    for label, store, qs, probes in walks:
+        # one plain walk serves both planes: without a value plane the
+        # lookup returns no values and the same found, slots and lengths
+        want = ops.lookup_plain(store, planes[1], qs, slots=True, plen=True,
+                                max_probes=probes, **kw)
+        plain[label] = want
+        for values in (planes[1], None):
+            tag = f"{label}_{'set' if values is None else 'values'}"
+            got = lookup(store, values, qs, slots=True, plen=True,
+                         max_probes=probes, **kw)
+            base = lookup(store, values, qs, slots=True, max_probes=probes,
+                          **kw)
+            checks[f"exact_{tag}"] = same(
+                got, want if values is not None else (None, *want[1:]))
+            checks[f"same_{tag}"] = same(got[:3], base)
+    if batch:
+        return checks
+    _, found, slot, lengths = plain["table"]
+    checks["reaches_a_long_walk"] = bool((lengths > 2).any())
+    checks["reaches_past_tombstones"] = bool(_passes_tombstones(
+        planes[0], queries, found, slot, max_probes=budget, **kw).any())
+    checks["reaches_the_budget"] = bool(
+        (plain[f"b{LOOKUP_BUDGETS[0]}"][3] < lengths).any())
+    if revisit:
+        checks["reaches_a_revisit"] = bool(
+            (plain["rows3"][3] == table.num_rows + 3).any())
+    return checks
+
+
 def _matches_past_tombstones(planes, keys, *, seed, scheme, max_probes):
     """Does the retrieve walk of each key match in a window after one that
     holds only TOMBSTONEs?"""

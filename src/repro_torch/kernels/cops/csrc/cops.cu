@@ -496,14 +496,27 @@ __device__ __forceinline__ int group_size(const Walk& w) {
   return w.window < 32 ? (int)w.window : 32;
 }
 
+// The probe length (PLEN) of a walk that spent its whole budget: the
+// budget, which a walk clamped to num_rows reports too, since every further
+// window of its cycle is one it has read.  A walk that stopped at attempt a
+// (a match, a window holding an EMPTY) examined a + 1 windows.  int32, as
+// the plain version's counter.
+__device__ __forceinline__ int spent_length(const Walk& w) {
+  return (int)(w.max_probes < 0            ? 0
+               : w.max_probes < 0x7FFFFFFF ? w.max_probes
+                                           : 0x7FFFFFFF);
+}
+
 // The read-only walk of key k: its flat slot (row * W + lane), or -1 when
-// the walk reaches a window holding an EMPTY, or the budget, first.
-template <int KW>
+// the walk reaches a window holding an EMPTY, or the budget, first.  With
+// PLEN, *windows takes the windows the walk examined (spent_length).
+template <int KW, bool PLEN = false>
 __device__ long long find(const uint32_t* tk, const Walk& w, const Group& g,
-                          const Key& k) {
+                          const Key& k, int* windows = nullptr) {
   const uint32_t step = row_step(w, k.word);
   uint32_t row = first_row(w, k.word);
-  for (long long attempt = 0; attempt < w.max_probes; ++attempt) {
+  long long attempt = 0;
+  for (; attempt < w.max_probes; ++attempt) {
     const size_t base = (size_t)row * w.window;
     int mlane = -1;
     bool any_empty = false;
@@ -514,10 +527,17 @@ __device__ long long find(const uint32_t* tk, const Walk& w, const Group& g,
       if (mlane < 0 && mb) mlane = (int)c + __ffs(mb) - 1;
       any_empty |= g.ballot(x == kEmpty) != 0;
     }
-    if (mlane >= 0) return (long long)base + mlane;
-    if (any_empty) break;
+    if (mlane >= 0) {
+      if (PLEN) *windows = (int)(attempt + 1);
+      return (long long)base + mlane;
+    }
+    if (any_empty) {
+      if (PLEN) *windows = (int)(attempt + 1);
+      return -1;
+    }
     row = next_row(w, row, step);
   }
+  if (PLEN) *windows = spent_length(w);
   return -1;
 }
 
@@ -1069,22 +1089,26 @@ __global__ void walk_kernel(uint32_t* __restrict__ tk, Values<V, FOLD> vals,
 }
 
 // VALUES: read the value of each key found (false: a hash set, no value
-// plane; `tv` and `out` are null).
-template <int KW, bool VALUES>
+// plane; `tv` and `out` are null).  PLEN: write each key's probe length,
+// the windows its walk examined (spent_length), to `plen` (else null).
+template <int KW, bool VALUES, bool PLEN>
 __global__ void __launch_bounds__(kThreads)
 lookup_kernel(const uint32_t* __restrict__ tk, const uint32_t* __restrict__ tv,
               const uint32_t* __restrict__ keys, uint32_t* __restrict__ out,
               bool* __restrict__ found, long long* __restrict__ slot_out,
-              long long n, Walk w) {
+              int* __restrict__ plen, long long n, Walk w) {
   const int G = group_size(w);
   const long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (q >= n) return;
   const Group g = make_group(G);
-  const long long hit = find<KW>(tk, w, g, load_key<KW>(keys, q));
+  int windows = 0;
+  const long long hit =
+      find<KW, PLEN>(tk, w, g, load_key<KW>(keys, q), &windows);
   if (g.lane == 0) {
     if (VALUES) out[q] = hit >= 0 ? __ldg(tv + hit) : 0u;
     found[q] = hit >= 0;
     if (slot_out) slot_out[q] = hit;
+    if (PLEN) plen[q] = windows;
   }
 }
 
@@ -1095,15 +1119,18 @@ lookup_kernel(const uint32_t* __restrict__ tk, const uint32_t* __restrict__ tv,
 // does not stop it), or at the budget, clamped to num_rows as walk_kernel
 // clamps it: a read-only walk that has read num_rows windows has read
 // every row of its cycle.  Lane j then reads key j's value sector where it
-// matched and writes key j's outputs.  VALUES as for lookup_kernel.
-template <int KW, bool VALUES, int K>
+// matched and writes key j's outputs.  VALUES and PLEN as for
+// lookup_kernel: a walk that ends at the clamp has read every row of its
+// cycle, so it reports the whole budget, as the unclamped walk would.
+template <int KW, bool VALUES, int K, bool PLEN>
 __global__ void lookup_walk_kernel(const uint32_t* __restrict__ tk,
                                    const uint32_t* __restrict__ tv,
                                    const uint32_t* __restrict__ keys,
                                    uint32_t* __restrict__ out,
                                    bool* __restrict__ found,
                                    long long* __restrict__ slot_out,
-                                   long long n, Walk w) {
+                                   int* __restrict__ plen, long long n,
+                                   Walk w) {
   static_assert(K >= 1 && K <= 32, "a lane per key");
   const int lane = threadIdx.x & 31;
   if (key_index<K>() - lane >= n) return;  // whole warps leave together
@@ -1140,6 +1167,9 @@ __global__ void lookup_walk_kernel(const uint32_t* __restrict__ tk,
     if (VALUES) out[q] = hit >= 0 ? __ldg(tv + hit) : 0u;
     found[q] = hit >= 0;
     if (slot_out) slot_out[q] = hit;
+    // a walk that stopped did so at attempt < budget; one that spent its
+    // budget left attempt at it
+    if (PLEN) plen[q] = attempt < budget ? attempt + 1 : spent_length(w);
   }
 }
 
@@ -1339,32 +1369,38 @@ unsigned walk_blocks(long long n, int keys = kWalkKeys) {
 
 
 // The lookup of n keys: at W >= 32 lookup_walk_kernel, kWalkKeys keys a
-// warp; below, lookup_kernel, 32 / W keys a warp.
-template <int KW, bool VALUES>
+// warp; below, lookup_kernel, 32 / W keys a warp.  PLEN: with the probe
+// lengths (`plen` not null).
+template <int KW, bool VALUES, bool PLEN>
 void lookup_launch(const Walk& w, const uint32_t* tk, const uint32_t* tv,
                    const uint32_t* keys, uint32_t* values, bool* found,
-                   long long* slots, long long n, cudaStream_t stream) {
+                   long long* slots, int* plen, long long n,
+                   cudaStream_t stream) {
   if (w.window >= 32)
-    lookup_walk_kernel<KW, VALUES, kWalkKeys>
+    lookup_walk_kernel<KW, VALUES, kWalkKeys, PLEN>
         <<<walk_blocks(n), kThreads, 0, stream>>>(tk, tv, keys, values,
-                                                  found, slots, n, w);
+                                                  found, slots, plen, n, w);
   else
-    lookup_kernel<KW, VALUES><<<blocks_for(n, w.window), kThreads, 0,
-                                stream>>>(tk, tv, keys, values, found, slots,
-                                          n, w);
+    lookup_kernel<KW, VALUES, PLEN><<<blocks_for(n, w.window), kThreads, 0,
+                                      stream>>>(tk, tv, keys, values, found,
+                                                slots, plen, n, w);
 }
 
 template <int KW>
 int lookup(const void* table_keys, const void* table_values, const void* keys,
-           void* values, void* found, void* slots, long long n,
+           void* values, void* found, void* slots, void* plen, long long n,
            unsigned num_rows, int window, unsigned seed, int linear,
            long long max_probes, void* stream) {
   if (n <= 0) return 0;
   const Walk w = make_walk(num_rows, window, seed, linear, max_probes);
-  (table_values ? lookup_launch<KW, true> : lookup_launch<KW, false>)(
-      w, (const uint32_t*)table_keys, (const uint32_t*)table_values,
-      (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
-      (long long*)slots, n, (cudaStream_t)stream);
+  const auto launch =
+      table_values ? (plen ? lookup_launch<KW, true, true>
+                           : lookup_launch<KW, true, false>)
+                   : (plen ? lookup_launch<KW, false, true>
+                           : lookup_launch<KW, false, false>);
+  launch(w, (const uint32_t*)table_keys, (const uint32_t*)table_values,
+         (const uint32_t*)keys, (uint32_t*)values, (bool*)found,
+         (long long*)slots, (int*)plen, n, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -1666,22 +1702,26 @@ extern "C" int cops_update_shared_groups() { return kSharedGroups; }
 // The chains a warp of the bucket walk (K).
 extern "C" int cops_bucket_keys() { return kBucketKeys; }
 
+// `slots` (int64) and `plen` (int32: each key's probe length, the windows
+// its walk examined) may be null.
 extern "C" int cops_lookup(const void* table_keys, const void* table_values,
                            const void* keys, void* values, void* found,
-                           void* slots, long long n, unsigned num_rows,
-                           int window, unsigned seed, int linear,
-                           long long max_probes, void* stream) {
-  return lookup<1>(table_keys, table_values, keys, values, found, slots, n,
-                   num_rows, window, seed, linear, max_probes, stream);
+                           void* slots, void* plen, long long n,
+                           unsigned num_rows, int window, unsigned seed,
+                           int linear, long long max_probes, void* stream) {
+  return lookup<1>(table_keys, table_values, keys, values, found, slots,
+                   plen, n, num_rows, window, seed, linear, max_probes,
+                   stream);
 }
 
 extern "C" int cops_lookup64(const void* table_keys, const void* table_values,
                              const void* keys, void* values, void* found,
-                             void* slots, long long n, unsigned num_rows,
-                             int window, unsigned seed, int linear,
-                             long long max_probes, void* stream) {
-  return lookup<2>(table_keys, table_values, keys, values, found, slots, n,
-                   num_rows, window, seed, linear, max_probes, stream);
+                             void* slots, void* plen, long long n,
+                             unsigned num_rows, int window, unsigned seed,
+                             int linear, long long max_probes, void* stream) {
+  return lookup<2>(table_keys, table_values, keys, values, found, slots,
+                   plen, n, num_rows, window, seed, linear, max_probes,
+                   stream);
 }
 
 extern "C" int cops_append(void* table_keys, void* table_values,

@@ -8,8 +8,9 @@ word, which holds the sentinels):
 
 - ``insert`` / ``insert64`` (single-value upsert of distinct keys) ->
   ``cops_insert`` / ``cops_insert64``;
-- ``lookup`` / ``lookup64`` (value, found, slot) -> ``cops_lookup`` /
-  ``cops_lookup64``;
+- ``lookup`` / ``lookup64`` (value, found, slot and, with ``plen``, each
+  key's probe length: the windows its walk examined) -> ``cops_lookup`` /
+  ``cops_lookup64`` (their ``PLEN`` instantiations where ``plen``);
 - ``append`` / ``append64`` (multi-value append: the kernel walks each
   run of equal adjacent keys once and claims its lanes together) ->
   ``cops_append`` / ``cops_append64``;
@@ -36,7 +37,8 @@ rows, pairs or queries) to ``ELEMENTS``, and raises if the launch
 reports a CUDA error.  On **CPU** tensors it runs its plain version below,
 one for each pair of twins, over (p, W) or (kw, p, W) key planes:
 ``insert_plain`` (the bulk engine's lane: probe -> virtual-fill placement
--> apply), ``lookup_plain`` (``bulk.probe_matches`` + a gather),
+-> apply), ``lookup_plain`` (``bulk.probe_matches`` + a gather; its
+probe-length counter where ``plen``),
 ``append_plain`` (virtual-fill placement of every pair, as
 ``repro.core.bulk.insert_multi``), ``retrieve_walk_plain`` (the port of
 ``repro.core.bulk_retrieve.fused_walk``), ``bucket_walk_plain`` (the
@@ -189,10 +191,12 @@ def update_plain(table_keys, table_values, keys, operand, claimv,
 
 
 def lookup_plain(table_keys, table_values, keys, *, seed, scheme, max_probes,
-                 slots=False):
+                 slots=False, plen=False):
     """``(values int32, found bool, slot int64 or None)``: each key's value
     (0 if absent; None with no value plane) and flat slot ``row * W +
-    lane`` (-1 if absent)."""
+    lane`` (-1 if absent); with ``plen`` a fourth, each key's probe length
+    (int32): the windows its walk examined, to its match or a window
+    holding an EMPTY, else the whole budget."""
     kps = _planes(table_keys)
     tstat = _tstatic(kps, scheme, seed, max_probes)
     window = kps.shape[2]
@@ -201,18 +205,22 @@ def lookup_plain(table_keys, table_values, keys, *, seed, scheme, max_probes,
               else torch.empty((n,), dtype=torch.int32, device=dev))
     found = torch.empty((n,), dtype=torch.bool, device=dev)
     slot = torch.empty((n,), dtype=torch.int64, device=dev)
+    lengths = torch.empty((n,), dtype=torch.int32, device=dev)
     for s in range(0, n, PLAIN_CHUNK):
         k = keys[s:s + PLAIN_CHUNK]
         every = torch.ones(k.shape[:1], dtype=torch.bool, device=dev)
-        matched, mrow, mlane = bulk.probe_matches(
-            tstat, {"keys": kps}, k, key_hash_word(k), every)
+        matched, mrow, mlane, *walked = bulk.probe_matches(
+            tstat, {"keys": kps}, k, key_hash_word(k), every, stats=plen)
         at = torch.where(matched, mrow * window + mlane, -1)
         if values is not None:
             values[s:s + PLAIN_CHUNK] = torch.where(
                 matched, table_values.reshape(-1)[at.clamp(min=0)], 0)
         found[s:s + PLAIN_CHUNK] = matched
         slot[s:s + PLAIN_CHUNK] = at
-    return values, found, (slot if slots else None)
+        if plen:
+            lengths[s:s + PLAIN_CHUNK] = walked[0]
+    out = values, found, (slot if slots else None)
+    return out + (lengths,) if plen else out
 
 
 def append_plain(table_keys, table_values, keys, values, *, seed, scheme,
@@ -333,11 +341,11 @@ def _lib() -> ctypes.CDLL:
     vp, ll, ui, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int
     walk = [ll, ui, i, ui, i, ll]     # n, num_rows, window, seed, linear, max_probes
     for name, args in (("cops_insert", [vp] * 5 + walk),
-                       ("cops_lookup", [vp] * 6 + walk),
+                       ("cops_lookup", [vp] * 7 + walk),
                        ("cops_append", [vp] * 5 + walk),
                        ("cops_retrieve", [vp] * 6 + walk),
                        ("cops_insert64", [vp] * 5 + walk + [i]),
-                       ("cops_lookup64", [vp] * 6 + walk),
+                       ("cops_lookup64", [vp] * 7 + walk),
                        ("cops_append64", [vp] * 5 + walk),
                        ("cops_retrieve64", [vp] * 6 + walk)):
         fn = getattr(lib, name)
@@ -467,37 +475,43 @@ def insert64(table_keys, table_values, keys, values, *, seed, scheme,
 
 
 def _lookup(key_words, table_keys, table_values, keys, *, seed, scheme,
-            max_probes, slots):
+            max_probes, slots, plen):
     _check_geometry(key_words, table_keys, keys, _present(table_values), [],
                     scheme)
     if _on_cpu(table_keys, table_values, keys):
         return lookup_plain(table_keys, table_values, keys, seed=seed,
-                            scheme=scheme, max_probes=max_probes, slots=slots)
+                            scheme=scheme, max_probes=max_probes, slots=slots,
+                            plen=plen)
     n, dev = keys.shape[0], keys.device
     values = (None if table_values is None
               else torch.empty((n,), dtype=torch.int32, device=dev))
     found = torch.empty((n,), dtype=torch.bool, device=dev)
     slot = torch.empty((n,), dtype=torch.int64, device=dev) if slots else None
+    lengths = torch.empty((n,), dtype=torch.int32, device=dev) if plen else None
     if n:
         _launch("cops_lookup" if key_words == 1 else "cops_lookup64",
                 table_keys, n, seed, scheme, max_probes, table_keys,
-                table_values, keys, values, found, slot)
-    return values, found, slot
+                table_values, keys, values, found, slot, lengths)
+    return (values, found, slot) + ((lengths,) if plen else ())
 
 
 def lookup(table_keys, table_values, keys, *, seed, scheme, max_probes,
-           slots=False):
+           slots=False, plen=False):
     """``(values int32 or None, found bool, slot int64 or None)`` for each
-    key (values None for ``table_values`` None)."""
+    key (values None for ``table_values`` None); with ``plen`` a fourth,
+    each key's probe length (int32, ``lookup_plain``'s), from the kernel's
+    ``PLEN`` instantiation."""
     return _lookup(1, table_keys, table_values, keys, seed=seed,
-                   scheme=scheme, max_probes=max_probes, slots=slots)
+                   scheme=scheme, max_probes=max_probes, slots=slots,
+                   plen=plen)
 
 
 def lookup64(table_keys, table_values, keys, *, seed, scheme, max_probes,
-             slots=False):
+             slots=False, plen=False):
     """``lookup`` of (n, 2) keys in the (2, p, W) key planes."""
     return _lookup(2, table_keys, table_values, keys, seed=seed,
-                   scheme=scheme, max_probes=max_probes, slots=slots)
+                   scheme=scheme, max_probes=max_probes, slots=slots,
+                   plen=plen)
 
 
 def _append(key_words, table_keys, table_values, keys, values, *, seed,

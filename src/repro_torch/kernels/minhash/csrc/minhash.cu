@@ -173,19 +173,24 @@ kmer_kernel(const uint8_t* __restrict__ bases, uint32_t* __restrict__ out,
   }
 }
 
+// The largest k the kernel takes: a block's span of bases, up to
+// kBlockOut * k + k bytes where every row is one k-mer long, is indexed in
+// 32 bits (hash_run's base offsets).
+constexpr int kMaxK = (int)(((1LL << 31) - 1) / (kBlockOut + 1));
+
 }  // namespace
 
 // `bases` (rows, length) uint8, `out` (rows, length - k + 1) u32, 16-byte
-// aligned.  Launches on `stream`, allocates nothing, does not synchronise,
-// and returns cudaGetLastError() of the launch (0 = success).
+// aligned, 1 <= k <= kmer_hash_max_k().  Launches on `stream`, allocates
+// nothing, does not synchronise, and returns cudaGetLastError() of the
+// launch (0 = success).
 extern "C" int kmer_hash(const void* bases, void* out, long long rows,
                          long long length, int k, void* stream) {
   const long long n_out = length - k + 1;
   if (rows <= 0 || n_out <= 0) return 0;
   const long long total = rows * n_out;
   const long long blocks = (total + kBlockOut - 1) / kBlockOut;
-  if (k < 1 || ((uintptr_t)out & 15u) || blocks >= (1LL << 31) ||
-      (long long)kBlockOut * k + k >= (1LL << 31))
+  if (k < 1 || k > kMaxK || ((uintptr_t)out & 15u) || blocks >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const bool narrow = total <= 0xFFFFFFFFLL;
   const Rows r{make_divider(narrow ? (uint32_t)n_out : 1u), n_out, narrow};
@@ -198,3 +203,6 @@ extern "C" int kmer_hash(const void* bases, void* out, long long rows,
         (const uint8_t*)bases, (uint32_t*)out, total, r, k);
   return (int)cudaGetLastError();
 }
+
+// The largest k that kmer_hash takes (kMaxK).
+extern "C" int kmer_hash_max_k() { return kMaxK; }

@@ -29,12 +29,6 @@ LAUNCHES = {"kmer_hash": 0}
 #: the k-mers those launches hashed
 ELEMENTS = dict.fromkeys(LAUNCHES, 0)
 
-#: the largest k the wrappers take: the limit the first kernel's shared-memory
-#: tile (256 + k - 1 bytes) set; the kernel now reads a span of bases too
-#: wide for its shared memory from device memory, and takes any k below 2^20
-MAX_K = 48 * 1024 - 255
-
-
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = ELEMENTS[name] = 0
@@ -47,7 +41,15 @@ def _lib() -> ctypes.CDLL:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.kmer_hash.argtypes = [vp, vp, ll, ll, ctypes.c_int, vp]
     lib.kmer_hash.restype = ctypes.c_int
+    lib.kmer_hash_max_k.argtypes = []
+    lib.kmer_hash_max_k.restype = ctypes.c_int
     return lib
+
+
+def max_k() -> int:
+    """The largest k the kernel takes (``kmer_hash_max_k``: 1,048,064, where
+    a block's span of bases still has 32-bit offsets); loads the library."""
+    return _lib().kmer_hash_max_k()
 
 
 def _bases(bases, device) -> torch.Tensor:
@@ -63,18 +65,24 @@ def _bases(bases, device) -> torch.Tensor:
 
 def kmer_hash(bases: torch.Tensor, k: int) -> torch.Tensor:
     """The kernel's wrapper: (R, L) uint8 bases on one device -> (R, L -
-    k + 1) int32 hash words."""
+    k + 1) int32 hash words, for every k in [1, L] as the reference; on
+    the card k above ``max_k()`` raises NotImplementedError."""
     if bases.ndim != 2 or bases.dtype != torch.uint8:
         raise ValueError(f"expected (R, L) uint8 bases, got "
                          f"{tuple(bases.shape)} {bases.dtype}")
     rows, length = bases.shape
-    if not 1 <= k <= min(length, MAX_K):
-        raise ValueError(f"k={k} must be in [1, min(L={length}, {MAX_K})]")
+    if not 1 <= k <= length:
+        raise ValueError(f"k={k} must be in [1, L={length}]")
     if bases.device.type == "cpu":
         return ref.kmer_hashes(bases, k)
     if bases.device.type != "cuda":
         raise ValueError(f"kmer_hash runs on CUDA or CPU tensors, not "
                          f"{bases.device}")
+    if k > max_k():
+        raise NotImplementedError(
+            f"kmer_hash at k={k} > {max_k()} on the card is not ported to "
+            "repro_torch yet: see ROADMAP.md queue 1 item 7b (k-mer hashing "
+            "above the kernel's 32-bit span offsets)")
     bases = bases.contiguous()
     out = torch.empty((rows, length - k + 1), dtype=torch.int32,
                       device=bases.device)

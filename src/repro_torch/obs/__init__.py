@@ -1,10 +1,11 @@
 """repro_torch.obs — host-side metrics and tracing, copies of the JAX
 package's ``obs.registry`` and ``obs.trace`` (which hold no JAX, but the
-port imports nothing of ``repro``).  The in-graph ``obs.metrics``
-telemetry (``stats=True``) is not ported (ROADMAP.md queue 1 item 8)."""
+port imports nothing of ``repro``), and ``obs.metrics``, the port of the
+table telemetry that ``stats=True`` returns (``TableStats``)."""
 
-from repro_torch.obs import registry, trace
+from repro_torch.obs import metrics, registry, trace
+from repro_torch.obs.metrics import TableStats
 from repro_torch.obs.registry import REGISTRY
 from repro_torch.obs.trace import Tracer
 
-__all__ = ["registry", "trace", "REGISTRY", "Tracer"]
+__all__ = ["metrics", "registry", "trace", "REGISTRY", "TableStats", "Tracer"]

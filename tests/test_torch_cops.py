@@ -385,6 +385,52 @@ def test_lookup_case_catches_a_wrong_lookup(monkeypatch, fault):
 
 
 @pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("window", [4, 32])
+def test_plen_case_runs_on_cpu(window, key_words):
+    """The card's probe-length case (``contract.run_plen_case``: TOMBSTONE-
+    only windows, budgets of 1, 2 and num_rows + 3 windows on a store
+    without EMPTY, sentinel queries), run where both sides are the plain
+    versions: every lookup agrees, and the case reaches the walks it is
+    for."""
+    checks = contract.run_plen_case(window=window, device="cpu",
+                                    key_words=key_words)
+    assert len(checks) == 20 and all(checks.values()), checks
+
+
+@pytest.mark.parametrize("fault", ["revisit", "lost_value"])
+def test_plen_case_catches_a_wrong_probe_length(monkeypatch, fault):
+    """The probe-length case fails when a walk that spends its budget
+    reports the windows it read (its clamp at num_rows) in place of the
+    budget ("revisit": only the num_rows + 3 checks fail), or when the
+    ``plen`` launch loses the values ("lost_value": only the checks with a
+    value plane fail)."""
+    real = ops.lookup
+
+    def lookup(table_keys, table_values, keys, *, max_probes, slots=False,
+               plen=False, **kw):
+        out = real(table_keys, table_values, keys, max_probes=max_probes,
+                   slots=slots, plen=plen, **kw)
+        if not plen:
+            return out
+        values, found, slot, lengths = out
+        if fault == "revisit":
+            lengths = lengths.clamp(max=table_keys.shape[-2])
+        elif values is not None:
+            values = torch.zeros_like(values)
+        return values, found, slot, lengths
+
+    monkeypatch.setattr(ops, "lookup", lookup)
+    checks = contract.run_plen_case(window=32, device="cpu")
+    bad = {k for k, ok in checks.items() if not ok}
+    if fault == "revisit":
+        assert bad == {"exact_rows3_values", "exact_rows3_set"}, checks
+    else:
+        assert bad == {k for k in checks
+                       if k.startswith(("exact_", "same_"))
+                       and k.endswith("_values")}, checks
+
+
+@pytest.mark.parametrize("key_words", [1, 2])
 @pytest.mark.parametrize("scheme", ["cops", "linear"])
 @pytest.mark.parametrize("window", [4, 32, 128])
 def test_retrieve_case_runs_on_cpu(window, scheme, key_words):

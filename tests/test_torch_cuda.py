@@ -1128,3 +1128,170 @@ def test_flash_kernel_reads_strided_tensors_and_refuses(dtype):
         with pytest.raises(NotImplementedError, match="item 12b"):
             flash_ops.flash_attention(bad, bad, bad)
         assert flash_ops.LAUNCHES["flash_fwd"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the lookups' probe lengths (PLEN), stats=True and kmer_hash's largest k
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("scheme", ["cops", "linear"])
+@pytest.mark.parametrize("window", [1, 4, 32, 128])
+def test_lookup_plen_holds_to_plain(window, scheme, key_words):
+    """The ``PLEN`` instantiations of ``cops_lookup`` / ``cops_lookup64``:
+    probe lengths bit-exact against ``lookup_plain``'s, and values, found
+    and slots equal to the lookup's without them, on a table near full with
+    TOMBSTONE-only windows, at the table's budget, at 1 and 2 windows, and
+    at num_rows + 3 on a store with no EMPTY slot, where the kernel stops
+    reading at num_rows (``contract.run_plen_case``); all 16 lookups
+    launch the kernel."""
+    _need_card()
+    ops.reset_launches()
+    checks = contract.run_plen_case(window=window, scheme=scheme,
+                                    device="cuda", key_words=key_words)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+    name = "cops_lookup" if key_words == 1 else "cops_lookup64"
+    assert ops.LAUNCHES[name] == 16, ops.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2, 32, 128])
+@pytest.mark.parametrize("key_words", [1, 2])
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 33])
+def test_lookup_plen_batch_sizes(batch, key_words, window):
+    """Probe lengths of batches of 1, 7, 8, 9 and 33 keys around the walk's
+    8 keys a warp (and 16 groups a warp at W = 2), a present key and an
+    absent one in turn (``contract.run_plen_case``)."""
+    _need_card()
+    checks = contract.run_plen_case(window=window, device="cuda",
+                                    key_words=key_words, batch=batch)
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_words", [1, 2])
+def test_stats_on_card_walk_through_the_plen_kernel(key_words):
+    """``stats=True`` on CUDA tables (sv insert / retrieve / update_values,
+    counting insert / counts, mv insert / count_values / retrieve_all):
+    each ``TableStats`` equals, field for field, ``bolt_on_stats`` of a CPU
+    copy of the same post-op store (the plain walk), the outputs equal the
+    same call's with ``stats=False`` on a copy of the table, and each
+    call's bolt-on walk is one more lookup launch; nothing else walks."""
+    import dataclasses
+    from repro_torch.core import counting
+    from repro_torch.obs import metrics
+    _need_card()
+    keys = contract.case_keys(key_words, 3000, "cuda")
+    vals = contract.values_for(keys, 3)
+    b = torch.cat([keys, keys[:500]])
+    v = torch.cat([vals, vals[:500]])
+    mask = torch.arange(b.shape[0], device="cuda") % 7 != 3
+    name = "cops_lookup" if key_words == 1 else "cops_lookup64"
+
+    def copy(t, dev):
+        return dataclasses.replace(t, store={k: x.to(dev, copy=True)
+                                             for k, x in t.store.items()})
+
+    def held(call, table, status=None, m=None, result_table=None):
+        """Run ``call(table, stats)`` with and without stats on copies of
+        ``table``; returns the stats run's outputs."""
+        l0 = ops.LAUNCHES[name]
+        plain = call(copy(table, "cuda"), False)
+        l1 = ops.LAUNCHES[name]
+        got = call(table, True)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] - l1 == l1 - l0 + 1, ops.LAUNCHES
+        *out, st = got
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        for a, c in zip(out, plain):
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, c)
+        after = out[0] if result_table else table
+        s = out[1] if status else None
+        want = metrics.bolt_on_stats(
+            copy(after, "cpu"), b.cpu(), status=None if s is None else s.cpu(),
+            mask=None if m is None else m.cpu())
+        for f in dataclasses.fields(st):
+            assert torch.equal(getattr(st, f.name).cpu(),
+                               getattr(want, f.name)), f.name
+        return out
+
+    ops.reset_launches()
+    t = sv.create(4096, device="cuda", key_words=key_words)
+    t = held(lambda x, st: sv.insert(x, b, v, mask=mask, stats=st), t,
+             status=True, m=mask, result_table=True)[0]
+    held(lambda x, st: sv.retrieve(x, b, stats=st), t)
+    t = held(lambda x, st: sv.update_values(x, b, ("add",), 1, mask=mask,
+                                            combine=("add",), stats=st),
+             t, status=True, m=mask, result_table=True)[0]
+    c = counting.create(4096, device="cuda", key_words=key_words)
+    c = held(lambda x, st: counting.insert(x, b, mask, stats=st), c,
+             status=True, m=mask, result_table=True)[0]
+    held(lambda x, st: counting.counts(x, b, stats=st), c)
+    m = mv.create(4096, device="cuda", key_words=key_words)
+    m = held(lambda x, st: mv.insert(x, b, v, mask=mask, stats=st), m,
+             status=True, m=mask, result_table=True)[0]
+    held(lambda x, st: mv.count_values(x, b, mask=mask, stats=st), m,
+         m=mask)
+    held(lambda x, st: mv.retrieve_all(x, b, 4096, mask=mask, stats=st), m,
+         m=mask)
+
+
+def _wide_kmer_hashes(bases: np.ndarray, k: int) -> np.ndarray:
+    """Canonical k-mer hashes of one row for k > 16, computed apart from
+    ``ref.kmer_hashes``: the forward word is the window's last 16 bases,
+    the reverse word its first 16, and a window with an N is INVALID."""
+    from repro_torch.core.hashing import mix_murmur3
+    n = bases.shape[0] - k + 1
+    b = bases.astype(np.int64)
+    code = b & 3
+    fwd = np.zeros(n, np.int64)
+    rev = np.zeros(n, np.int64)
+    for j in range(16):
+        fwd = (fwd << 2) | code[k - 16 + j:k - 16 + j + n]
+        rev |= (3 - code[j:j + n]) << (2 * j)
+    bad = np.concatenate([[0], np.cumsum(b > 3)])
+    bad = (bad[k:k + n] - bad[:n]) > 0
+    h = mix_murmur3(torch.from_numpy(np.minimum(fwd, rev))).numpy()
+    return np.where(bad, 0xFFFFFFFF, h).astype(np.uint32)
+
+
+@pytest.mark.cuda
+def test_kmer_hash_at_large_k_and_its_limit():
+    """``kmer_hash`` at k = 48898 (above the first kernel's tile) against
+    ``ref.kmer_hashes``, and at the kernel's largest k (``max_k()``,
+    1,048,064) against ``_wide_kmer_hashes`` on rows one k-mer and a few
+    k-mers long (a block spanning ~2048 rows, its span offsets near 2^31);
+    above it the wrapper raises NotImplementedError naming its item and
+    launches nothing."""
+    _need_card()
+    assert mh.max_k() == 1048064
+    rng = np.random.default_rng(48898)
+    one = rng.integers(0, 4, (1, 50000)).astype(np.uint8)
+    one[0, 49500] = 4
+    got = mh.kmer_hash(torch.from_numpy(one).cuda(), 48898)
+    want = mh.kmer_hash(torch.from_numpy(one), 48898)
+    assert torch.equal(got.cpu(), want)
+    assert (want == INVALID_WORD).any() and (want != INVALID_WORD).any()
+    k = mh.max_k()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for length in (k, k + 5):
+        rows = 2100 if length == k else 3          # 2.2 GB, then 3 MB
+        bases = torch.randint(0, 4, (rows, length), dtype=torch.uint8,
+                              device="cuda", generator=gen)
+        bases[1, length // 2] = 4
+        mh.reset_launches()
+        got = mh.kmer_hash(bases, k).cpu().numpy()
+        assert mh.LAUNCHES == {"kmer_hash": 1}
+        for r in (0, 1, rows - 1):
+            assert (got[r].view(np.uint32) == _wide_kmer_hashes(
+                bases[r].cpu().numpy(), k)).all(), (length, r)
+        del bases
+    mh.reset_launches()
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        mh.kmer_hash(torch.zeros((1, k + 1), dtype=torch.uint8,
+                                 device="cuda"), k + 1)
+    assert mh.LAUNCHES == {"kmer_hash": 0}

@@ -279,11 +279,16 @@ def test_counting_parity_and_saturation(backend, scheme, window):
 
 
 def test_counting_refuses_what_is_not_ported():
+    """``stats=True`` and ``insert_or_grow`` run on the counting table
+    (``tests/test_torch_metrics.py`` and ``test_torch_growth.py`` hold them
+    to the reference); the update specs it does not carry refuse."""
     t = tcounting.create(64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcounting.insert(t, np.arange(1, 5, dtype=np.uint32), stats=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcounting.insert_or_grow(t, np.arange(1, 5, dtype=np.uint32))
+    t, status, st = tcounting.insert(t, np.arange(1, 5, dtype=np.uint32),
+                                     stats=True)
+    assert (status == 0).all() and int(st.probe_n) == 4
+    t, status = tcounting.insert_or_grow(t, np.arange(1, 5, dtype=np.uint32))
+    assert to_numpy_u32(tcounting.counts(t, np.arange(1, 5, dtype=np.uint32))
+                        ).tolist() == [2, 2, 2, 2]
     from repro_torch.core import single_value as sv
     with pytest.raises(NotImplementedError, match="item 1c"):
         sv.update_values(t, np.arange(1, 5, dtype=np.uint32), ("or",), 1,

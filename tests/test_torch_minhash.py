@@ -216,3 +216,19 @@ def test_without_card_raises():
         tmh.kmer_hashes(np.zeros(40, np.uint8), k=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmh.sketch_reads(np.zeros((2, 40), np.uint8), k=8, s=4)
+
+
+def test_kmer_hashes_at_a_large_k_match_jax():
+    """k = 48898, above the limit the port once refused (the first card
+    kernel's shared-memory tile): one read of 50,000 bases against the
+    JAX oracle, an N late in the read so that the first 603 windows are
+    valid and the rest INVALID.  On the CPU every k in [1, L] runs, as in
+    the reference."""
+    rng = np.random.default_rng(48898)
+    bases = rng.integers(0, 4, 50000).astype(np.uint8)
+    bases[49500] = 4
+    want = np.asarray(jref.kmer_hashes(jnp.asarray(bases), 48898))
+    got = to_numpy_u32(tmh.kmer_hashes(bases, k=48898, device="cpu"))
+    np.testing.assert_array_equal(got, want)
+    assert (want[:603] != tref.INVALID).all()
+    assert (want[603:] == tref.INVALID).all()

@@ -257,12 +257,29 @@ def _stats_calls():
 
 @pytest.mark.parametrize("entry", sorted(_stats_calls()))
 def test_stats_keyword(entry):
-    """The reference's ``stats`` keyword: ``False`` runs, ``True`` (the
-    in-graph telemetry) refuses naming ROADMAP.md item 8."""
+    """The reference's ``stats`` keyword: on the single- and multi-value
+    tables ``True`` runs and returns the ``stats=False`` outputs with a
+    ``TableStats`` beside them (``tests/test_torch_metrics.py`` holds the
+    stats to the reference); the bucket list refuses it naming ROADMAP.md
+    item 5b."""
+    from repro_torch.obs.metrics import TableStats
     call = _stats_calls()[entry]
-    call(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        call(True)
+    plain = call(False)
+    if entry.startswith("bl."):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1 item 5b"):
+            call(True)
+        return
+    got = call(True)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    assert len(got) == len(plain) + 1
+    assert isinstance(got[-1], TableStats)
+    for a, b in zip(got, plain):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            for k in a.store:
+                assert torch.equal(a.store[k], b.store[k])
 
 
 def test_unknown_configurations_raise():
